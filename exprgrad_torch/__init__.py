@@ -12,7 +12,11 @@ Quick start::
     from exprgrad_torch.models import flash_transformer
 
     model = egt.compile(flash_transformer(), seed=0, device="cuda")
+    model.fit("train", {"tokens": tokens, "labels": labels}, batch_size=8)
     probs = model.call("predict", {"tokens": tokens})
+
+Checkpoints: ``exprgrad_torch.io``; the training driver:
+``exprgrad_torch.train``.
 """
 
 from exprgrad_tpu.errors import (

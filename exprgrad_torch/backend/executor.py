@@ -7,12 +7,18 @@ another on every call.  State is functional as in the JAX package: the
 executor returns the updated parameter/cache tensors and the model
 runtime swaps them in.
 
+``run_epoch`` (``fit(scan_batches=True)``) takes the place of the JAX
+package's ``lax.scan`` over stacked batches: the batches are copied to
+the device once, then a loop on the host runs the target on each,
+carrying the updated parameters and caches from batch to batch.
+
 Not ported: the matmul-epilogue and row-chain fusion plans, which belong
 to the scheduled-kernel emitters (``backend/pallasgen.py``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from exprgrad_tpu import ir
@@ -123,8 +129,29 @@ class TorchExecutor:
         self._ran = True
         return {tid: tensors[tid] for tid in self.output_tids}
 
-    def run_epoch(self, tensors, batches, epoch, seeds):
-        raise NotImplementedError(
-            "the scan-epoch fit (fit(scan_batches=True)) is not ported yet; "
-            "use fit(scan_batches=False)"
-        )
+    def run_epoch(
+        self,
+        tensors: dict[int, torch.Tensor],
+        batches: dict[int, np.ndarray],
+        epoch: int,
+        seeds,
+    ) -> dict[int, torch.Tensor]:
+        """Run one full epoch; ``batches`` maps input tid -> stacked array
+        of shape [n_batches, batch, ...].  Returns updated state tensors."""
+        state = {tid: tensors[tid] for tid in self.donated_tids}
+        const_inputs = {
+            tid: tensors[tid]
+            for tid in self.kept_tids
+            if tid not in batches
+        }
+        stacked = {
+            tid: torch.from_numpy(np.ascontiguousarray(value)).to(
+                device=self.device, dtype=self.dtype)
+            for tid, value in batches.items()
+        }
+        for i, seed in enumerate(seeds):
+            batch = {tid: value[i] for tid, value in stacked.items()}
+            result = self.run({**const_inputs, **state, **batch},
+                              self.shapes, epoch, int(seed))
+            state = {tid: result[tid] for tid in state}
+        return state

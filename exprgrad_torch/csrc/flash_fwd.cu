@@ -32,20 +32,16 @@
 // asks of float32 (TF32 tensor cores would round the inputs); no async
 // copies.  mma.sync/wgmma for bfloat16, and TMA, are later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 32;     // query rows per block
-constexpr int kBlockK = 32;     // kv rows per tile (one per lane)
-constexpr int kMaxD = 128;      // largest head_dim taken
-constexpr int kWarps = 4;
-constexpr int kRows = kBlockQ / kWarps;   // query rows per warp
-constexpr int kCols = kMaxD / 32;         // output columns per lane
-constexpr float kMasked = -1e30f;         // ops/attention.py _NEG_INF
+using namespace egt_flash;
+
+constexpr int kBlockQ = kTile;  // query rows per block
+constexpr int kBlockK = kTile;  // kv rows per tile (one per lane)
 
 // shared memory: Q [kBlockQ][kMaxD], K [kBlockK][kMaxD + 1] (padded so
 // lanes reading one column of K hit distinct banks), V [kBlockK][kMaxD],
@@ -53,30 +49,6 @@ constexpr float kMasked = -1e30f;         // ops/attention.py _NEG_INF
 constexpr int kSmemFloats = kBlockQ * kMaxD + kBlockK * (kMaxD + 1) +
                             kBlockK * kMaxD + kBlockQ * kBlockK;
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -109,12 +81,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         q0 + r < sq ? to_float(qp[(size_t)(q0 + r) * d + c]) : 0.f;
   }
 
-  // live band of kv positions for this q tile, in local kv indices
-  const int row_lo = q0 + q_off;
-  const int row_hi = min(q0 + kBlockQ, sq) - 1 + q_off;
-  int c_lo = 0, c_hi = skv - 1;
-  if (window > 0) c_lo = max(c_lo, row_lo - window + 1 - k_off);
-  if (causal) c_hi = min(c_hi, row_hi - k_off);
+  // live band of kv tiles for this q tile
+  const Band band = kv_band(q0, min(q0 + kBlockQ, sq) - 1, skv, causal,
+                            window, q_off, k_off);
 
   float m[kRows], l[kRows], acc[kRows][kCols];
   bool live[kRows];
@@ -127,9 +96,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < kCols; ++jj) acc[rr][jj] = 0.f;
   }
 
-  const int t_lo = c_lo / kBlockK;
-  const int t_hi = c_hi >= c_lo ? c_hi / kBlockK : t_lo - 1;
-  for (int t = t_lo; t <= t_hi; ++t) {
+  for (int t = band.lo; t <= band.hi; ++t) {
     const int kv0 = t * kBlockK;
     __syncthreads();  // the previous tile's K/V reads are done
     for (int i = tid; i < kBlockK * d; i += blockDim.x) {
@@ -158,8 +125,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int rr = 0; rr < kRows; ++rr) {
       const int row = q0 + r0 + rr + q_off;
-      const bool keep = col_in && (!causal || col <= row) &&
-                        (window <= 0 || col > row - window);
+      const bool keep = col_in && attends(row, col, causal, window);
       const float sv = keep ? s[rr] * scale : kMasked;
       const bool any_keep = __any_sync(0xffffffffu, keep);
       live[rr] = live[rr] || any_keep;
@@ -211,13 +177,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int causal, int window, int q_off, int k_off,
            cudaStream_t stream) {
   static bool smem_set = false;
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
+  const int err = allow_smem(flash_fwd_kernel<T>, kSmemBytes, &smem_set);
+  if (err != (int)cudaSuccess) return err;
   const dim3 grid(b * h, (sq + kBlockQ - 1) / kBlockQ);
   flash_fwd_kernel<T><<<grid, kWarps * 32, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

@@ -134,6 +134,22 @@ class Model(_ReferenceModel):
 
         return run
 
+    def ema_params(self) -> dict[int, torch.Tensor]:
+        """Debiased EMA shadow parameters (train with
+        ``layers.with_ema(opt, decay)``), keyed by parameter tensor id, as
+        tensors on ``device``: serve them with
+        ``model.params.update(model.ema_params())``.
+
+        The reference method reads the caches as numpy arrays; it runs
+        here on host copies of them."""
+        caches = self.caches
+        self.caches = {t: v.cpu().numpy() for t, v in caches.items()}
+        try:
+            host = super().ema_params()
+        finally:
+            self.caches = caches
+        return {t: self._to_device(v) for t, v in host.items()}
+
     def astype(self, dtype: str) -> "Model":
         """A new model with the same program, state and epoch cast to
         ``dtype`` ("float32" or "float64"), on the same device."""
@@ -170,9 +186,6 @@ class Model(_ReferenceModel):
 
     def autotune(self, *args, **kwargs):
         self._not_ported("autotune")
-
-    def _fit_scan(self, *args, **kwargs):
-        self._not_ported("fit(scan_batches=True)")
 
 
 def compile(  # noqa: A001

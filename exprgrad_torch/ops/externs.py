@@ -1,13 +1,16 @@
-"""Built-in extern ops of the port: fused attention (forward).
+"""Built-in extern ops of the port: fused attention (forward + backward).
 
-Counterpart of ``exprgrad_tpu/ops/externs.py``.  ``attention`` carries two
-implementations behind its ``impl`` attribute:
+Counterpart of ``exprgrad_tpu/ops/externs.py``.  ``attention`` and
+``attention_grad`` carry two implementations behind their ``impl``
+attribute:
 
-* ``"flash"`` — the flash-attention forward of ``ops/attention.py``: the
-  CUDA kernel on the card, its plain version on the CPU.
-* ``"xla"``   — :func:`~.attention.attention_forward_plain`, plain torch
-  attention that materializes the weights, as the JAX package's
-  non-kernel path does (on any device).  Taken only when asked for.
+* ``"flash"`` — the flash-attention kernels of ``ops/attention.py``
+  (forward; dq and dkv): the CUDA kernels on the card, their plain
+  versions on the CPU.
+* ``"xla"``   — :func:`~.attention.attention_forward_plain` and
+  :func:`~.attention.attention_backward_plain`, plain torch attention
+  that materializes the weights, as the JAX package's non-kernel path
+  does (on any device).  Taken only when asked for.
 * ``"auto"``  — ``flash``, for every shape.  The JAX package routes
   shapes that miss its TPU block divisibility, or that its TPU-calibrated
   cost model prefers, to ``xla``; the CUDA kernel tiles with bounds
@@ -15,8 +18,11 @@ implementations behind its ``impl`` attribute:
   On the card a shape the kernel cannot take (head_dim > 128, a dtype
   other than float32/bfloat16) raises instead of running the plain path.
 
-Both return ``(out, lse [b*h, sq])`` and record the same
-``attention-impl:*`` lowering stats as the JAX package.
+The forward returns ``(out, lse [b*h, sq])``, the backward
+``(dq, dk, dv)``; they record the same ``attention-impl:*`` and
+``attention-grad-impl:*`` lowering stats as the JAX package.  Each op runs
+once per target run: the executor's extern memo hands its outputs to the
+kernels that read them.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from __future__ import annotations
 import math
 
 from ..registry import register_extern
-from .attention import attention_forward_plain, flash_attention_forward
+from .attention import (attention_backward_plain, attention_forward_plain,
+                        flash_attention_backward, flash_attention_forward)
 
 
 def _scale(attrs: dict, d: int) -> float:
@@ -60,11 +67,18 @@ def _attention(args, attrs, ctx):
 
 
 def _attention_grad(args, attrs, ctx):
-    raise NotImplementedError(
-        "attention_grad has no torch implementation yet: training through "
-        "attention needs the flash backward kernels (ROADMAP.md, queue A "
-        "item 1: B3/B4 and attention_grad)"
-    )
+    q, k, v, out, lse, g = (a.contiguous() for a in args)
+    scale = _scale(attrs, q.shape[-1])
+    causal = bool(attrs.get("causal", False))
+    window = _window(attrs)
+    impl = _pick_impl(attrs)
+    if ctx is not None:
+        ctx.record(f"attention-grad-impl:{impl}")
+    if impl == "flash":
+        return flash_attention_backward(q, k, v, out, lse, g, scale, causal,
+                                        window=window)
+    return attention_backward_plain(q, k, v, out, lse, g, scale, causal,
+                                    window=window)
 
 
 register_extern("attention", 2, _attention)

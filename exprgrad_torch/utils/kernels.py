@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (``exprgrad_torch/csrc/*.cu``).
 
 The counterpart of ``exprgrad_tpu/utils/native.py``, for device code:
-the sources are compiled with ``nvcc`` by hand into one shared library
-with a plain C interface, loaded with ``ctypes``.  The library lands in
+the sources are compiled with ``nvcc`` by hand, one process per ``.cu``
+file, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The library lands in
 ``build/exprgrad_torch/`` at the repository root, named by a hash of the
 sources and flags, so a second process (or a second call) reuses it.
 
@@ -28,7 +29,7 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "exprgrad_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -39,6 +40,14 @@ _SIGNATURES = {
     # q_off, k_off, dtype, stream
     "egt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       ctypes.c_float, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, dout, lse, delta, dq, b, h, hkv, sq, skv, d, scale,
+    # causal, window, q_off, k_off, dtype, stream
+    "egt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _P],
+    # q, k, v, dout, lse, delta, dk, dv, b, h, hkv, sq, skv, d, scale,
+    # causal, window, q_off, k_off, dtype, stream
+    "egt_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -75,21 +84,40 @@ def library_path() -> Path:
 def _build(path: Path) -> None:
     global build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # build under a temporary name, then rename: a concurrent process
+    nvcc = _nvcc()
+    # build under temporary names, then rename: a concurrent process
     # never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{build_log}"
-        )
-    os.replace(tmp, path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        compiles = []
+        for src in _sources():
+            if src.suffix != ".cu":
+                continue
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            compiles.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        lib = os.path.join(tmp, path.name)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
+                *(obj for _, obj, _ in compiles)]
+        logs, failed = [], None
+        for cmd, _, proc in compiles:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0 and failed is None:
+                failed = (cmd, proc.returncode)
+        if failed is None:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed = (link, proc.returncode)
+        build_log = "".join(logs)
+        if failed is not None:
+            cmd, code = failed
+            raise RuntimeError(
+                f"nvcc failed (exit {code}): {' '.join(cmd)}\n{build_log}"
+            )
+        os.replace(lib, path)
 
 
 def load() -> ctypes.CDLL:

@@ -176,11 +176,6 @@ def test_auto_routes_to_flash(sq, skv):
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=0)
 
 
-def test_attention_grad_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="B3/B4"):
-        port_externs._attention_grad([], {}, None)
-
-
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
