@@ -1,10 +1,12 @@
 """exprgrad-torch: the exprgrad DSL on PyTorch and CUDA.
 
-The port of ``exprgrad_tpu`` to one NVIDIA GPU.  The front end — the DSL,
-IR, passes and layer library — is shared with the JAX package and
-re-exported here; below the IR this package lowers kernels to torch
-operations and runs hand-written CUDA kernels where the JAX package ran
-Pallas kernels.  It never imports jax.
+The port of ``exprgrad_tpu`` to one NVIDIA GPU.  The front end — the DSL
+(``fun.py``, ``expr.py``), the IR (``ir.py``, ``irprint.py``), ``passes/``,
+``layers/``, the numpy oracle ``interp.py`` and the DSL model builders —
+is this package's own copy of the JAX package's, at the same relative
+paths; below the IR this package lowers kernels to torch operations and
+runs hand-written CUDA kernels where the JAX package ran Pallas kernels.
+It imports neither jax nor the JAX package.
 
 Quick start::
 
@@ -19,7 +21,7 @@ Checkpoints: ``exprgrad_torch.io``; the training driver:
 ``exprgrad_torch.train``.
 """
 
-from exprgrad_tpu.errors import (
+from .errors import (
     ExprgradError,
     GradientError,
     GeneratorError,
@@ -32,7 +34,7 @@ from exprgrad_tpu.errors import (
     StageError,
     ValidationError,
 )
-from exprgrad_tpu.expr import (
+from .expr import (
     Boolean,
     Index,
     Scalar,
@@ -59,7 +61,7 @@ from exprgrad_tpu.expr import (
     to_scalar,
     wrap,
 )
-from exprgrad_tpu.fun import (
+from .fun import (
     Fun,
     cache,
     cond,
@@ -76,13 +78,14 @@ from exprgrad_tpu.fun import (
 )
 
 from . import models
-from .model import Model, compile, from_reference
+from .model import Model, compile, from_state
 from .registry import register_extern
+from .tensor import Tensor
 
 __all__ = [
-    "Boolean", "Index", "Scalar", "Fun", "Model", "array", "cache",
+    "Boolean", "Index", "Scalar", "Fun", "Model", "Tensor", "array", "cache",
     "compile", "cond", "cos", "debug_index", "debug_scalar", "epoch", "exp",
-    "extern", "extern_grads", "from_reference", "grad", "input", "input_",
+    "extern", "extern_grads", "from_state", "grad", "input", "input_",
     "irange", "iters", "layer", "ln", "log", "log10", "log2", "make_opt",
     "maximum", "minimum", "models", "param", "pow_", "rand",
     "register_extern", "select", "sin", "sq", "sqrt", "to_index",

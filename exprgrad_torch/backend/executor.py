@@ -12,8 +12,12 @@ package's ``lax.scan`` over stacked batches: the batches are copied to
 the device once, then a loop on the host runs the target on each,
 carrying the updated parameters and caches from batch to batch.
 
-Not ported: the matmul-epilogue and row-chain fusion plans, which belong
-to the scheduled-kernel emitters (``backend/pallasgen.py``).
+Scheduled matmuls fold their elementwise consumers into kernel B1's
+epilogue by the plan of :func:`~exprgrad_torch.backend.scheduled.
+plan_epilogue_fusions`, as in the JAX executor: the folded kernels are
+skipped, the intermediates they dropped are never allocated, and the
+chain's value lands in its final tensor.  Not ported: the row-chain
+fusion plan, which belongs to kernel B6 (ROADMAP.md A11).
 """
 
 from __future__ import annotations
@@ -21,10 +25,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from exprgrad_tpu import ir
-from exprgrad_tpu.interp import accumulation_identity, extreme_accumulated_results
-from exprgrad_tpu.ir import Program
+from .. import ir
+from ..interp import accumulation_identity, extreme_accumulated_results
+from ..ir import Program
 
+from .policy import SchedulePolicy
+from .scheduled import plan_epilogue_fusions
 from .torcheval import KernelLowering
 
 
@@ -46,7 +52,12 @@ class TorchExecutor:
         self.shapes = shapes
         self.device = device
         self.dtype = torch_dtype(program)
-        self.schedule_mode = schedule_mode
+        self.policy = SchedulePolicy(schedule_mode)
+        # matmul+epilogue fusion plan: scheduled matmuls whose elementwise
+        # consumer chain folds into the kernel's epilogue
+        (self.fused, self._skip_kernels, self._fused_away,
+         self.epilogue_declines) = plan_epilogue_fusions(
+            program, self.target, shapes, self.dtype, device, self.policy)
 
         self.input_tids = sorted(
             tid
@@ -65,9 +76,10 @@ class TorchExecutor:
         }
         # outputs: the state the runtime reads back and the target's result
         self.output_tids = sorted(
-            state_written
-            | ({self.target.output} if self.target.output is not None
-               else set())
+            (state_written
+             | ({self.target.output} if self.target.output is not None
+                else set()))
+            - self._fused_away
         )
         self.random_tids = sorted(
             tid
@@ -98,7 +110,8 @@ class TorchExecutor:
         program = self.program
         tensors = dict(tensors)
         for tid in sorted(self.target.tensors):
-            if program.tensors[tid].kind != ir.TensorKind.RESULT:
+            if (program.tensors[tid].kind != ir.TensorKind.RESULT
+                    or tid in self._fused_away):
                 continue
             shape = tuple(self.shapes[tid])
             if tid in self._extreme:
@@ -121,10 +134,21 @@ class TorchExecutor:
                 ) * (hi - lo) + lo
         stats = None if self._ran else self.stats
         extern_memo: dict = {}  # one logical extern call per run
-        for kernel in self.target.kernels:
+        for i, kernel in enumerate(self.target.kernels):
+            if i in self._skip_kernels:
+                continue  # folded into an earlier matmul's epilogue
+            if i in self.fused:
+                sm, chain = self.fused[i]
+                value = sm.lower_fused(tensors, chain)
+                t2 = chain.final_tensor
+                tensors[t2] = tensors[t2] + value.reshape(
+                    tuple(self.shapes[t2]))
+                if stats is not None:
+                    stats["matmul-fused"] = stats.get("matmul-fused", 0) + 1
+                continue
             KernelLowering(
                 program, kernel, self.shapes, self.dtype, self.device,
-                self.schedule_mode, extern_memo, self._consts,
+                self.policy, extern_memo, self._consts,
             ).run(tensors, epoch, stats)
         self._ran = True
         return {tid: tensors[tid] for tid in self.output_tids}

@@ -1,0 +1,56 @@
+"""Routing of user schedules: the hand-written kernel or the plain lowering.
+
+Counterpart of ``exprgrad_tpu/backend/policy.py`` for the modes and the
+fallback report:
+
+* ``schedule_mode="auto"`` (default): a scheduled contraction that the
+  classifier accepts runs the kernel.  The JAX package decides ``auto``
+  with a cost model calibrated on the TPU (``pallas_calibration.json``);
+  those constants are TPU measurements and are not ported, so here
+  ``auto`` takes the kernel whenever the classifier accepts.  A cost model
+  measured on the H100 waits for ROADMAP.md A6.
+* ``schedule_mode="force"``: always honor a schedule the classifier
+  accepts.
+* ``schedule_mode="ignore"``: never run the kernel for a schedule.
+
+A schedule that ends on a plain path is reported (``ScheduleWarning`` and
+a ``schedule-fallback`` stat), never ignored silently.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+from ..errors import ScheduleWarning
+
+_MODES = ("auto", "force", "ignore")
+
+
+class SchedulePolicy:
+    """Routing decisions and fallback reporting for one compiled model."""
+
+    def __init__(self, mode: str = "auto") -> None:
+        if mode not in _MODES:
+            raise ValueError(
+                f"schedule_mode must be one of {_MODES}, got {mode!r}"
+            )
+        self.mode = mode
+
+    @property
+    def routes_schedules(self) -> bool:
+        """Whether schedules reach the kernel at all: under ``auto`` and
+        ``force`` every contraction the classifier accepts runs it."""
+        return self.mode != "ignore"
+
+    def fallback(self, stats: dict | None, kernel_desc: str,
+                 reason: str) -> None:
+        """Record and warn that a schedule fell back to the plain
+        lowering."""
+        if stats is not None:
+            stats["schedule-fallback"] = stats.get("schedule-fallback", 0) + 1
+        warnings.warn(
+            f"schedule on {kernel_desc} not routed to a kernel: {reason} "
+            "(compile with schedule_mode='ignore' to silence)",
+            ScheduleWarning,
+            stacklevel=2,
+        )

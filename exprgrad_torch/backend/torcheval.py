@@ -22,37 +22,34 @@ Tensors are never updated in place: a write returns a new tensor, as in
 the JAX package, so the model's parameters stay intact until the run
 that updates them has finished.
 
-Scheduled kernels (``Fun.schedule``) have no Hopper kernel yet: they
-lower through the paths above with a ``ScheduleWarning`` and a
-``schedule-fallback`` stat, as the JAX package does under
-``schedule_mode="auto"``; ``schedule_mode="force"`` raises.
+Scheduled kernels (``Fun.schedule``) are routed first, as
+``jaxeval.py`` routes them: a contraction the classifier of
+:mod:`~exprgrad_torch.backend.scheduled` accepts runs kernel B1 (stat
+``matmul``) under the policy of :mod:`~exprgrad_torch.backend.policy`.
+A decline lowers through the paths above with a ``ScheduleWarning`` and
+a ``schedule-fallback`` stat.  Under ``schedule_mode="force"`` a declined
+kernel for which the JAX package has no plain route of its own raises:
+the JAX package would run its generated map/reduce or row-chain kernel
+there (B5, B6), which the port does not have yet.
 """
 
 from __future__ import annotations
 
 import string
-import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from exprgrad_tpu import ir
-from exprgrad_tpu.errors import ModelRuntimeError, ScheduleWarning, ShapeError
-from exprgrad_tpu.interp import accumulation_identity
-from exprgrad_tpu.ir import Kernel, LinearIndex, Op, Program
-from exprgrad_tpu.passes.shapes import resolve_loop_bounds
+from .. import ir
+from ..errors import ModelRuntimeError, ShapeError
+from ..interp import accumulation_identity
+from ..ir import Kernel, LinearIndex, Op, Program
+from ..passes.shapes import resolve_loop_bounds
 
 from ..registry import ExternContext, get_extern
-
-
-def is_scheduled(kernel: Kernel) -> bool:
-    """True when the user attached any schedule directive to the kernel."""
-    return any(
-        loop.schedule.tile or loop.schedule.parallel
-        or loop.schedule.share_cache
-        for loop in kernel.loops
-    ) or any(r.schedule.cache for r in kernel.reads)
+from .policy import SchedulePolicy
+from .scheduled import ScheduledMatmul, is_scheduled
 
 
 def _is_t(x) -> bool:
@@ -146,7 +143,7 @@ class KernelLowering:
         shapes: dict[int, list[int]],
         dtype: torch.dtype,
         device: torch.device,
-        schedule_mode: str = "auto",
+        policy: Optional[SchedulePolicy] = None,
         extern_memo: Optional[dict] = None,
         consts: Optional[dict] = None,
     ) -> None:
@@ -155,7 +152,7 @@ class KernelLowering:
         self.shapes = shapes
         self.dtype = dtype
         self.device = device
-        self.schedule_mode = schedule_mode
+        self.policy = policy if policy is not None else SchedulePolicy()
         self.extern_memo = extern_memo if extern_memo is not None else {}
         self.consts = consts if consts is not None else {}
         self.nloops = len(kernel.loops)
@@ -920,23 +917,42 @@ class KernelLowering:
             # recompute kernels need no fence in eager execution: nothing
             # can hoist or merge them; the stat still counts them
             stats["remat"] = stats.get("remat", 0) + 1
-        scheduled = (is_scheduled(self.kernel)
-                     and self.schedule_mode != "ignore")
-        if scheduled and self.schedule_mode == "force":
-            raise ModelRuntimeError(
-                f"schedule on {self._kernel_desc()} cannot be forced: the "
-                "port has no Hopper kernel for scheduled kernels yet "
-                "(ROADMAP.md B1, B5, B6); compile with schedule_mode="
-                "'auto' or 'ignore'"
-            )
         # add-accumulation with static bounds is required by the einsum
-        # matcher; dynamic bounds need the general path's hull mask
+        # matcher and the matmul kernel; dynamic bounds need the general
+        # path's hull mask
         general_only = (
             self.kernel.write.accumulate != "add" or bool(self.dynamic_axes)
         )
         result = None
         path = "einsum"
-        if not general_only:
+        fallback_reason = None
+        if is_scheduled(self.kernel) and self.policy.routes_schedules:
+            sm = None if general_only else ScheduledMatmul(self, self.kernel)
+            if sm is not None and sm.ok:
+                path = "matmul"
+                result = sm.lower(tensors)
+            else:
+                why = (sm.why if sm is not None else
+                       "not an add-accumulated kernel with static bounds")
+                fallback_reason = f"unsupported kernel shape ({why})"
+                if (self.policy.mode == "force"
+                        and self.dtype != torch.float64):
+                    # the JAX package's own plain route for a declined
+                    # schedule is the einsum path (its map/reduce emitter
+                    # declines float64 and contractions); anything else
+                    # it runs on kernels the port has not ported yet
+                    if not general_only:
+                        result = self._try_contraction(tensors)
+                    if result is None:
+                        raise ModelRuntimeError(
+                            f"schedule on {self._kernel_desc()} cannot be "
+                            f"forced: {why}; the JAX package runs such "
+                            "kernels on its generated map/reduce and "
+                            "row-chain kernels, which the port has not "
+                            "ported yet (ROADMAP.md B5, B6); compile with "
+                            "schedule_mode='auto' or 'ignore'"
+                        )
+        if result is None and not general_only:
             result = self._try_contraction(tensors)
         if result is None:
             self.sub_path = "unknown"
@@ -944,15 +960,7 @@ class KernelLowering:
             path = f"general-{self.sub_path}"
         if stats is not None:
             stats[path] = stats.get(path, 0) + 1
-            if scheduled:
-                stats["schedule-fallback"] = (
-                    stats.get("schedule-fallback", 0) + 1)
-                warnings.warn(
-                    f"schedule on {self._kernel_desc()} not routed to a "
-                    "kernel: the port has no Hopper kernel for scheduled "
-                    f"kernels yet; lowered via {path} (compile with "
-                    "schedule_mode='ignore' to silence)",
-                    ScheduleWarning,
-                    stacklevel=2,
-                )
+            if fallback_reason is not None:
+                self.policy.fallback(stats, self._kernel_desc(),
+                                     f"{fallback_reason}; lowered via {path}")
         tensors[self.kernel.write.tensor] = result

@@ -1,9 +1,10 @@
-"""Model runtime of the port: the JAX package's ``Model`` on torch tensors.
+"""Model runtime of the port: compile graphs, run named targets, train in
+batches, with state in torch tensors on an explicit ``device``.
 
-``exprgrad_torch.Model`` subclasses ``exprgrad_tpu.model.Model`` and keeps
-its runtime (targets, ``call``/``apply``/``fit``, batch buckets, stats);
-what changes is underneath: parameters and caches are torch tensors on an
-explicit ``device``, and each target runs through
+Counterpart of ``exprgrad_tpu/model.py``: the same runtime (targets,
+``call``/``apply``/``fit``, batch buckets, lowering stats, the numpy seed
+stream that draws the initial parameters), over the port's own front end.
+Each target runs through
 :class:`~exprgrad_torch.backend.executor.TorchExecutor`.
 
 ``device`` is never guessed: ``"cuda"`` is the default, and without a GPU
@@ -19,11 +20,33 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from exprgrad_tpu import ir
-from exprgrad_tpu.fun import Fun, to_program
-from exprgrad_tpu.model import Model as _ReferenceModel
-
+from . import ir
 from .backend.executor import TorchExecutor, torch_dtype
+from .backend.policy import SchedulePolicy
+from .errors import ModelRuntimeError
+from .fun import Fun, to_program
+from .irprint import fmt_program
+from .passes import compile_program, infer_shapes
+from .utils.buckets import bucket_for, normalize_buckets
+
+_MASK64 = (1 << 64) - 1
+
+
+def shuffle_indices(count: int, seed: int) -> np.ndarray:
+    """A permutation of ``range(count)``: Fisher-Yates driven by
+    SplitMix64, the order the JAX package's native shuffle gives for the
+    same seed (``native/egtpu_native.cpp``)."""
+    out = np.arange(count, dtype=np.int64)
+    state = (seed + 0x9E3779B97F4A7C15) & _MASK64
+    for i in range(count - 1, 0, -1):
+        state = (state + 0x9E3779B97F4A7C15) & _MASK64
+        z = state
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+        z ^= z >> 31
+        j = z % (i + 1)
+        out[i], out[j] = out[j], out[i]
+    return out
 
 
 def resolve_device(device) -> torch.device:
@@ -55,7 +78,7 @@ def matmul_precision(precision: str):
          torch.backends.cudnn.allow_tf32) = saved
 
 
-class Model(_ReferenceModel):
+class Model:
     """A compiled model whose state lives in torch tensors on ``device``."""
 
     def __init__(
@@ -69,14 +92,45 @@ class Model(_ReferenceModel):
     ) -> None:
         if precision not in ("highest", "high", "default"):
             raise ValueError(f"unknown precision {precision!r}")
+        SchedulePolicy(schedule_mode)  # raises on an unknown mode
         self.device = resolve_device(device)
-        super().__init__(source, backend="torch", seed=seed,
-                         precision=precision, schedule_mode=schedule_mode,
-                         init_params=init_params)
-        # the reference runtime draws the initial values with numpy (the
-        # same stream as the JAX package for the same seed); move them
-        self.params = {t: self._to_device(v) for t, v in self.params.items()}
-        self.caches = {t: self._to_device(v) for t, v in self.caches.items()}
+        self.source = source
+        self.precision = precision
+        self.schedule_mode = schedule_mode
+        self.program = source.copy()
+        compile_program(self.program)
+        self.epoch = 0
+        self._rng = np.random.default_rng(seed)
+        self._executors: dict = {}
+        self._call_count = 0
+        self.batch_buckets = None  # see set_batch_buckets
+        self._bucket_track_memo: dict = {}
+        self._mutates_memo: dict = {}
+        self.params: dict[int, torch.Tensor] = {}
+        self.caches: dict[int, torch.Tensor] = {}
+        if not init_params:
+            return
+        # The JAX package's draw, value for value: large float32 tensors
+        # draw natively in float32, small ones (and float64 models) keep
+        # the float64 stream, so the same seed gives the same parameters.
+        dtype = np.dtype(self.program.scalar_type.value)
+        fast_floor = 1 << 16
+        for tid in self.program.params:
+            tdef = self.program.tensors[tid]
+            lo, hi = tdef.init_range
+            n = int(np.prod(tdef.shape, dtype=np.int64))
+            if dtype != np.float64 and n >= fast_floor:
+                r = self._rng.random(size=tdef.shape, dtype=np.float32)
+                r *= np.float32(hi - lo)
+                r += np.float32(lo)
+                value = r
+            else:
+                value = self._rng.uniform(lo, hi, size=tdef.shape)
+            self.params[tid] = self._to_device(value)
+        for tid in self.program.caches:
+            self.caches[tid] = torch.zeros(
+                tuple(self.program.tensors[tid].shape), dtype=self.dtype,
+                device=self.device)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -88,6 +142,108 @@ class Model(_ReferenceModel):
         array = np.asarray(value, dtype=self.program.scalar_type.value)
         return torch.tensor(array, device=self.device)
 
+    # --- introspection ------------------------------------------------
+    def emit_ir(self, target: Optional[str] = None) -> str:
+        """IR dump for inspection; ``target`` restricts to one target and
+        the tensors it references."""
+        if target is not None and target not in self.program.targets:
+            raise ModelRuntimeError(f"unknown target {target!r}")
+        return fmt_program(self.program, target)
+
+    def lowering_stats(self, target_name: str) -> dict[str, int]:
+        """How each kernel of already-compiled executors was lowered
+        (einsum / matmul / matmul-fused / general / extern ...)."""
+        out: dict[str, int] = {}
+        for (name, _), executor in self._executors.items():
+            if name == target_name:
+                for key, count in executor.stats.items():
+                    out[key] = out.get(key, 0) + count
+        return out
+
+    def executable(self, target_name: str,
+                   input_shapes: dict[str, Sequence[int]]):
+        """Callable bound to fixed input shapes: ``fn(args) -> tensor``;
+        inputs are copied to ``device`` and the output stays there.
+        Parameters are read from the model at call time."""
+        pairs = [
+            (self.program.inputs[name], list(shape))
+            for name, shape in input_shapes.items()
+        ]
+        shapes = infer_shapes(self.program, target_name, pairs)
+        executor = self._executor(target_name, shapes)
+        output = self.program.targets[target_name].output
+
+        def fn(args: dict):
+            tensors = {
+                self.program.inputs[name]: self._to_device(value)
+                for name, value in args.items()
+            }
+            tensors.update(self.params)
+            tensors.update(self.caches)
+            seed = int(self._rng.integers(0, 2**31 - 1))
+            with matmul_precision(self.precision):
+                result = executor.run(tensors, shapes, self.epoch, seed)
+            return result[output] if output is not None else None
+
+        return fn
+
+    def ema_params(self) -> dict[int, torch.Tensor]:
+        """Debiased EMA shadow parameters (train with
+        ``layers.with_ema(opt, decay)``), keyed by parameter tensor id, as
+        tensors on ``device``: serve them with
+        ``model.params.update(model.ema_params())``.
+
+        The ``"ema.w"`` companion cache tracks the exact bias weight
+        (``1 - decay^steps``), so the values are ``ema / ema.w``."""
+        shadows: dict[int, int] = {}
+        weights: dict[int, int] = {}
+        for tid, tdef in enumerate(self.program.tensors):
+            if (
+                tdef.kind != ir.TensorKind.CACHE
+                or tdef.cache_of is None
+                or tid not in self.caches
+            ):
+                continue
+            table = {"ema": shadows, "ema.w": weights}.get(tdef.name)
+            if table is None:
+                continue
+            if tdef.cache_of in table:
+                raise ModelRuntimeError(
+                    f"parameter t{tdef.cache_of} has multiple "
+                    f"{tdef.name!r} shadows (with_ema applied in more "
+                    "than one target?); ema_params would be ambiguous"
+                )
+            table[tdef.cache_of] = tid
+        if not shadows:
+            raise ModelRuntimeError(
+                "model has no EMA shadows; train with "
+                "layers.with_ema(opt, decay)"
+            )
+        out: dict[int, torch.Tensor] = {}
+        for pid, tid in shadows.items():
+            w = self.caches[weights[pid]]
+            if float(w.max()) == 0.0:
+                raise ModelRuntimeError(
+                    "EMA shadow has seen no training steps yet"
+                )
+            out[pid] = self.caches[tid] / w
+        return out
+
+    def astype(self, dtype: str) -> "Model":
+        """A new model with the same program, state and epoch cast to
+        ``dtype`` ("float32" or "float64"), on the same device."""
+        nd = np.dtype(dtype)
+        src = self.source.copy()
+        src.scalar_type = ir.ScalarType(nd.name)
+        out = Model(src, precision=self.precision,
+                    schedule_mode=self.schedule_mode, init_params=False,
+                    device=self.device)
+        out.params = {t: out._to_device(v) for t, v in self.params.items()}
+        out.caches = {t: out._to_device(v) for t, v in self.caches.items()}
+        out.epoch = self.epoch
+        out._rng.bit_generator.state = self._rng.bit_generator.state
+        return out
+
     # --- execution ----------------------------------------------------
     def _executor(self, target: str, shapes: dict[int, list[int]]):
         key = (target, tuple(sorted((t, tuple(s)) for t, s in shapes.items())))
@@ -97,6 +253,15 @@ class Model(_ReferenceModel):
                 schedule_mode=self.schedule_mode,
             )
         return self._executors[key]
+
+    def _input_shapes(self, args: dict) -> list[tuple[int, list[int]]]:
+        out = []
+        for name, value in args.items():
+            if name not in self.program.inputs:
+                raise ModelRuntimeError(
+                    f"{name!r} is not an input to the model")
+            out.append((self.program.inputs[name], list(np.shape(value))))
+        return out
 
     def _run(self, target_name: str, args: dict, shapes) -> Optional[np.ndarray]:
         target = self.program.targets[target_name]
@@ -123,47 +288,252 @@ class Model(_ReferenceModel):
             return result[target.output].cpu().numpy()
         return None
 
-    def executable(self, target_name: str, input_shapes: dict):
-        """Callable bound to fixed input shapes, as in the JAX package;
-        inputs are copied to ``device`` and the output stays there."""
-        fn = super().executable(target_name, input_shapes)
+    def set_batch_buckets(self, buckets) -> None:
+        """Pad the leading (batch) dim of :meth:`call`'s inputs up to the
+        next bucket (a sorted list of sizes, or ``"pow2"``) and slice the
+        output back, so batch sizes within a bucket share one executor.
 
-        def run(args: dict):
-            with matmul_precision(self.precision):
-                return fn({n: self._to_device(v) for n, v in args.items()})
+        As in the JAX package, only per-row inference targets are padded:
+        a target that writes a parameter or cache, whose output does not
+        track the batch, or that reduces over a batch-sized leading dim
+        runs at its exact shape."""
+        self.batch_buckets = normalize_buckets(buckets, "batch bucket")
 
-        return run
+    def _target_mutates(self, target_name: str) -> bool:
+        """Does the target write any parameter or cache tensor?"""
+        cached = self._mutates_memo.get(target_name)
+        if cached is not None:
+            return cached
+        mutating = (ir.TensorKind.PARAM, ir.TensorKind.CACHE)
+        result = any(
+            kern.write is not None
+            and self.program.tensors[kern.write.tensor].kind in mutating
+            for kern in self.program.targets[target_name].kernels
+        )
+        self._mutates_memo[target_name] = result
+        return result
 
-    def ema_params(self) -> dict[int, torch.Tensor]:
-        """Debiased EMA shadow parameters (train with
-        ``layers.with_ema(opt, decay)``), keyed by parameter tensor id, as
-        tensors on ``device``: serve them with
-        ``model.params.update(model.ema_params())``.
+    @staticmethod
+    def _index_regs(index) -> set:
+        regs = set(index.factors.keys())
+        for instr in index.setup:
+            regs.update(instr.args)
+        return regs
 
-        The reference method reads the caches as numpy arrays; it runs
-        here on host copies of them."""
-        caches = self.caches
-        self.caches = {t: v.cpu().numpy() for t, v in caches.items()}
-        try:
-            host = super().ema_params()
-        finally:
-            self.caches = caches
-        return {t: self._to_device(v) for t, v in host.items()}
+    def _bucket_pad_safe(self, target_name: str, shapes0: dict,
+                         b: int) -> bool:
+        """Is edge-padding every batch-sized leading dim sound for this
+        target?  Unsafe: a kernel reads a tensor whose leading dim equals
+        the batch through registers absent from its write's dims (it
+        reduces over that dim, so padded rows would reach real rows)."""
+        for kern in self.program.targets[target_name].kernels:
+            write = kern.write
+            if write is None or kern.extern is not None:
+                continue  # extern ops are batch-row-independent
+            wregs = set()
+            for d in write.dims:
+                wregs |= self._index_regs(d)
+            for read in kern.reads:
+                shape = shapes0.get(read.tensor)
+                if not shape or shape[0] != b or not read.dims:
+                    continue
+                if read.is_raw:
+                    if not (write.is_raw and self._index_regs(
+                            read.dims[0]) <= wregs):
+                        return False
+                    continue
+                if not self._index_regs(read.dims[0]) <= wregs:
+                    return False
+        return True
 
-    def astype(self, dtype: str) -> "Model":
-        """A new model with the same program, state and epoch cast to
-        ``dtype`` ("float32" or "float64"), on the same device."""
-        nd = np.dtype(dtype)
-        src = self.source.copy()
-        src.scalar_type = ir.ScalarType(nd.name)
-        out = Model(src, precision=self.precision,
-                    schedule_mode=self.schedule_mode, init_params=False,
-                    device=self.device)
-        out.params = {t: out._to_device(v) for t, v in self.params.items()}
-        out.caches = {t: out._to_device(v) for t, v in self.caches.items()}
-        out.epoch = self.epoch
-        out._rng.bit_generator.state = self._rng.bit_generator.state
+    def _bucketed(self, target_name: str, args: dict):
+        """``(args padded to the batch bucket, true batch)``, or
+        ``(args, None)`` when the call runs at its exact shape."""
+        if (self.batch_buckets is None or not args
+                or self._target_mutates(target_name)):
+            return args, None
+        b = int(next(
+            (np.shape(v)[0] for v in args.values() if np.shape(v)), 0))
+        padded = bucket_for(self.batch_buckets, b) if b else None
+        if padded is None or padded <= b:
+            return args, None
+        memo_key = (target_name, b, tuple(sorted(
+            (n, np.shape(v)) for n, v in args.items())))
+        track = self._bucket_track_memo.get(memo_key)
+        if track is None:
+            out_tid = self.program.targets[target_name].output
+            track = False
+            if out_tid is not None:
+                shapes0 = infer_shapes(self.program, target_name,
+                                       self._input_shapes(args))
+                out0 = shapes0.get(out_tid)
+                track = (bool(out0) and out0[0] == b
+                         and self._bucket_pad_safe(target_name, shapes0, b))
+            self._bucket_track_memo[memo_key] = track
+        if not track:
+            return args, None
+        return {
+            name: (np.pad(np.asarray(v),
+                          [(0, padded - b)] + [(0, 0)] * (np.ndim(v) - 1),
+                          mode="edge")
+                   if np.shape(v) and np.shape(v)[0] == b else v)
+            for name, v in args.items()
+        }, b
+
+    def call(self, target_name: str,
+             args: Optional[dict] = None) -> np.ndarray:
+        """Compute the value of a target for the given inputs; the result
+        comes back as a numpy array, as in the JAX package."""
+        args = args or {}
+        if target_name not in self.program.targets:
+            raise ModelRuntimeError(
+                f"{target_name!r} is not a target of the model"
+            )
+        args, b = self._bucketed(target_name, args)
+        shapes = infer_shapes(self.program, target_name,
+                              self._input_shapes(args))
+        out = self._run(target_name, args, shapes)
+        if b is not None and out is not None and np.ndim(out) >= 1:
+            out = out[:b]
         return out
+
+    def apply(self, target_name: str, args: Optional[dict] = None) -> None:
+        """Compute a target for its side effects, discarding the value."""
+        self.call(target_name, args)
+
+    def fit(
+        self,
+        target_name: str,
+        args: dict,
+        batch_size: int = 32,
+        log_status: bool = True,
+        shuffle: bool = False,
+        scan_batches: bool = False,
+        monitor: Optional[str] = None,
+        accum_target: Optional[str] = None,
+        accum_steps: int = 1,
+    ) -> Optional[float]:
+        """Run a target over all batches of the inputs; increments epoch.
+
+        Samples beyond the last full batch are dropped.  ``shuffle=True``
+        visits samples in a fresh random order each epoch.
+        ``scan_batches=True`` copies the epoch's batches to the device
+        once and runs them back to back (the JAX package's ``lax.scan``
+        epoch).  ``monitor`` names a scalar target evaluated on the first
+        batch after the epoch; its value is returned.  Gradient
+        accumulation: ``accum_target`` runs on ``accum_steps - 1`` batches
+        of every group, ``target_name`` on the last."""
+        if not args:
+            raise ModelRuntimeError(
+                "Model.fit requires at least one input tensor; "
+                "use Model.apply for targets without inputs"
+            )
+        if target_name not in self.program.targets:
+            raise ModelRuntimeError(
+                f"{target_name!r} is not a target of the model"
+            )
+        if accum_steps < 1:
+            raise ModelRuntimeError("accum_steps must be >= 1")
+        if accum_target is not None:
+            if accum_target not in self.program.targets:
+                raise ModelRuntimeError(
+                    f"accum target {accum_target!r} is not a target of "
+                    "the model"
+                )
+            if scan_batches:
+                raise ModelRuntimeError(
+                    "gradient accumulation is not supported with "
+                    "scan_batches (the scan carries only parameters)"
+                )
+        elif accum_steps != 1:
+            raise ModelRuntimeError(
+                "accum_steps > 1 requires accum_target (see "
+                "Fun.optimize_accum)"
+            )
+        first = next(iter(args.values()))
+        batch_count = first.shape[0] // batch_size
+        input_shapes = []
+        for name, value in args.items():
+            if name not in self.program.inputs:
+                raise ModelRuntimeError(
+                    f"{name!r} is not an input to the model")
+            input_shapes.append(
+                (self.program.inputs[name],
+                 [batch_size] + list(value.shape[1:])))
+        shapes = infer_shapes(self.program, target_name, input_shapes)
+        accum_shapes = None
+        if accum_target is not None:
+            accum_shapes = infer_shapes(self.program, accum_target,
+                                        input_shapes)
+        order = None
+        if shuffle:
+            order = shuffle_indices(
+                first.shape[0], int(self._rng.integers(0, 2**31 - 1)))
+        if monitor is not None and monitor not in self.program.targets:
+            raise ModelRuntimeError(
+                f"monitor target {monitor!r} is not a target of the model"
+            )
+
+        self.epoch += 1
+        if scan_batches:
+            self._fit_scan(target_name, args, shapes, batch_size,
+                           batch_count, order)
+            return self._monitor(monitor, args, batch_size, log_status)
+        for batch in range(batch_count):
+            if log_status:
+                print(f"\r{batch}/{batch_count}", end="", flush=True)
+            offset = batch * batch_size
+            if order is None:
+                batch_args = {name: value[offset:offset + batch_size]
+                              for name, value in args.items()}
+            else:
+                idx = order[offset:offset + batch_size]
+                batch_args = {name: np.asarray(value)[idx]
+                              for name, value in args.items()}
+            if (accum_target is not None
+                    and batch % accum_steps != accum_steps - 1):
+                self._run(accum_target, batch_args, accum_shapes)
+            else:
+                self._run(target_name, batch_args, shapes)
+        if log_status:
+            print(f"\r{batch_count}/{batch_count}")
+        return self._monitor(monitor, args, batch_size, log_status)
+
+    def _monitor(self, monitor: Optional[str], args, batch_size: int,
+                 log_status: bool) -> Optional[float]:
+        """Evaluate the monitor target on the first batch; scalar value."""
+        if monitor is None:
+            return None
+        first = {name: value[:batch_size] for name, value in args.items()}
+        value = float(np.asarray(self.call(monitor, first)).reshape(-1)[0])
+        if log_status:
+            print(f"epoch {self.epoch}: {monitor} {value:.6f}")
+        return value
+
+    def _fit_scan(self, target_name, args, shapes, batch_size, batch_count,
+                  order) -> None:
+        dtype = np.dtype(self.program.scalar_type.value)
+        executor = self._executor(target_name, shapes)
+        batches: dict[int, np.ndarray] = {}
+        usable = batch_count * batch_size
+        for name, value in args.items():
+            value = np.ascontiguousarray(value, dtype=dtype)
+            if order is not None:
+                value = value[order]
+            batches[self.program.inputs[name]] = value[:usable].reshape(
+                (batch_count, batch_size) + value.shape[1:])
+        tensors = dict(self.params)
+        tensors.update(self.caches)
+        seeds = np.asarray(
+            self._rng.integers(0, 2**31 - 1, size=batch_count), np.int64)
+        with matmul_precision(self.precision):
+            result = executor.run_epoch(tensors, batches, self.epoch, seeds)
+        for tid in self.params:
+            if tid in result:
+                self.params[tid] = result[tid]
+        for tid in self.caches:
+            if tid in result:
+                self.caches[tid] = result[tid]
 
     # --- JAX-only features, not ported yet -----------------------------
     def _not_ported(self, what: str):
@@ -188,6 +558,14 @@ class Model(_ReferenceModel):
         self._not_ported("autotune")
 
 
+def _source(graphs, dtype: str) -> ir.Program:
+    """The source program of ``graphs`` at ``dtype``.  Scoped schedules
+    resolve under scope "cpu", as the JAX package does off the TPU."""
+    source = to_program(graphs, schedule_scope="cpu")
+    source.scalar_type = ir.ScalarType(np.dtype(dtype).name)
+    return source
+
+
 def compile(  # noqa: A001
     graphs: Sequence[Fun] | Fun,
     dtype: str = "float32",
@@ -198,26 +576,54 @@ def compile(  # noqa: A001
 ) -> Model:
     """Compile computation graphs into a port model on ``device``.
 
-    Same front end and arguments as ``exprgrad_tpu.compile`` (without
-    ``backend``): the same ``seed`` draws the same initial parameters.
-    Scoped schedules resolve under scope "cpu", as the JAX package does
-    off the TPU."""
-    source = to_program(graphs, schedule_scope="cpu")
-    source.scalar_type = ir.ScalarType(np.dtype(dtype).name)
-    return Model(source, seed=seed, precision=precision,
+    The arguments of ``exprgrad_tpu.compile`` without ``backend``: the
+    same graphs and ``seed`` draw the same initial parameters.
+    ``schedule_mode`` routes ``Fun.schedule`` hints
+    (:mod:`exprgrad_torch.backend.policy`)."""
+    return Model(_source(graphs, dtype), seed=seed, precision=precision,
                  schedule_mode=schedule_mode, device=device)
 
 
-def from_reference(model: _ReferenceModel, device="cuda") -> Model:
-    """The port model of a JAX-package ``Model``: same program, the same
-    parameter and cache values, epoch and random stream, on ``device``."""
-    out = Model(model.source, precision=model.precision,
-                schedule_mode=model.schedule_mode, init_params=False,
-                device=device)
-    out.params = {t: out._to_device(np.asarray(v))
-                  for t, v in model.params.items()}
-    out.caches = {t: out._to_device(np.asarray(v))
-                  for t, v in model.caches.items()}
-    out.epoch = model.epoch
-    out._rng.bit_generator.state = model._rng.bit_generator.state
+def from_state(
+    graphs: Sequence[Fun] | Fun | ir.Program,
+    params: dict,
+    caches: dict,
+    epoch: int = 0,
+    rng_state: Optional[dict] = None,
+    dtype: str = "float32",
+    precision: str = "highest",
+    schedule_mode: str = "auto",
+    device="cuda",
+) -> Model:
+    """A port model built from ``graphs`` (or a source program) carrying
+    given state: ``params`` and ``caches`` are numpy arrays by tensor id,
+    ``rng_state`` a numpy ``bit_generator.state``.
+
+    This carries a JAX-package model over (``ref.params``, ``ref.caches``,
+    ``ref.epoch``, ``ref._rng.bit_generator.state``): a program built with
+    the port's builders has the same tensor ids as the one built with the
+    JAX package's.  Ids and shapes are checked."""
+    source = (graphs if isinstance(graphs, ir.Program)
+              else _source(graphs, dtype))
+    out = Model(source, precision=precision, schedule_mode=schedule_mode,
+                init_params=False, device=device)
+    for table, want, what in ((params, out.program.params, "params"),
+                              (caches, out.program.caches, "caches")):
+        if set(table) != set(want):
+            raise ModelRuntimeError(
+                f"{what} tensor ids {sorted(table)} do not match the "
+                f"program's {sorted(want)}"
+            )
+        for tid, value in table.items():
+            shape = tuple(out.program.tensors[tid].shape)
+            if tuple(np.shape(value)) != shape:
+                raise ModelRuntimeError(
+                    f"{what} t{tid} has shape {tuple(np.shape(value))}, "
+                    f"the program {shape}"
+                )
+    out.params = {t: out._to_device(np.asarray(v)) for t, v in params.items()}
+    out.caches = {t: out._to_device(np.asarray(v)) for t, v in caches.items()}
+    out.epoch = int(epoch)
+    if rng_state is not None:
+        out._rng.bit_generator.state = rng_state
     return out

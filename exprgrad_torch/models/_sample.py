@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from exprgrad_tpu.errors import ModelRuntimeError
+from ..errors import ModelRuntimeError
 
 
 def check_top_p(top_p: Optional[float]) -> None:

@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from exprgrad_tpu.errors import ModelRuntimeError
+from ..errors import ModelRuntimeError
 
 from ..ops.decode import append, decode_attention, init_cache
 from ._sample import check_top_p, make_picker

@@ -4,9 +4,8 @@ package's (``exprgrad_tpu/registry.py``).
 An extern op is an opaque fused primitive called from the DSL (fused
 attention, ...).  Here each name maps to a torch implementation
 ``fn(args, attrs, ctx)``: tensors in, a tensor (or a tuple of tensors when
-the op has several outputs) out.  The port never looks an op up in the
-JAX package's registry: its first lookup imports ``exprgrad_tpu.ops``,
-which loads jax.
+the op has several outputs) out.  The executor and the numpy interpreter
+(``interp.py``) both call it.
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-from exprgrad_tpu.errors import ModelRuntimeError
+from .errors import ModelRuntimeError
 
 
 @dataclass

@@ -2,20 +2,80 @@
 history.
 
 Counterpart of ``exprgrad_tpu/train.py``.  ``evaluate`` and
-``classification_accuracy`` read model outputs, which the port returns
-as numpy arrays as the JAX package does, so they are the JAX package's
-own.  :func:`train` keeps its best state as clones on the model's
-device, where the JAX package copies it to the host.
+``classification_accuracy`` are copies of the JAX package's: they read
+model outputs, which the port returns as numpy arrays.  :func:`train`
+keeps its best state as clones on the model's device, where the JAX
+package copies it to the host.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
-from exprgrad_tpu.errors import ModelRuntimeError
-from exprgrad_tpu.train import classification_accuracy, evaluate
+import numpy as np
+
+from .errors import ModelRuntimeError
 
 __all__ = ["classification_accuracy", "evaluate", "train"]
+
+
+def evaluate(model, target_name: str, args: dict, batch_size: int = 0
+             ) -> float:
+    """Mean of a scalar target over the dataset (no state updates).
+
+    ``batch_size=0`` evaluates in one batch.  Refuses targets that
+    mutate parameters/caches — evaluation must be side-effect-free.
+    """
+    if target_name not in model.program.targets:
+        raise ModelRuntimeError(
+            f"{target_name!r} is not a target of the model"
+        )
+    if model._target_mutates(target_name):
+        raise ModelRuntimeError(
+            f"target {target_name!r} updates model state; evaluate() "
+            "is for pure metrics targets (loss, accuracy)"
+        )
+    n = next(iter(args.values())).shape[0]
+    if not batch_size:
+        batch_size = n
+    total, count = 0.0, 0
+    for start in range(0, n - batch_size + 1, batch_size):
+        batch = {
+            name: value[start:start + batch_size]
+            for name, value in args.items()
+        }
+        out = model.call(target_name, batch)
+        total += float(np.asarray(out).reshape(-1)[0])
+        count += 1
+    if count == 0:
+        raise ModelRuntimeError(
+            f"dataset smaller than batch_size ({n} < {batch_size})"
+        )
+    return total / count
+
+
+def classification_accuracy(model, args: dict, labels: np.ndarray,
+                            target_name: str = "predict",
+                            batch_size: int = 0) -> float:
+    """argmax-agreement between a prediction target's last axis and
+    one-hot (or integer) ``labels``."""
+    n = next(iter(args.values())).shape[0]
+    if not batch_size:
+        batch_size = n
+    labels = np.asarray(labels)
+    want = labels if labels.ndim == 1 else np.argmax(labels, axis=-1)
+    hits, total = 0, 0
+    for start in range(0, n - batch_size + 1, batch_size):
+        batch = {
+            name: value[start:start + batch_size]
+            for name, value in args.items()
+        }
+        probs = np.asarray(model.call(target_name, batch))
+        got = np.argmax(probs, axis=-1)
+        w = want[start:start + batch_size]
+        hits += int((got == w).sum())
+        total += int(np.prod(np.shape(w)))
+    return hits / max(total, 1)
 
 
 def train(

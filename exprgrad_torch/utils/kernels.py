@@ -34,6 +34,27 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+# Limits of the matmul epilogue program (csrc/matmul.cu kMax*).
+EPI_MAX_CODE = 64
+EPI_MAX_REGS = 32
+EPI_MAX_CONSTS = 32
+EPI_MAX_EXTRA = 8
+
+
+class EpiProgram(ctypes.Structure):
+    """``struct EpiProgram`` of csrc/matmul.cu, passed by value."""
+
+    _fields_ = [
+        ("n_code", _I),
+        ("n_extra", _I),
+        ("code", (_I * 4) * EPI_MAX_CODE),
+        ("consts", ctypes.c_float * EPI_MAX_CONSTS),
+        ("extra_pattern", _I * EPI_MAX_EXTRA),
+        ("extra", _P * EPI_MAX_EXTRA),
+    ]
+
+
 # entry point -> argtypes (every entry point returns a cudaError_t as int)
 _SIGNATURES = {
     # q, k, v, out, lse, b, h, hkv, sq, skv, d, scale, causal, window,
@@ -48,6 +69,8 @@ _SIGNATURES = {
     # causal, window, q_off, k_off, dtype, stream
     "egt_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _P],
+    # a, b, c, m, n, k, transpose, in_dtype, out_dtype, program, stream
+    "egt_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, EpiProgram, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

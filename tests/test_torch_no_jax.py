@@ -1,10 +1,12 @@
-"""The port runs without jax: import, compile, predict and generate, and
-train (steps, fit, the scan epoch, checkpoints, EMA, the training driver)
-on the CPU in a fresh interpreter where ``import jax`` fails.
+"""The port runs without jax and without the JAX package: import,
+compile, predict and generate, a scheduled MLP (chip_smoke.py's program,
+narrow), and train (steps, fit, the scan epoch, checkpoints, EMA, the
+training driver) on the CPU in a fresh interpreter where ``import jax``
+and ``import exprgrad_tpu`` fail.
 
 The check runs in a subprocess because this test process already holds
-jax (the parity tests import it); ``sys.modules["jax"] = None`` makes any
-later ``import jax`` raise ImportError.
+both (the parity tests import them); ``sys.modules[name] = None`` makes
+any later import of ``name`` raise ImportError.
 """
 
 import subprocess
@@ -16,13 +18,14 @@ import pytest
 import torch
 
 import exprgrad_torch as egt
-from exprgrad_tpu.models import flash_transformer
+from exprgrad_torch.models import flash_transformer
 
 REPO = Path(__file__).resolve().parents[1]
 
 SCRIPT = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None
+    sys.modules["exprgrad_tpu"] = None
     import numpy as np
     import torch
     import exprgrad_torch as egt
@@ -39,8 +42,16 @@ SCRIPT = textwrap.dedent("""
     assert model.lowering_stats("predict")["attention-impl:flash"] == 1
     out = FlashLMServer(model).generate(toks[:, :8], n_new=5)
     assert out.shape == (2, 5), out.shape
+
+    import exprgrad_torch.layers
+    from chip_smoke import scheduled_mlp
+    mlp = egt.compile(scheduled_mlp(egt, dim=8, hidden=16, tile=8), seed=0,
+                      schedule_mode="force", device="cpu")
+    rows = np.random.default_rng(1).normal(size=(12, 8)).astype(np.float32)
+    assert mlp.call("predict", {"v": rows}).shape == (12, 8)
+    assert mlp.lowering_stats("predict") == {"matmul-fused": 2}
     loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib")
+                    if m.split(".")[0] in ("jax", "jaxlib", "exprgrad_tpu")
                     and sys.modules[m] is not None)
     assert not loaded, loaded
     print("NO_JAX_OK")
@@ -50,12 +61,12 @@ SCRIPT = textwrap.dedent("""
 TRAIN_SCRIPT = textwrap.dedent("""
     import os, sys, tempfile
     sys.modules["jax"] = None
+    sys.modules["exprgrad_tpu"] = None
     import numpy as np
     import exprgrad_torch as egt
-    from exprgrad_torch import io, train
+    from exprgrad_torch import io, make_opt, train
+    from exprgrad_torch.layers import adam, with_ema
     from exprgrad_torch.models import flash_transformer
-    from exprgrad_tpu import make_opt
-    from exprgrad_tpu.layers import adam, with_ema
 
     graph = flash_transformer(vocab=8, dim=16, heads=2, kv_heads=1,
                               blocks=1, max_seq=16,
@@ -79,7 +90,7 @@ TRAIN_SCRIPT = textwrap.dedent("""
     assert np.allclose(loaded.call("predict", {"tokens": data["tokens"]}),
                        model.call("predict", {"tokens": data["tokens"]}))
     mods = sorted(m for m in sys.modules
-                  if m.split(".")[0] in ("jax", "jaxlib")
+                  if m.split(".")[0] in ("jax", "jaxlib", "exprgrad_tpu")
                   and sys.modules[m] is not None)
     assert not mods, mods
     print("NO_JAX_OK")

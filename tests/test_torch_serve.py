@@ -14,10 +14,11 @@ import torch
 import jax.numpy as jnp
 
 import exprgrad_torch as egt
-from exprgrad_tpu import ModelRuntimeError, compile
-from exprgrad_tpu.models import flash_transformer
+import exprgrad_tpu.models as jax_models
+from exprgrad_tpu import compile
 from exprgrad_tpu.models.serve import FlashLMServer as JaxServer
-from exprgrad_torch.models import FlashLMServer
+from exprgrad_torch import ModelRuntimeError
+from exprgrad_torch.models import FlashLMServer, flash_transformer
 from exprgrad_torch.models._sample import check_top_p, make_picker
 
 VOCAB = 8
@@ -34,14 +35,18 @@ def _cycle_data(n=16, t=8):
 
 
 def _trained(steps=30, **kw):
-    """A JAX model briefly trained on the +1 cycle, and its port twin."""
-    ref = compile(flash_transformer(vocab=VOCAB, dim=16, heads=2, eta=0.01,
-                                    **kw), backend="jax", seed=0)
+    """A JAX model briefly trained on the +1 cycle, and its port twin: the
+    same program built with the port's builder, carrying the JAX model's
+    state."""
+    kw = dict(vocab=VOCAB, dim=16, heads=2, eta=0.01, **kw)
+    ref = compile(jax_models.flash_transformer(**kw), backend="jax", seed=0)
     toks, labels = _cycle_data()
     for _ in range(steps):
         ref.epoch += 1
         ref.apply("train", {"tokens": toks, "labels": labels})
-    return ref, egt.from_reference(ref, device="cpu")
+    return ref, egt.from_state(flash_transformer(**kw), ref.params,
+                               ref.caches, ref.epoch,
+                               ref._rng.bit_generator.state, device="cpu")
 
 
 def _softmax(logits):
@@ -169,7 +174,7 @@ def test_picker_filters_match_jax_semantics():
 
 
 def test_server_rejects_foreign_models_and_overflow():
-    from exprgrad_tpu.models import tiny_mixer
+    from exprgrad_torch.models import tiny_mixer
 
     with pytest.raises(ModelRuntimeError, match="flash_transformer"):
         FlashLMServer(egt.compile(list(tiny_mixer()), seed=0, device="cpu"))

@@ -12,23 +12,45 @@ import pytest
 
 import exprgrad_torch as egt
 import exprgrad_torch.io as egt_io
+import exprgrad_torch.layers
+import exprgrad_torch.models
+import exprgrad_tpu
+import exprgrad_tpu.layers
+import exprgrad_tpu.models
+from exprgrad_torch import ModelRuntimeError
 from exprgrad_torch import train as egt_train
-from exprgrad_tpu import compile, make_opt
+from exprgrad_tpu import compile
 from exprgrad_tpu import io as jax_io
 from exprgrad_tpu.train import (classification_accuracy, evaluate,
                                 train as jax_train)
-from exprgrad_tpu.errors import ModelRuntimeError
-from exprgrad_tpu.layers import adam, with_ema
-from exprgrad_tpu.models import flash_transformer
 
 VOCAB = 8
 TRAIN_TOL = dict(rtol=1e-4, atol=2e-5)
 PREDICT_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
-def _graph(**kw):
-    return flash_transformer(vocab=VOCAB, dim=16, heads=2, hidden=16,
-                             blocks=1, max_seq=32, **kw)
+def _graph(pkg=egt, opt=None, **kw):
+    """The test model, built with ``pkg``'s builders (the port's or the
+    JAX package's); ``opt(pkg)`` builds the optimizer."""
+    if opt is not None:
+        kw["opt"] = opt(pkg)
+    return pkg.models.flash_transformer(vocab=VOCAB, dim=16, heads=2,
+                                        hidden=16, blocks=1, max_seq=32,
+                                        **kw)
+
+
+def _twins(seed, **kw):
+    """A JAX model and the port model built from the same program with
+    the port's builders, carrying the JAX model's initial state."""
+    ref = compile(_graph(exprgrad_tpu, **kw), backend="jax", seed=seed)
+    port = egt.from_state(_graph(egt, **kw), ref.params, ref.caches,
+                          ref.epoch, ref._rng.bit_generator.state,
+                          device="cpu")
+    return ref, port
+
+
+def _adam(eta):
+    return lambda pkg: pkg.make_opt(pkg.layers.adam, eta=eta)
 
 
 def _data(seed, n=4, t=12, shift=1):
@@ -70,7 +92,7 @@ def test_checkpoint_from_port_loads_in_jax(tmp_path):
 
 
 def test_checkpoint_from_jax_loads_in_port(tmp_path):
-    ref = compile(_graph(kv_heads=1), backend="jax", seed=1)
+    ref = compile(_graph(exprgrad_tpu, kv_heads=1), backend="jax", seed=1)
     args = _data(1)
     _steps(ref, args, 2)
     path = str(tmp_path / "jax.egt")
@@ -94,7 +116,7 @@ def test_npz_export_and_import_between_packages(tmp_path):
     _steps(port, _data(2), 1)
     path = str(tmp_path / "params.npz")
     egt_io.export_params_npz(port, path)
-    ref = compile(_graph(), backend="jax", seed=5)
+    ref = compile(_graph(exprgrad_tpu), backend="jax", seed=5)
     jax_io.import_params_npz(ref, path)
     ref.epoch = port.epoch
     _assert_state_equal(port, ref)
@@ -108,9 +130,8 @@ def test_npz_export_and_import_between_packages(tmp_path):
 
 
 def test_ema_params_match_jax():
-    graph = _graph(opt=with_ema(make_opt(adam, eta=0.01), decay=0.9))
-    ref = compile(graph, backend="jax", seed=3)
-    port = egt.from_reference(ref, device="cpu")
+    ref, port = _twins(3, opt=lambda pkg: pkg.layers.with_ema(
+        _adam(0.01)(pkg), decay=0.9))
     args = _data(3)
     _steps(ref, args, 3)
     _steps(port, args, 3)
@@ -137,9 +158,7 @@ def test_train_restores_best_state_as_jax_does():
     loss turns up after the first epochs, patience stops the run and the
     best epoch's state comes back — the same history and state as the
     JAX package's driver."""
-    ref = compile(_graph(opt=make_opt(adam, eta=0.05)), backend="jax",
-                  seed=4)
-    port = egt.from_reference(ref, device="cpu")
+    ref, port = _twins(4, opt=_adam(0.05))
     data, val = _data(4, n=8), _data(5, n=4, shift=2)
     kw = dict(epochs=8, batch_size=4, validation=val, patience=2,
               shuffle=False)
@@ -157,8 +176,7 @@ def test_train_restores_best_state_as_jax_does():
 
 
 def test_train_scan_batches_and_metrics():
-    ref = compile(_graph(), backend="jax", seed=6)
-    port = egt.from_reference(ref, device="cpu")
+    ref, port = _twins(6)
     data = _data(6, n=8)
     kw = dict(epochs=2, batch_size=4, scan_batches=True, shuffle=False)
     want = jax_train(ref, "train", data, **kw)
@@ -169,7 +187,6 @@ def test_train_scan_batches_and_metrics():
         assert a["epoch"] == b["epoch"]
         np.testing.assert_allclose(a["train_loss"], b["train_loss"],
                                    **TRAIN_TOL)
-    assert egt_train.evaluate is evaluate
     np.testing.assert_allclose(egt_train.evaluate(port, "loss", data, 4),
                                evaluate(ref, "loss", data, 4),
                                **TRAIN_TOL)
@@ -186,3 +203,14 @@ def test_train_options_not_ported_raise(kw, match):
     port = egt.compile(_graph(), seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         egt_train.train(port, "train", _data(0), epochs=1, **kw)
+
+
+def test_shuffle_order_is_the_native_shuffle():
+    """fit(shuffle=True) visits rows in the order of the JAX package's
+    native Fisher-Yates shuffle (SplitMix64) for the same seed."""
+    from exprgrad_torch.model import shuffle_indices
+
+    assert shuffle_indices(12, 3).tolist() == [3, 10, 8, 5, 2, 4, 1, 11, 0,
+                                               7, 6, 9]
+    assert sorted(shuffle_indices(1000, 2**31 - 2).tolist()) == list(
+        range(1000))

@@ -1,7 +1,8 @@
 """Port parity: the flash_transformer predict and train targets end to end.
 
-The port model is built from the JAX model with ``from_reference`` (same
-parameters) and both run "predict" on the same tokens.  Tolerance
+Each program is built twice, with the JAX package's builders and with
+the port's; the port model carries the JAX model's state
+(``from_state``) and both run "predict" on the same tokens.  Tolerance
 ``rtol=1e-4, atol=1e-5`` on the next-token probabilities, the bound the
 JAX package's serving tests use (tests/test_serve.py).
 
@@ -18,9 +19,12 @@ import pytest
 import torch
 
 import exprgrad_torch as egt
-from exprgrad_tpu import compile, make_opt
-from exprgrad_tpu.layers import adamw, clip_by_global_norm, warmup_cosine
-from exprgrad_tpu.models import flash_transformer
+import exprgrad_torch.layers
+import exprgrad_torch.models
+import exprgrad_tpu
+import exprgrad_tpu.layers
+import exprgrad_tpu.models
+from exprgrad_tpu import compile
 
 VOCAB = 16
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -35,6 +39,26 @@ CONFIGS = {
 }
 
 
+def _twins(seed, **kw):
+    """``flash_transformer(**kw)`` compiled by the JAX package and the
+    same program built with the port's builder, carrying the JAX model's
+    state.  ``kw["opt"]``, when given, builds the optimizer from a
+    package."""
+    opt = kw.pop("opt", None)
+
+    def graph(pkg):
+        extra = {} if opt is None else {"opt": opt(pkg)}
+        return pkg.models.flash_transformer(**kw, **extra)
+
+    ref = compile(graph(exprgrad_tpu), backend="jax", seed=seed)
+    return ref, _port_of(ref, graph(egt))
+
+
+def _port_of(ref, graph):
+    return egt.from_state(graph, ref.params, ref.caches, ref.epoch,
+                          ref._rng.bit_generator.state, device="cpu")
+
+
 def _tokens(seed, n=2, t=48):
     rng = np.random.default_rng(seed)
     return rng.integers(0, VOCAB, (n, t)).astype(np.float32)
@@ -42,10 +66,8 @@ def _tokens(seed, n=2, t=48):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_predict_matches_jax(name):
-    graph = flash_transformer(vocab=VOCAB, dim=32, heads=4, hidden=32,
-                              blocks=2, max_seq=64, **CONFIGS[name])
-    ref = compile(graph, backend="jax", seed=0)
-    port = egt.from_reference(ref, device="cpu")
+    ref, port = _twins(0, vocab=VOCAB, dim=32, heads=4, hidden=32,
+                       blocks=2, max_seq=64, **CONFIGS[name])
     toks = _tokens(len(name))
     got = port.call("predict", {"tokens": toks})
     want = ref.call("predict", {"tokens": toks})
@@ -60,9 +82,11 @@ def test_predict_matches_jax(name):
 def test_predict_matches_interp_and_seeded_compile():
     """``compile(seed=...)`` draws the same parameters as the JAX package,
     and the port agrees with the numpy oracle too."""
-    graph = flash_transformer(vocab=VOCAB, dim=16, heads=2, blocks=1)
-    port = egt.compile(graph, seed=3, device="cpu")
-    oracle = compile(graph, backend="interp", seed=3)
+    kw = dict(vocab=VOCAB, dim=16, heads=2, blocks=1)
+    port = egt.compile(egt.models.flash_transformer(**kw), seed=3,
+                       device="cpu")
+    oracle = compile(exprgrad_tpu.models.flash_transformer(**kw),
+                     backend="interp", seed=3)
     for tid, value in oracle.params.items():
         np.testing.assert_array_equal(port.params[tid].numpy(), value)
     toks = _tokens(5, t=16)
@@ -73,10 +97,8 @@ def test_predict_matches_interp_and_seeded_compile():
 
 def test_xla_impl_matches_jax():
     """impl="xla" runs the plain-attention path on both sides."""
-    graph = flash_transformer(vocab=VOCAB, dim=16, heads=2, blocks=1,
-                              impl="xla")
-    ref = compile(graph, backend="jax", seed=1)
-    port = egt.from_reference(ref, device="cpu")
+    ref, port = _twins(1, vocab=VOCAB, dim=16, heads=2, blocks=1,
+                       impl="xla")
     toks = _tokens(6, t=24)
     np.testing.assert_allclose(port.call("predict", {"tokens": toks}),
                                ref.call("predict", {"tokens": toks}), **TOL)
@@ -87,10 +109,8 @@ def test_ragged_length_runs_flash_where_jax_runs_xla():
     """A sequence above 128 that is no multiple of it misses the TPU
     kernels' block rule, so the JAX package attends through plain XLA;
     the port's ``auto`` takes the flash path and agrees."""
-    graph = flash_transformer(vocab=VOCAB, dim=16, heads=2, blocks=1,
-                              max_seq=160)
-    ref = compile(graph, backend="jax", seed=2)
-    port = egt.from_reference(ref, device="cpu")
+    ref, port = _twins(2, vocab=VOCAB, dim=16, heads=2, blocks=1,
+                       max_seq=160)
     toks = _tokens(8, n=1, t=136)
     np.testing.assert_allclose(port.call("predict", {"tokens": toks}),
                                ref.call("predict", {"tokens": toks}), **TOL)
@@ -121,15 +141,12 @@ def _assert_same_state(port, ref, tol=TRAIN_TOL):
                                        **tol, err_msg=f"t{tid}")
 
 
-def _small(**kw):
-    return flash_transformer(vocab=VOCAB, dim=32, heads=4, hidden=32,
-                             blocks=2, max_seq=64, **kw)
+SMALL = dict(vocab=VOCAB, dim=32, heads=4, hidden=32, blocks=2, max_seq=64)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_train_steps_match_jax(name):
-    ref = compile(_small(**CONFIGS[name]), backend="jax", seed=0)
-    port = egt.from_reference(ref, device="cpu")
+    ref, port = _twins(0, **SMALL, **CONFIGS[name])
     args = _train_data(len(name))
     for _ in range(3):
         _steps(ref, args, 1)
@@ -140,9 +157,11 @@ def test_train_steps_match_jax(name):
 
 
 def test_train_steps_match_interp():
-    graph = flash_transformer(vocab=VOCAB, dim=16, heads=2, blocks=1)
-    port = egt.compile(graph, seed=4, device="cpu")
-    oracle = compile(graph, backend="interp", seed=4)
+    kw = dict(vocab=VOCAB, dim=16, heads=2, blocks=1)
+    port = egt.compile(egt.models.flash_transformer(**kw), seed=4,
+                       device="cpu")
+    oracle = compile(exprgrad_tpu.models.flash_transformer(**kw),
+                     backend="interp", seed=4)
     args = _train_data(9, t=12)
     _steps(port, args, 2)
     _steps(oracle, args, 2)
@@ -154,7 +173,8 @@ def test_train_lowering_guard():
     train step routes attention through the extern kernels (out + lse,
     then dq, dk, dv per block) and scatters only the embedding-table
     gradient."""
-    port = egt.compile(_small(), seed=3, device="cpu")
+    port = egt.compile(egt.models.flash_transformer(**SMALL), seed=3,
+                       device="cpu")
     _steps(port, _train_data(3), 1)
     stats = port.lowering_stats("train")
     assert stats.get("extern:attention") == 2 * 2
@@ -169,14 +189,16 @@ def test_flash_lm_recipe_matches_jax():
     """examples/flash_lm.py's recipe: adamw with decoupled decay, linear
     warmup into cosine annealing and global-norm clipping, all compiled
     into the train target."""
-    recipe = clip_by_global_norm(
-        make_opt(adamw, eta=warmup_cosine(0.02, warmup_steps=2, total=6),
-                 weight_decay=0.001),
-        max_norm=1.0,
-    )
-    graph = flash_transformer(vocab=6, dim=16, heads=2, opt=recipe)
-    ref = compile(graph, backend="jax", seed=1)
-    port = egt.from_reference(ref, device="cpu")
+    def recipe(pkg):
+        return pkg.layers.clip_by_global_norm(
+            pkg.make_opt(pkg.layers.adamw,
+                         eta=pkg.layers.warmup_cosine(0.02, warmup_steps=2,
+                                                      total=6),
+                         weight_decay=0.001),
+            max_norm=1.0,
+        )
+
+    ref, port = _twins(1, vocab=6, dim=16, heads=2, opt=recipe)
     rng = np.random.default_rng(0)
     phase = rng.integers(0, 6, 8)
     toks = (phase[:, None] + np.arange(8)[None, :]) % 6
@@ -191,11 +213,12 @@ def test_flash_lm_recipe_matches_jax():
 
 def test_resume_from_reference_mid_training():
     """A JAX model trained for two steps continues on the port: params,
-    adam moments, epoch and random stream come over with from_reference."""
-    ref = compile(_small(kv_heads=2), backend="jax", seed=6)
+    adam moments, epoch and random stream come over with from_state."""
+    ref = compile(exprgrad_tpu.models.flash_transformer(**SMALL, kv_heads=2),
+                  backend="jax", seed=6)
     args = _train_data(6)
     _steps(ref, args, 2)
-    port = egt.from_reference(ref, device="cpu")
+    port = _port_of(ref, egt.models.flash_transformer(**SMALL, kv_heads=2))
     assert port.epoch == 2
     _steps(ref, args, 2)
     _steps(port, args, 2)
@@ -206,9 +229,8 @@ def test_scan_fit_matches_per_batch_fit_and_jax():
     """fit(scan_batches=True) on the port runs the same steps as the
     per-batch fit (equal bit for bit on the CPU) and as the JAX
     package's lax.scan epoch."""
-    ref = compile(_small(), backend="jax", seed=8)
-    scan = egt.from_reference(ref, device="cpu")
-    per_batch = egt.from_reference(ref, device="cpu")
+    ref, scan = _twins(8, **SMALL)
+    per_batch = _port_of(ref, egt.models.flash_transformer(**SMALL))
     data = _train_data(8, n=6)
     for _ in range(2):
         ref.fit("train", data, batch_size=2, log_status=False,
