@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve,
-train, and run scheduled contractions.
+train, and run scheduled contractions, map/reduce kernels and row chains.
 
     python3 chip_smoke.py
 
@@ -42,7 +42,23 @@ Phases (any failed check raises and the script exits non-zero):
    512->2048, relu, dense 2048->512, residual add, squared error, adam)
    on [2048, 512] rows: predict folds bias, relu and the residual into
    two kernel launches (matmul-fused 2) and matches the CPU port; three
-   fit steps agree with the CPU port; the time of a train step.
+   fit steps agree with the CPU port; the time of a train step;
+9. hold the generated map/reduce kernel (B5) and fused row chain (B6)
+   against their plain versions (the port's own lowering of the same
+   IR, schedule_mode="ignore") on the card: one program per family of
+   the classifier in float32 (seven in bfloat16), then 14 seeds each of
+   the JAX package's three map/reduce fuzzers; and time B6 at softmax
+   8192^2 and B5 at bench.py's scatter-add (n=16384, v=2048, d=512)
+   beside their plain versions, torch.softmax and index_add;
+10. path (c): the programs of examples/scheduled_kernels.py sections 3-9
+   and bench.py's two map/reduce cells under schedule_mode="force":
+   each launches its kernels once, as its lowering stats say, and
+   matches the plain lowering; the warm time of the softmax 8192^2 call;
+11. path (d): the flash_transformer head (rms_norm(row_tile=32), dense
+   512->2048 scheduled as path (b)'s, softmax(row_tile=32), the
+   cross-entropy, adam) on [2048, 512] rows: predict (two row chains,
+   one B1 launch) and three fit steps launch the kernels as the stats
+   say and agree with the CPU port; the time of a train step.
 
 Each path runs with the kernels' launch counters set to 0 just before
 it and read just after.  It needs a CUDA device and the rest of the
@@ -120,6 +136,32 @@ TRAIN_SEQS, TRAIN_EPOCHS, TIMED_STEPS = 32, 3, 5
 MATMUL_N, MATMUL_TILE = 4096, 512
 MLP = dict(dim=512, hidden=2048, tile=128)
 MLP_ROWS, MLP_STEPS = 2048, 3
+# the map/reduce cells of bench.py, and the flash_transformer head at the
+# serving width (8 x 256 tokens of dim 512, vocabulary 2048)
+SOFTMAX_N = 8192
+SCATTER = dict(n=16384, v=2048, d=512, tile={"i": 512, "x": 256})
+HEAD = dict(rows=2048, dim=512, vocab=2048)
+HEAD_STEPS = 3
+
+# Tolerances of the generated kernels (B5, B6) against their plain
+# version, the port's own lowering of the same IR on the card.  float32:
+# both compute in float32; sums of up to 32768 terms run in another order
+# (a program's blocks, then tl.sum's tree, against torch's reductions).
+GEN_F32 = dict(rtol=1e-5, atol=1e-5)
+# the softmax rows: every value is below 1 and each row sums 8192 exps
+SOFTMAX_TOL = dict(rtol=1e-5, atol=1e-6)
+# scatters: both versions add with float32 atomics, whose order changes
+# from run to run; a target sums up to ~100 values of order one
+GEN_SCATTER = dict(rtol=1e-5, atol=1e-5)
+# bfloat16: the kernel computes in float32 and rounds once, the plain
+# lowering rounds after every op in bfloat16 (2^-8 relative each)
+GEN_BF16 = dict(rtol=3e-2, atol=3e-2)
+BF16_FAMILIES = ("elementwise", "ragged", "stencil", "gather", "scatter_add",
+                 "softmax", "rms_norm")
+# the differential fuzzers' own tolerance (sums of up to 7200 terms of
+# exp-scaled products)
+GEN_FUZZ = dict(rtol=3e-4, atol=3e-4)
+FUZZ_SEEDS = 14
 
 
 def gpu_line() -> str:
@@ -262,6 +304,655 @@ def scheduled_mlp(egt, dim, hidden, tile, eta=1e-3):
             .target("loss")
             .backprop(egt.make_opt(egt.layers.adam, eta=eta))
             .target("train"))
+
+
+# --- scheduled map/reduce kernels and row chains (B5, B6) ---------------
+#
+# Each builder takes a DSL module (exprgrad_torch here; the CPU tests also
+# hand it exprgrad_tpu) and returns (graph, inputs) of one target "out";
+# the inputs come from a fixed seed, so both packages see the same data.
+
+def _normal(seed, *shapes, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(size=s) * scale).astype(np.float32) for s in shapes]
+
+
+def fam_elementwise(m):
+    inp = m.input("inp")
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[y, x] = m.exp(inp[y, x]) + 1.0
+    out.schedule(tile={"y": 16})
+    (v,) = _normal(1, (64, 200))
+    return out.target("out"), {"inp": v}
+
+
+def fam_inblock_reduction(m):
+    a, b = m.input("a"), m.input("b")
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[y] = m.exp(a[y, x]) + b[y]
+    out.schedule(tile={"y": 8}, share_cache=["x"])
+    av, bv = _normal(2, (16, 32), (16,))
+    return out.target("out"), {"a": av, "b": bv}
+
+
+def fam_gridded_reduction(m):
+    inp = m.input("inp")
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[y] = inp[y, x] * 2.0
+    out.schedule(tile={"y": 32, "x": 128})
+    (v,) = _normal(3, (64, 512))
+    return out.target("out"), {"inp": v}
+
+
+def fam_gridded_max(m):
+    inp = m.input("inp")
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out.maximize[y] = inp[y, x]
+    out.schedule(tile={"x": 128})
+    (v,) = _normal(4, (32, 512))
+    return out.target("out"), {"inp": v}
+
+
+def fam_stencil(m):
+    img = m.input("img")
+    y = m.iters("y")
+    x = m.irange("x", 0, img.shape[1] - 2)
+    out = m.Fun("out")
+    out[y, x] = (img[y, x] + img[y, x + 1] + img[y, x + 2]) * (1.0 / 3.0)
+    out.schedule(tile={"y": 16})
+    (v,) = _normal(31, (64, 130))
+    return out.target("out"), {"img": v}
+
+
+def fam_stride_phase(m):
+    imgs = m.input("imgs")
+    i, y, x, c = m.iters("i", "y", "x", "c")
+    out = m.Fun("out")
+    out[i, y, x, c] = m.maximum(
+        m.maximum(imgs[i, y * 2, x * 2, c], imgs[i, y * 2 + 1, x * 2, c]),
+        m.maximum(imgs[i, y * 2, x * 2 + 1, c],
+                  imgs[i, y * 2 + 1, x * 2 + 1, c]))
+    out.schedule(tile={"y": 8})
+    (v,) = _normal(10, (2, 16, 16, 128))
+    return out.target("out"), {"imgs": v}
+
+
+def fam_grouping(m):
+    imgs = m.input("imgs")
+    i, y, x, c = m.iters("i", "y", "x", "c")
+    out = m.Fun("out")
+    out[i, y, x, c] = imgs[i, y // 2, x // 2, c]
+    out.with_shape([imgs.shape[0], imgs.shape[1] * 2, imgs.shape[2] * 2,
+                    imgs.shape[3]])
+    out.schedule(tile={"y": 8})
+    (v,) = _normal(12, (2, 8, 8, 128))
+    return out.target("out"), {"imgs": v}
+
+
+def fam_flat_reads(m):
+    a, b = m.input("a"), m.input("b")
+    it = m.iters("it")
+    out = m.Fun("out")
+    out.raw[it] = m.exp(a.raw[it] * 0.3) + b.raw[it]
+    out.schedule(tile={"it": 128})
+    av, bv = _normal(62, (8, 16, 32), (8, 16, 32))
+    return out.target("out"), {"a": av, "b": bv}
+
+
+def fam_permuted_write(m):
+    a = m.input("a")
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[x, y] = a[y, x] * 2.0
+    out.schedule(tile={"y": 32})
+    (av,) = _normal(53, (64, 128))
+    return out.target("out"), {"a": av}
+
+
+def fam_permuted_read(m):
+    a, b = m.input("a"), m.input("b")
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[y] = m.exp(a[y, x]) + b[x, y]
+    out.schedule(tile={"y": 16})
+    av, bv = _normal(52, (32, 128), (128, 32))
+    return out.target("out"), {"a": av, "b": bv}
+
+
+def fam_constant_write(m):
+    a, b = m.input("a"), m.input("b")
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[0] = m.sq(a[y, x] - b[y, x])
+    out.schedule(tile={"y": 16})
+    av, bv = _normal(41, (64, 128), (64, 128))
+    return out.target("out"), {"a": av, "b": bv}
+
+
+def fam_triangular(m):
+    a = m.input("a")
+    y = m.iters("y")
+    x = m.irange("x", 0, y + 1)
+    out = m.Fun("out")
+    out.maximize[y] = a[y, x]
+    out.schedule(tile={"y": 16})
+    (av,) = _normal(55, (64, 64))
+    return out.target("out"), {"a": av}
+
+
+def fam_epoch(m):
+    a = m.input("a")
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[y, x] = a[y, x] * m.to_scalar(m.epoch())
+    out.schedule(tile={"y": 8})
+    (av,) = _normal(5, (16, 128))
+    return out.target("out"), {"a": av}
+
+
+def fam_ragged(m):
+    a = m.input("a")
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[y] = m.exp(a[y, x])
+    out.schedule(tile={"y": 48, "x": 100})
+    (av,) = _normal(23, (100, 200))
+    return out.target("out"), {"a": av}
+
+
+def fam_gather(m):
+    n, t, d = m.iters("n", "t", "d")
+    tok, table = m.input("tok"), m.input("table")
+    out = m.Fun("out")
+    out[n, d] = table[m.to_index(tok[n, t]), d] * 2.0 + 1.0
+    out.with_shape([tok.shape[0], table.shape[1]])
+    out.schedule(tile={"n": 2})
+    tokv = np.random.default_rng(2).integers(0, 8, (3, 5)).astype(np.float32)
+    (tab,) = _normal(6, (8, 64))
+    return out.target("out"), {"tok": tokv, "table": tab}
+
+
+def fam_pure_gather(m):
+    i, j = m.iters("i", "j")
+    xin, ain = m.input("x"), m.input("a")
+    out = m.Fun("out")
+    out[i, j] = xin[i, j] * ain[(i + 2 * j) % 9]
+    out.with_shape([xin.shape[0], xin.shape[1]])
+    out.schedule(tile={"i": 2, "j": 3})
+    xv, av = _normal(9, (4, 6), (9,))
+    return out.target("out"), {"x": xv, "a": av}
+
+
+def _scatter(m, mode):
+    i, x = m.iters("i", "x")
+    tok, g = m.input("tok"), m.input("g")
+    out = m.Fun("out")
+    dst = out if mode == "add" else getattr(out, mode)
+    dst[m.to_index(tok[i]), x] = g[i, x]
+    out.with_shape([11, 24])
+    out.schedule(tile={"i": 16})
+    toks = np.random.default_rng(15).integers(0, 11, 48).astype(np.float32)
+    (gv,) = _normal(16, (48, 24))
+    return out.target("out"), {"tok": toks, "g": gv}
+
+
+def fam_scatter_add(m):
+    return _scatter(m, "add")
+
+
+def fam_scatter_max(m):
+    return _scatter(m, "maximize")
+
+
+def fam_scatter_min(m):
+    return _scatter(m, "minimize")
+
+
+def fam_pure_scatter(m):
+    i, j = m.iters("i", "j")
+    vin = m.input("v")
+    out = m.Fun("out")
+    out[i, (i + j) % 7] = vin[i, j]
+    out.with_shape([6, 7])
+    out.schedule(tile={"i": 2})
+    (vv,) = _normal(13, (6, 9))
+    return out.target("out"), {"v": vv}
+
+
+def fam_causal_mask(m):
+    a = m.input("a")
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[y] = m.select(x <= y, a[y, x], 0.0)
+    out.schedule(tile={"y": 32})
+    (av,) = _normal(22, (128, 128))
+    return out.target("out"), {"a": av}
+
+
+def fam_shape_query(m):
+    a = m.input("a")
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[y] = a[y, x] / m.to_scalar(a.shape[1])
+    out.schedule(tile={"y": 16})
+    (av,) = _normal(59, (64, 128))
+    return out.target("out"), {"a": av}
+
+
+def fam_broadcast_write(m):
+    inp = m.input("inp")
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[y, x] = inp[y] * 3.0
+    out.with_shape([inp.shape[0], 64])
+    out.schedule(tile={"y": 16})
+    (v,) = _normal(7, (32,))
+    return out.target("out"), {"inp": v}
+
+
+# one program per family of PallasMapReduce's classifier; each runs one
+# generated kernel (one "mapreduce" stat) in both packages
+MAPREDUCE_FAMILIES = {
+    "elementwise": fam_elementwise,
+    "inblock_reduction": fam_inblock_reduction,
+    "gridded_reduction": fam_gridded_reduction,
+    "gridded_max": fam_gridded_max,
+    "stencil": fam_stencil,
+    "stride_phase": fam_stride_phase,
+    "grouping": fam_grouping,
+    "flat_reads": fam_flat_reads,
+    "permuted_write": fam_permuted_write,
+    "permuted_read": fam_permuted_read,
+    "constant_write": fam_constant_write,
+    "triangular": fam_triangular,
+    "epoch": fam_epoch,
+    "ragged": fam_ragged,
+    "gather": fam_gather,
+    "pure_gather": fam_pure_gather,
+    "scatter_add": fam_scatter_add,
+    "scatter_max": fam_scatter_max,
+    "scatter_min": fam_scatter_min,
+    "pure_scatter": fam_pure_scatter,
+    "causal_mask": fam_causal_mask,
+    "shape_query": fam_shape_query,
+    "broadcast_write": fam_broadcast_write,
+}
+
+
+def softmax_chain(m, tile, rows=128, cols=256, seed=0, scale=8.0):
+    """The three-kernel softmax of bench.py (row max, exp-sum,
+    normalize), each kernel scheduled with ``tile``."""
+    inp = m.input("inp")
+    funs = []
+    for name in ("mx", "sums", "out"):
+        y, x = m.iters("y", "x")
+        f = m.Fun(name)
+        if name == "mx":
+            f.maximize[y] = inp[y, x]
+        elif name == "sums":
+            f[y] = m.exp(inp[y, x] - funs[0][y])
+        else:
+            f[y, x] = m.exp(inp[y, x] - funs[0][y]) / funs[1][y]
+        f.schedule(tile=tile)
+        funs.append(f)
+    (v,) = _normal(seed, (rows, cols), scale=scale)
+    return funs[-1].target("out"), {"inp": v}
+
+
+def chain_layer_norm(m):
+    dim = 128
+    inp, gamma, beta = m.input("inp"), m.input("gamma"), m.input("beta")
+    n, v, out = m.Fun("mean"), m.Fun("var"), m.Fun("out")
+    y, x = m.iters("y", "x")
+    n[y] = inp[y, x] * (1.0 / dim)
+    y, x = m.iters("y", "x")
+    v[y] = m.sq(inp[y, x] - n[y]) * (1.0 / dim)
+    y, x = m.iters("y", "x")
+    out[y, x] = (inp[y, x] - n[y]) / m.sqrt(v[y] + 1e-5) * gamma[x] + beta[x]
+    for f in (n, v, out):
+        f.schedule(tile={"y": 16})
+    a, g, b = _normal(2, (64, dim), (dim,), (dim,))
+    return out.target("out"), {"inp": a, "gamma": g, "beta": b}
+
+
+def chain_rms(m):
+    a = m.input("a")
+    ss, out = m.Fun("ss"), m.Fun("out")
+    y, x = m.iters("y", "x")
+    ss[y] = m.sq(a[y, x]) * (1.0 / 128.0)
+    y, x = m.iters("y", "x")
+    out[y, x] = a[y, x] / m.sqrt(ss[y] + 1e-6)
+    for f in (ss, out):
+        f.schedule(tile={"y": 16})
+    (av,) = _normal(2, (64, 128))
+    return out.target("out"), {"a": av}
+
+
+def chain_escaping(m):
+    inp = m.input("inp")
+    y, x = m.iters("y", "x")
+    mx = m.Fun("mx")
+    mx.maximize[y] = inp[y, x]
+    y, x = m.iters("y", "x")
+    sums = m.Fun("sums")
+    sums[y] = m.exp(inp[y, x] - mx[y])
+    esc = m.Fun("esc")
+    y2 = m.iters("y2")
+    esc[y2] = mx[y2] * 2.0  # a second consumer of mx, outside the chain
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[y, x] = (m.exp(inp[y, x] - mx[y]) / sums[y]) + 0.001 * esc[y]
+    for f in (mx, sums, out):
+        f.schedule(tile={"y": 16})
+    (v,) = _normal(3, (32, 128))
+    return out.target("out"), {"inp": v}
+
+
+def chain_shared_operand(m):
+    inp = m.input("inp")
+    y, x = m.iters("y", "x")
+    mx = m.Fun("mx")
+    mx.maximize[y] = inp[y, x]
+    mx.schedule(parallel=["y"])
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[y, x] = inp[y, x] - mx[y]
+    out.schedule(parallel=["y"])
+    (v,) = _normal(5, (64, 128))
+    return out.target("out"), {"inp": v}
+
+
+def chain_layer_softmax(m):
+    import importlib
+
+    layers = importlib.import_module(m.__name__ + ".layers")
+    out = layers.softmax(m.input("inp"), row_tile=32)
+    (v,) = _normal(7, (64, 256), scale=6.0)
+    return out.target("out"), {"inp": v}
+
+
+def chain_layer_rms_rank3(m):
+    import importlib
+
+    layers = importlib.import_module(m.__name__ + ".layers")
+    out = layers.rms_norm(m.input("inp"), 128, rank=3, row_tile=16)
+    (v,) = _normal(8, (4, 64, 128))
+    return out.target("out"), {"inp": v}
+
+
+def chain_causal_softmax(m):
+    inp = m.input("inp")
+    funs = []
+    for name in ("mx", "sm", "out"):
+        q, k = m.iters("q", "k")
+        f = m.Fun(name)
+        if name == "mx":
+            f.maximize[q] = m.select(k <= q, inp[q, k], -1e30)
+        elif name == "sm":
+            f[q] = m.select(k <= q, m.exp(inp[q, k] - funs[0][q]), 0.0)
+        else:
+            f[q, k] = m.select(k <= q, m.exp(inp[q, k] - funs[0][q])
+                               / funs[1][q], 0.0)
+        f.schedule(tile={"q": 32})
+        funs.append(f)
+    (v,) = _normal(7, (128, 128), scale=4.0)
+    return funs[-1].target("out"), {"inp": v}
+
+
+def chain_ragged_rows(m):
+    return softmax_chain(m, {"y": 48}, rows=100, cols=256, seed=1, scale=5.0)
+
+
+# the row-chain programs of tests/test_pallas_rowchain.py that fuse; each
+# runs one fused kernel (one "rowchain" stat) in both packages
+ROWCHAIN_FAMILIES = {
+    "softmax": lambda m: softmax_chain(m, {"y": 32}),
+    "ragged_rows": chain_ragged_rows,
+    "layer_norm": chain_layer_norm,
+    "rms_norm": chain_rms,
+    "escaping": chain_escaping,
+    "shared_operand": chain_shared_operand,
+    "layer_softmax": chain_layer_softmax,
+    "layer_rms_rank3": chain_layer_rms_rank3,
+    "causal_softmax": chain_causal_softmax,
+}
+
+
+# Seeded random programs, built as the JAX package's differential fuzzers
+# build theirs (tests/test_fuzz_general.py, test_fuzz_cmpred.py,
+# test_fuzz_rowchain.py): the same draws from the same seeds give the same
+# programs and inputs.
+
+def fuzz_general(m, rng):
+    """Permuted reads and writes, maybe a triangular bound."""
+    sizes = [int(rng.choice(c)) for c in
+             ([13, 30, 48], [10, 24, 36], [100, 128, 200])]
+    dynamic = rng.random() < 0.4
+    i0 = m.iters("i0")
+    if dynamic:
+        c = int(rng.integers(1, 8))
+        sizes[1] = sizes[0] - 1 + c
+        i1 = m.irange("i1", 0, i0 + c)
+    else:
+        i1 = m.iters("i1")
+    i2 = m.iters("i2")
+    its = (i0, i1, i2)
+    inputs = {"base": tuple(sizes)}
+    exprs = [m.input("base")[i0, i1, i2]]
+    for r in range(int(rng.integers(1, 3))):
+        axes = sorted({2} | {a for a in (0, 1) if rng.random() < 0.5})
+        order = list(rng.permutation(len(axes)))
+        perm_axes = [axes[i] for i in order]
+        inputs[f"t{r}"] = tuple(sizes[a] for a in perm_axes)
+        exprs.append(m.input(f"t{r}")[tuple(its[a] for a in perm_axes)])
+    expr = exprs[0]
+    for other in exprs[1:]:
+        op = rng.choice(["add", "mul", "max"])
+        if op == "add":
+            expr = expr + other
+        elif op == "mul":
+            expr = expr * other
+        else:
+            expr = m.maximum(expr, other)
+    if rng.random() < 0.3:
+        expr = m.exp(expr * 0.05)
+    out = m.Fun("out")
+    keep = sorted({2} | {0 for _ in (0,) if rng.random() < 0.7})
+    if not dynamic and rng.random() < 0.5:
+        keep = sorted(set(keep) | {1})
+    order = list(rng.permutation(len(keep)))
+    idx = tuple(its[keep[i]] for i in order)
+    if rng.random() < 0.2:
+        out.maximize[idx] = expr
+    else:
+        out[idx] = expr
+    tiles = {}
+    for a in keep:
+        if rng.random() < 0.6:
+            tiles[f"i{a}"] = int(rng.choice([8, 16, 48, 100]))
+    if tiles:
+        out.schedule(tile=tiles)
+    else:
+        out.schedule(parallel=[f"i{keep[0]}"])
+    return [out.target("out")], inputs
+
+
+def _index_expr(rng, its, V):
+    a, b = rng.choice(len(its), size=2, replace=False)
+    form = rng.integers(0, 4)
+    ia, ib = its[int(a)], its[int(b)]
+    if form == 0:
+        e = ia * ib
+    elif form == 1:
+        e = ia * int(rng.integers(1, 5)) + ib * int(rng.integers(1, 5))
+    elif form == 2:
+        e = ia * ia + int(rng.integers(0, 7))
+    else:
+        e = ia // int(rng.integers(2, 5)) + ib
+    return e % V
+
+
+def fuzz_cmpred(m, rng):
+    """Computed-index (pure-iterator) gathers and scatters."""
+    sizes = [int(rng.integers(4, 20)), int(rng.integers(4, 20)),
+             int(rng.choice([32, 64, 128]))]
+    i0, i1, i2 = m.iters("i0", "i1", "i2")
+    its = (i0, i1, i2)
+    V = int(rng.integers(5, 60))
+    inputs = {"base": tuple(sizes)}
+    expr = m.input("base")[i0, i1, i2]
+    for r in range(int(rng.integers(1, 3))):
+        name = f"g{r}"
+        gidx = _index_expr(rng, its, V)
+        roll = rng.random()
+        if roll < 0.3:
+            trail = int(rng.choice([0, 1, 2]))
+            inputs[name] = (V, sizes[trail])
+            read = m.input(name)[gidx, its[trail]]
+        elif roll < 0.5:
+            V2 = int(rng.integers(4, 20))
+            gidx2 = _index_expr(rng, its, V2)
+            inputs[name] = (V, V2)
+            read = m.input(name)[gidx, gidx2]
+        else:
+            inputs[name] = (V,)
+            read = m.input(name)[gidx]
+        expr = expr + read if rng.random() < 0.5 else expr * read
+    if rng.random() < 0.3:
+        expr = m.exp(expr * 0.05)
+    out = m.Fun("out")
+    if rng.random() < 0.35:
+        acc_roll = rng.random()
+        dst = (out.maximize if acc_roll < 1 / 6
+               else out.minimize if acc_roll < 1 / 3 else out)
+        Vout = int(rng.integers(5, 40))
+        widx = _index_expr(rng, its, Vout)
+        roll = rng.random()
+        if roll < 0.3:
+            dst[widx, i2] = expr
+            shape = [Vout, sizes[2]]
+        elif roll < 0.5:
+            Vout2 = int(rng.integers(4, 16))
+            widx2 = _index_expr(rng, its, Vout2)
+            dst[widx, widx2] = expr
+            shape = [Vout, Vout2]
+        elif roll < 0.7:
+            dst[widx, i0] = expr
+            shape = [Vout, sizes[0]]
+        else:
+            dst[widx] = expr
+            shape = [Vout]
+        out.with_shape(shape)
+    else:
+        keep = sorted({2} | {a for a in (0, 1) if rng.random() < 0.6})
+        out[tuple(its[a] for a in keep)] = expr
+        out.with_shape([sizes[a] for a in keep])
+    tiles = {}
+    for a in range(3):
+        if rng.random() < 0.5:
+            tiles[f"i{a}"] = int(rng.choice([4, 8, 16, 64]))
+    if tiles:
+        out.schedule(tile=tiles)
+    else:
+        out.schedule(parallel=["i0"])
+    return [out.target("out")], inputs
+
+
+def fuzz_rowchain(m, rng):
+    """2-4 kernel row chains, sometimes with an escaping intermediate."""
+    r = int(rng.choice([48, 100, 128]))
+    c = int(rng.choice([128, 200, 256]))
+    inp = m.input("inp")
+    tile = int(rng.choice([16, 32, 48]))
+    funs = []
+    y, x = m.iters("y", "x")
+    head = m.Fun("k0")
+    if rng.random() < 0.4:
+        head.maximize[y] = inp[y, x]
+    else:
+        head[y] = m.exp(inp[y, x] * 0.1)
+    head.schedule(tile={"y": tile})
+    funs.append(head)
+    for i in range(int(rng.integers(0, 2))):
+        y, x = m.iters("y", "x")
+        f = m.Fun(f"k{i + 1}")
+        prev = funs[-1]
+        kind = rng.choice(["exp", "sq", "mix"])
+        if kind == "exp":
+            f[y] = m.exp((inp[y, x] - prev[y]) * 0.1)
+        elif kind == "sq":
+            f[y] = m.sq(inp[y, x] * 0.05) + prev[y] * 0.01
+        else:
+            f[y] = m.maximum(inp[y, x] * 0.1, prev[y] * 0.05)
+        f.schedule(tile={"y": tile})
+        funs.append(f)
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    prev, first = funs[-1], funs[0]
+    if rng.random() < 0.7:
+        out[y, x] = (inp[y, x] - first[y] * 0.5) / m.sqrt(
+            prev[y] * prev[y] + 1.0)
+    else:
+        out[y] = (inp[y, x] - first[y] * 0.01) * 0.1 + prev[y]
+    out.schedule(tile={"y": tile})
+    funs.append(out)
+    graphs = [out.target("out")]
+    if rng.random() < 0.4 and len(funs) > 1:
+        victim = funs[int(rng.integers(0, len(funs) - 1))]
+        z = m.iters("z")
+        esc = m.Fun("esc")
+        esc[z] = victim[z] * 3.0
+        graphs.append(esc.target("esc"))
+    return graphs, {"inp": (r, c)}
+
+
+def fuzz_case(m, kind, seed):
+    """(graphs, inputs) of the fuzzer ``kind`` at ``seed``, with the
+    fuzzers' own seed offsets and input draws."""
+    build, base, scale = {"general": (fuzz_general, 9100, 0.5),
+                          "cmpred": (fuzz_cmpred, 41000, 0.5),
+                          "rowchain": (fuzz_rowchain, 8200, 2.0)}[kind]
+    rng = np.random.default_rng(base + seed)
+    graphs, shapes = build(m, rng)
+    args = {name: (rng.normal(size=shape) * scale).astype(np.float32)
+            for name, shape in shapes.items()}
+    return graphs, args
+
+
+def scatter_add_graph(m, v, d, tile):
+    """bench.py's embedding-gradient scatter-add demb[tok[i], x] += g[i, x]."""
+    i, x = m.iters("i", "x")
+    tok, g = m.input("tok"), m.input("g")
+    out = m.Fun("demb")
+    out[m.to_index(tok[i]), x] = g[i, x]
+    out.with_shape([v, d])
+    out.schedule(tile=tile)
+    return out.target("demb")
+
+
+def transformer_head(m, dim, vocab, eta=1e-3):
+    """The head of flash_transformer (models/transformer.py: rms_norm,
+    dense to the vocabulary, softmax, the cross-entropy over the tokens)
+    on rank-2 rows, its row-family layers given ``row_tile=32`` and its
+    dense scheduled as path (b)'s, trained with adam."""
+    import importlib
+
+    layers = importlib.import_module(m.__name__ + ".layers")
+    h = layers.rms_norm(m.input("x"), dim, row_tile=32)
+    logits = layers.dense(h, dim, vocab).schedule(
+        tile={"y": 128, "x": 128, "it": 128}, parallel=["y", "x"], kernel=0)
+    predict = layers.softmax(logits, row_tile=32).target("predict")
+    labels = m.input("labels")
+    it = m.iters("it")
+    loss = m.Fun("loss")
+    loss[0] = -(labels.raw[it] * m.ln(predict.raw[it] + 1e-9)) / m.to_scalar(
+        labels.shape[0])
+    return (loss.target("loss").backwards()
+            .optimize(m.make_opt(layers.adam, eta=eta)).target("train"))
 
 
 def check_matmul_kernel(gen, dev) -> float:
@@ -442,17 +1133,413 @@ def path_b(egt, matmul, gpu) -> dict:
     return {"predict": predict_launches, "fit": fit_launches}
 
 
+def executor_of(model):
+    (ex,) = model._executors.values()
+    return ex
+
+
+def kernel_vs_plain(egt, graphs, args, target="out", epoch=3):
+    """The target on the card through the generated kernels
+    (schedule_mode="force") and through the plain lowering
+    (schedule_mode="ignore"), same parameters and inputs: (kernel output,
+    plain output, the kernel model's stats)."""
+    outs = []
+    for mode in ("force", "ignore"):
+        model = egt.compile(graphs, seed=0, schedule_mode=mode,
+                            device="cuda")
+        model.epoch = epoch
+        outs.append(model.call(target, args))
+        if mode == "force":
+            stats = model.lowering_stats(target)
+    return outs[0], outs[1], stats
+
+
+def bf16_kernel_vs_plain(egt, graph, args, epoch=3):
+    """The same pair in bfloat16: the compiled program with its scalar
+    type set to bfloat16, run by an executor of each mode on bfloat16
+    copies of the inputs and parameters."""
+    from exprgrad_torch.backend.executor import TorchExecutor
+    from exprgrad_torch.passes import infer_shapes
+
+    model = egt.compile(graph, seed=0, device="cuda")
+    prog = model.program.copy()
+    prog.scalar_type = egt.ir.ScalarType.BF16
+    shapes = infer_shapes(prog, "out", [(prog.inputs[n], list(v.shape))
+                                        for n, v in args.items()])
+    tensors = {prog.inputs[n]: torch.from_numpy(v).to(model.device)
+               .bfloat16() for n, v in args.items()}
+    tensors.update({t: p.bfloat16() for t, p in model.params.items()})
+    out = prog.targets["out"].output
+    got = {}
+    for mode in ("force", "ignore"):
+        ex = TorchExecutor(prog, "out", shapes, model.device, mode)
+        got[mode] = ex.run(dict(tensors), shapes, epoch, 0)[out].float()
+    return got["force"], got["ignore"]
+
+
+def assert_same(name, got, want, tol) -> float:
+    """got == want within tol, with the same infinities (an empty row of a
+    max or min scatter keeps its identity); returns max |error|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want), err_msg=name)
+    fin = np.isfinite(want)
+    assert np.isfinite(got[fin]).all(), name
+    np.testing.assert_allclose(got[fin], want[fin], **tol, err_msg=name)
+    return float(np.abs(got[fin] - want[fin]).max()) if fin.any() else 0.0
+
+
+def check_generated_kernels(egt, gpu) -> dict:
+    """Phase 9: B5 and B6 against their plain versions on the card, one
+    program per family in float32 (and seven in bfloat16), then the
+    seeded sweep of random kernels and chains.  Returns the max |error|
+    of each kernel."""
+    worst = {"mapreduce": 0.0, "rowchain": 0.0}
+    families = [(n, f, "mapreduce") for n, f in MAPREDUCE_FAMILIES.items()]
+    families += [(n, f, "rowchain") for n, f in ROWCHAIN_FAMILIES.items()]
+    for name, family, kind in families:
+        graph, args = family(egt)
+        got, want, stats = kernel_vs_plain(egt, graph, args)
+        assert stats.get(kind) == 1, (name, stats)
+        tol = GEN_SCATTER if "scatter" in name else GEN_F32
+        err = assert_same(f"{kind} {name}", got, want, tol)
+        worst[kind] = max(worst[kind], err)
+        line = f"kernel check {kind} {name}: max |err| {err:.3e}"
+        if name in BF16_FAMILIES:
+            got, want = bf16_kernel_vs_plain(egt, graph, args)
+            bf_err = assert_same(f"{kind} {name} bf16", got.cpu(),
+                                 want.cpu(), GEN_BF16)
+            line += f", bfloat16 {bf_err:.3e}"
+        print(line)
+    hits = {}
+    for kind in ("general", "cmpred", "rowchain"):
+        hits[kind] = 0
+        for seed in range(FUZZ_SEEDS):
+            graphs, args = fuzz_case(egt, kind, seed)
+            for target in ("out", "esc")[:len(graphs)]:
+                got, want, stats = kernel_vs_plain(egt, graphs, args, target)
+                assert_same(f"fuzz {kind} seed {seed} {target}", got, want,
+                            GEN_FUZZ)
+                if target == "out":
+                    hits[kind] += bool(stats.get("mapreduce")
+                                       or stats.get("rowchain"))
+    # a gathered index outside the table reads 0, as the TPU kernel does
+    graph, args = fam_gather(egt)
+    tok = args["tok"].copy()
+    tok[0, 0], tok[1, 2], tok[2, 4] = 8, -1, 1000
+    got = egt.compile(graph, seed=0, schedule_mode="force",
+                      device="cuda").call("out", {**args, "tok": tok})
+    idx = tok.astype(np.int64)
+    inside = (idx >= 0) & (idx < args["table"].shape[0])
+    rows = np.where(inside[..., None],
+                    args["table"][np.clip(idx, 0, args["table"].shape[0] - 1)],
+                    0.0)
+    assert_same("gather out of range", got, (rows * 2.0 + 1.0).sum(1),
+                GEN_F32)
+    print("kernel check mapreduce gather with indices outside the table: "
+          "they read 0")
+    print(f"seeded sweep: {FUZZ_SEEDS} seeds each of the general, "
+          f"computed-index and row-chain fuzzers match the plain version; "
+          f"seeds that ran a generated kernel {hits}")
+    return worst
+
+
+def time_generated_kernels(egt, gpu) -> dict:
+    """Phase 9 timing: B6 at softmax 8192^2 and B5 at bench.py's scatter-
+    add shape, each beside its plain version and one PyTorch call for the
+    same function, with CUDA events, in turns."""
+    from exprgrad_torch.ops import mapreduce, rowchain
+
+    out = {}
+    n = SOFTMAX_N
+    graph, args = softmax_chain(egt, {"y": 32}, rows=n, cols=n, scale=1.0)
+    model = egt.compile(graph, seed=0, schedule_mode="force", device="cuda")
+    model.call("out", args)
+    ex = executor_of(model)
+    (chain,) = ex.row_fused.values()
+    dev = model.device
+    x = torch.from_numpy(args["inp"]).to(dev)
+    prog = model.program
+    tensors = {prog.inputs["inp"]: x,
+               prog.targets["out"].output: torch.zeros_like(x)}
+    fns = {"kernel": lambda: chain.lower(tensors),
+           "plain": lambda: chain.plain(tensors, 0),
+           "library": lambda: torch.softmax(x, -1)}
+    got = fns["kernel"]()[prog.targets["out"].output]
+    want = fns["plain"]()[prog.targets["out"].output]
+    err = assert_same("rowchain softmax 8192^2", got.cpu(), want.cpu(),
+                      SOFTMAX_TOL)
+    out["rowchain"] = timed(fns, chain.compiled().plan["bytes"])
+    out["rowchain"]["err"] = err
+    print(f"rowchain softmax {n}x{n} f32: {out['rowchain']} on {gpu}")
+
+    v, d, rows = SCATTER["v"], SCATTER["d"], SCATTER["n"]
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, v, rows).astype(np.float32)
+    g = (rng.normal(size=(rows, d)) / np.sqrt(d)).astype(np.float32)
+    model = egt.compile(scatter_add_graph(egt, v, d, SCATTER["tile"]),
+                        seed=0, schedule_mode="force", device="cuda")
+    model.call("demb", {"tok": tok, "g": g})
+    ex = executor_of(model)
+    (low,) = ex._lowerings.values()
+    mr = low.scheduled_mapreduce()
+    prog = model.program
+    tok_t, g_t = torch.from_numpy(tok).to(dev), torch.from_numpy(g).to(dev)
+    prev = torch.zeros(v, d, device=dev)
+    tensors = {prog.inputs["tok"]: tok_t, prog.inputs["g"]: g_t,
+               prog.targets["demb"].output: prev}
+    tok_long = tok_t.long()
+    fns = {"kernel": lambda: mr.lower(tensors),
+           "plain": lambda: mr.plain(tensors, 0),
+           "library": lambda: prev.index_add(0, tok_long, g_t)}
+    err = assert_same("mapreduce scatter-add", fns["kernel"]().cpu(),
+                      fns["plain"]().cpu(), GEN_SCATTER)
+    out["mapreduce"] = timed(fns, mr.compiled().plan["bytes"])
+    out["mapreduce"]["err"] = err
+    print(f"mapreduce scatter-add n={rows} v={v} d={d} f32: "
+          f"{out['mapreduce']} on {gpu}")
+    mapreduce.launches = rowchain.launches = 0
+    return out
+
+
+def timed(fns, nbytes) -> dict:
+    """Mean ms of each function by CUDA events, in turns, and the bound
+    of the bytes it must move."""
+    runs = {name: [] for name in fns}
+    for name in ("plain", "library", "kernel", "kernel", "library",
+                 "plain"):
+        runs[name].append(cuda_ms(fns[name], iters=20, warmup=3))
+    res = {name: sum(v) / len(v) for name, v in runs.items()}
+    res["bound"] = bound(0.0, nbytes)
+    return res
+
+
+def path_c_programs(m):
+    """The programs of examples/scheduled_kernels.py sections 3-9 at the
+    example's sizes, and the two map/reduce cells of bench.py at theirs:
+    (name, graph, target, inputs, the generated kernels they run)."""
+    rng = np.random.default_rng(0)
+    out = []
+    n = SOFTMAX_N
+    graph, args = softmax_chain(m, {"y": 32}, rows=n, cols=n, scale=1.0)
+    out.append(("softmax 8192^2 (bench.py)", graph, "out", args,
+                {"rowchain": 1}))
+    v, d, rows = SCATTER["v"], SCATTER["d"], SCATTER["n"]
+    out.append(("scatter-add (bench.py)",
+                scatter_add_graph(m, v, d, SCATTER["tile"]), "demb",
+                {"tok": rng.integers(0, v, rows).astype(np.float32),
+                 "g": (rng.normal(size=(rows, d)) / np.sqrt(d)).astype(
+                     np.float32)}, {"mapreduce": 1}))
+    graph, args = softmax_chain(m, {"y": 64}, rows=256, cols=512, scale=1.0)
+    out.append(("softmax 256x512", graph, "out", args, {"rowchain": 1}))
+    inp = m.input("inp")
+    q, k = m.iters("q", "k")
+    causal = m.Fun("causal")
+    causal[q, k] = m.select(k <= q, inp[q, k], 0.0)
+    causal.schedule(tile={"q": 64})
+    out.append(("causal mask", causal.target("causal"), "causal",
+                {"inp": _normal(40, (128, 128))[0]}, {"mapreduce": 1}))
+    img = m.input("img")
+    y = m.iters("y")
+    x = m.irange("x", 0, img.shape[1] - 2)
+    blur = m.Fun("blur")
+    blur[y, x] = (img[y, x] + img[y, x + 1] + img[y, x + 2]) * (1.0 / 3.0)
+    blur.schedule(tile={"y": 32})
+    out.append(("stencil blur", blur.target("blur"), "blur",
+                {"img": _normal(41, (64, 258))[0]}, {"mapreduce": 1}))
+    a, b = m.input("a"), m.input("b")
+    y, x = m.iters("y", "x")
+    loss = m.Fun("loss")
+    loss[0] = m.sq(a[y, x] - b[y, x])
+    loss.schedule(tile={"y": 32})
+    av, bv = _normal(42, (128, 256), (128, 256))
+    out.append(("scalar loss", loss.target("loss"), "loss",
+                {"a": av, "b": bv}, {"mapreduce": 1}))
+    ta = m.input("ta")
+    y = m.iters("y")
+    x = m.irange("x", 0, y + 1)
+    tri = m.Fun("tri")
+    tri[y] = ta[y, x]
+    tri.schedule(tile={"y": 32})
+    out.append(("triangular row sums", tri.target("tri"), "tri",
+                {"ta": _normal(43, (128, 128))[0]}, {"mapreduce": 1}))
+    import importlib
+
+    layers = importlib.import_module(m.__name__ + ".layers")
+    rn = layers.rms_norm(m.input("rn"), 256, row_tile=32)
+    out.append(("rms_norm(row_tile=32)", rn.target("rn_out"), "rn_out",
+                {"rn": _normal(44, (64, 256))[0]}, {"rowchain": 1}))
+    tok, table = m.input("tok"), m.input("table")
+    i, d = m.iters("i", "d")
+    emb = m.Fun("emb")
+    emb[i, d] = table[m.to_index(tok[i]), d]
+    emb.with_shape([tok.shape[0], table.shape[1]])
+    emb.schedule(tile={"i": 8})
+    out.append(("embedding gather", emb.target("emb"), "emb",
+                {"tok": rng.integers(0, 32, 16).astype(np.float32),
+                 "table": _normal(45, (32, 128))[0]}, {"mapreduce": 1}))
+    ha, hx = m.input("ha"), m.input("hx")
+    y2, x2 = m.iters("y2", "x2")
+    hashed = m.Fun("hashed")
+    hashed[y2, x2] = hx[y2, x2] * ha[(y2 * x2) % 17]
+    hashed.with_shape([hx.shape[0], hx.shape[1]])
+    hashed.schedule(tile={"y2": 8})
+    hv, av2 = _normal(46, (16, 64), (17,))
+    out.append(("hashed LUT", hashed.target("hashed"), "hashed",
+                {"hx": hv, "ha": av2}, {"mapreduce": 1}))
+    sv = m.input("sv")
+    si, sj = m.iters("si", "sj")
+    hist = m.Fun("hist")
+    hist[(si + sj) % 11] = sv[si, sj]
+    hist.with_shape([11])
+    hist.schedule(tile={"si": 8})
+    out.append(("banded histogram", hist.target("hist"), "hist",
+                {"sv": _normal(47, (16, 64))[0]}, {"mapreduce": 1}))
+    return out
+
+
+def path_c(egt, gpu) -> dict:
+    """Phase 10: the schedule DSL surface under schedule_mode="force":
+    every program launches its kernels once per kernel, as its stats say,
+    and matches the plain lowering on the card."""
+    from exprgrad_torch.ops import mapreduce, rowchain
+
+    programs = path_c_programs(egt)
+    models = []
+    for name, graph, target, args, expect in programs:
+        models.append(egt.compile(graph, seed=0, schedule_mode="force",
+                                  device="cuda"))
+    mapreduce.launches = rowchain.launches = 0
+    outs = [model.call(target, args) for model, (_, _, target, args, _)
+            in zip(models, programs)]
+    torch.cuda.synchronize()
+    launches = {"mapreduce": mapreduce.launches,
+                "rowchain": rowchain.launches}
+    want_launches = {"mapreduce": 0, "rowchain": 0}
+    for model, got, (name, graph, target, args, expect) in zip(
+            models, outs, programs):
+        stats = model.lowering_stats(target)
+        assert stats == expect, (name, stats)
+        for kind in want_launches:
+            want_launches[kind] += stats.get(kind, 0)
+        plain = egt.compile(graph, seed=0, schedule_mode="ignore",
+                            device="cuda").call(target, args)
+        tol = (SOFTMAX_TOL if name.startswith("softmax") else
+               GEN_SCATTER if "scatter" in name or "histogram" in name
+               else GEN_F32)
+        err = assert_same(f"path (c) {name}", got, plain, tol)
+        print(f"path (c) {name}: lowering {stats}, max |err| vs the plain "
+              f"lowering {err:.3e}")
+    assert launches == want_launches, (launches, want_launches)
+    model, (_, _, target, args, _) = models[0], programs[0]
+    model.call(target, args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        model.call(target, args)
+    call_ms = (time.perf_counter() - t0) * 1e3 / 5
+    print(f"path (c): kernel launches {launches}, as the stats say; softmax "
+          f"{SOFTMAX_N}^2 call (host arrays in and out) {call_ms:.2f} ms "
+          f"warm on {gpu}")
+    return launches
+
+
+def path_d(egt, gpu) -> dict:
+    """Phase 11: the flash_transformer head with row-tiled layers at the
+    serving width: predict and three fit steps, against the CPU port."""
+    from exprgrad_torch.ops import mapreduce, matmul, rowchain
+
+    graph = transformer_head(egt, HEAD["dim"], HEAD["vocab"])
+    model = egt.compile(graph, seed=0, schedule_mode="force", device="cuda")
+    cpu = egt.compile(graph, seed=0, schedule_mode="force", device="cpu")
+    rows, dim, vocab = HEAD["rows"], HEAD["dim"], HEAD["vocab"]
+    rng = np.random.default_rng(2)
+    data = {"x": rng.standard_normal((rows * HEAD_STEPS, dim),
+                                     dtype=np.float32),
+            "labels": np.eye(vocab, dtype=np.float32)[
+                rng.integers(0, vocab, rows * HEAD_STEPS)]}
+    first = {"x": data["x"][:rows]}
+    counters = (mapreduce, rowchain, matmul)
+    for c in counters:
+        c.launches = 0
+    probs = model.call("predict", first)
+    torch.cuda.synchronize()
+    predict_launches = {c.__name__.split(".")[-1]: c.launches
+                        for c in counters}
+    stats = model.lowering_stats("predict")
+    want = {"mapreduce": stats.get("mapreduce", 0),
+            "rowchain": stats.get("rowchain", 0),
+            "matmul": stats.get("matmul", 0) + stats.get("matmul-fused", 0)}
+    assert predict_launches == want, (predict_launches, stats)
+    assert predict_launches["rowchain"] == 2, stats
+    cpu_probs = cpu.call("predict", first)
+    assert probs.shape == (rows, vocab) and np.isfinite(probs).all()
+    err = float(np.abs(probs - cpu_probs).max())
+    np.testing.assert_allclose(probs, cpu_probs, **PREDICT)
+    print(f"path (d) predict [{rows},{dim}] -> [{rows},{vocab}]: launches "
+          f"{predict_launches}, lowering {stats}, max |err| vs the CPU port "
+          f"{err:.3e}")
+
+    start = {t: x.clone() for t, x in cpu.params.items()}
+    for c in counters:
+        c.launches = 0
+    model.fit("train", data, batch_size=rows, log_status=False)
+    torch.cuda.synchronize()
+    fit_launches = {c.__name__.split(".")[-1]: c.launches for c in counters}
+    train_stats = model.lowering_stats("train")
+    per_step = {"mapreduce": train_stats.get("mapreduce", 0),
+                "rowchain": train_stats.get("rowchain", 0),
+                "matmul": train_stats.get("matmul", 0)
+                + train_stats.get("matmul-fused", 0)}
+    assert fit_launches == {k: HEAD_STEPS * v for k, v in per_step.items()}, (
+        fit_launches, train_stats)
+    assert per_step["mapreduce"] >= 1 and per_step["rowchain"] >= 1, \
+        train_stats
+    cpu.fit("train", data, batch_size=rows, log_status=False)
+    batch = {"x": data["x"][:rows], "labels": data["labels"][:rows]}
+    loss = float(model.call("loss", batch)[0])
+    cpu_loss = float(cpu.call("loss", batch)[0])
+    rel, worst = update_err(model.params, cpu.params, start)
+    print(f"path (d) fit {HEAD_STEPS} steps: launches {fit_launches} "
+          f"({per_step} per step), lowering {train_stats}; loss {loss:.6f} "
+          f"vs CPU {cpu_loss:.6f}; parameters vs CPU: |diff| / |update| "
+          f"{rel:.3e}, max |diff| {worst:.3e}")
+    np.testing.assert_allclose(loss, cpu_loss, **TRAIN_LOSS)
+    assert rel <= TRAIN_UPDATE_RTOL, rel
+
+    model.epoch += 1
+    batch = {"x": data["x"][:rows], "labels": data["labels"][:rows]}
+    model.apply("train", batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        model.apply("train", batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    print(f"path (d) train step [{rows},{dim}]: {step_ms:.2f} ms (mean of "
+          f"{TIMED_STEPS} warm steps) on {gpu}")
+    return {"predict": predict_launches, "fit": fit_launches}
+
+
+def phase_done(name, since) -> float:
+    """Print a phase's seconds; returns the time it ended."""
+    now = time.perf_counter()
+    print(f"phase {name}: {now - since:.1f} s")
+    return now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import exprgrad_torch as egt
     from exprgrad_torch.io import load_model, save_model
     from exprgrad_torch.models import FlashLMServer, flash_transformer
     import exprgrad_torch.layers  # noqa: F401  (egt.layers in builders)
     from exprgrad_torch.ops import attention, matmul
-    from exprgrad_torch.utils import kernels
+    from exprgrad_torch.utils import kernels, triton_build
 
     gpu = gpu_line()
     dev = torch.device("cuda")
@@ -467,6 +1554,8 @@ def main() -> int:
           f"{kernels.library_path()} (host of {gpu})")
     if kernels.build_log.strip():
         print(kernels.build_log.strip())
+
+    t_phase = phase_done("1 (build)", t0)
 
     # 2. kernel against its plain version -------------------------------
     gen = torch.Generator(device=dev)
@@ -570,6 +1659,8 @@ def main() -> int:
           f"scaled_dot_product_attention backward (dq, dk, dv) "
           f"{sdpa_bwd_ms:.4f} ms; bounds {att_bounds} on {gpu}")
 
+    t_phase = phase_done("2 (flash kernels)", t_phase)
+
     # 3. predict through the compiled model ----------------------------
     graph = flash_transformer(**SERVING)
     model = egt.compile(graph, seed=0, device="cuda")
@@ -654,6 +1745,8 @@ def main() -> int:
     assert attention.launches - before == 2, attention.launches - before
     np.testing.assert_allclose(ragged, probs[:2, :200], **PREDICT)
     print("ragged predict [2,200]: 2 kernel launches, matches predict")
+
+    t_phase = phase_done("3 and 4 (predict, serve)", t_phase)
 
     # 5. train -------------------------------------------------------------
     data = lm_data(np.random.default_rng(0), SERVING["vocab"], TRAIN_SEQS,
@@ -747,9 +1840,13 @@ def main() -> int:
           f"{TIMED_STEPS} warm steps), {BATCH * SEQ / step_ms * 1e3:.1f} "
           f"training tokens/s on {gpu}")
 
+    t_phase = phase_done("5 (train)", t_phase)
+
     # 6. the scheduled matmul kernel against its plain version -----------
     mm_err = check_matmul_kernel(gen, dev)
     mm_times = time_matmul(gen, dev, MATMUL_N, gpu)
+
+    t_phase = phase_done("6 (matmul kernel)", t_phase)
 
     # 7. and 8. the scheduled paths, each with the counters at 0 ---------
     attention.launches = attention.dq_launches = attention.dkv_launches = 0
@@ -758,13 +1855,35 @@ def main() -> int:
     mm_launches = path_a_launches + sum(path_b_launches.values())
     print(f"scheduled paths: matmul kernel launches path (a) "
           f"{path_a_launches}, path (b) {path_b_launches}")
+
+    t_phase = phase_done("7 and 8 (paths (a), (b))", t_phase)
+
+    # 9. the generated kernels against their plain versions ----------------
+    gen_err = check_generated_kernels(egt, gpu)
+    gen_times = time_generated_kernels(egt, gpu)
+    t_phase = phase_done(f"9 (generated kernels; Triton compiled for "
+                         f"{triton_build.compile_seconds:.1f} s)", t_phase)
+
+    # 10. and 11. the map/reduce paths, each with the counters at 0 -------
+    path_c_launches = path_c(egt, gpu)
+    t_phase = phase_done("10 (path (c))", t_phase)
+    path_d_launches = path_d(egt, gpu)
+    phase_done("11 (path (d))", t_phase)
+    gen_launches = {
+        kind: path_c_launches[kind] + sum(
+            run[kind] for run in path_d_launches.values())
+        for kind in ("mapreduce", "rowchain")}
+    print(f"map/reduce paths: generated kernel launches path (c) "
+          f"{path_c_launches}, path (d) {path_d_launches}; Triton compiled "
+          f"for {triton_build.compile_seconds:.1f} s in all; the whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "exprgrad_tpu"))
     assert not loaded, f"the port imported {loaded}"
 
     def row(name, source, replaces, launches, err, ms, plain, library,
-            bound_of):
-        return {"name": name, "route": "cuda", "source": source,
+            bound_of, route="cuda"):
+        return {"name": name, "route": route, "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound_of[0], "bound_by": bound_of[1],
@@ -787,6 +1906,20 @@ def main() -> int:
             "exprgrad_tpu/ops/matmul.py:24", mm_launches, mm_err,
             mm_times["kernel"], mm_times["plain"], mm_times["library"],
             mm_times["bound"]),
+        row("scheduled_mapreduce", "exprgrad_torch/ops/mapreduce.py",
+            "exprgrad_tpu/backend/pallasgen.py:1804", gen_launches[
+                "mapreduce"], max(gen_err["mapreduce"],
+                                  gen_times["mapreduce"]["err"]),
+            gen_times["mapreduce"]["kernel"], gen_times["mapreduce"]["plain"],
+            gen_times["mapreduce"]["library"], gen_times["mapreduce"]["bound"],
+            route="triton"),
+        row("scheduled_rowchain", "exprgrad_torch/ops/rowchain.py",
+            "exprgrad_tpu/backend/pallasgen.py:2375", gen_launches[
+                "rowchain"], max(gen_err["rowchain"],
+                                 gen_times["rowchain"]["err"]),
+            gen_times["rowchain"]["kernel"], gen_times["rowchain"]["plain"],
+            gen_times["rowchain"]["library"], gen_times["rowchain"]["bound"],
+            route="triton"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -16,8 +16,16 @@ Scheduled matmuls fold their elementwise consumers into kernel B1's
 epilogue by the plan of :func:`~exprgrad_torch.backend.scheduled.
 plan_epilogue_fusions`, as in the JAX executor: the folded kernels are
 skipped, the intermediates they dropped are never allocated, and the
-chain's value lands in its final tensor.  Not ported: the row-chain
-fusion plan, which belongs to kernel B6 (ROADMAP.md A11).
+chain's value lands in its final tensor.  After it, the row-chain plan of
+:func:`~exprgrad_torch.backend.rowchain.plan_rowchain_fusions` fuses runs
+of scheduled map/reduce kernels (softmax, layer_norm, rms_norm) into one
+kernel B6 each: the chain's head runs it, which yields the final tensor
+and every escaping intermediate, and its other intermediates are never
+allocated.
+
+The executor keeps one :class:`KernelLowering` per kernel across its
+runs, so a scheduled kernel is classified, planned and its Triton source
+generated once per executor, not once per call.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from ..interp import accumulation_identity, extreme_accumulated_results
 from ..ir import Program
 
 from .policy import SchedulePolicy
+from .rowchain import plan_rowchain_fusions
 from .scheduled import plan_epilogue_fusions
 from .torcheval import KernelLowering
 
@@ -58,6 +67,21 @@ class TorchExecutor:
         (self.fused, self._skip_kernels, self._fused_away,
          self.epilogue_declines) = plan_epilogue_fusions(
             program, self.target, shapes, self.dtype, device, self.policy)
+        self._consts: dict = {}  # literal -> 0-d device tensor
+        self._lowerings: dict[int, KernelLowering] = {}
+        self._writers: dict[int, int] = {}  # tensor id -> writing kernels
+        for kernel in self.target.kernels:
+            if kernel.write is not None:
+                tid = kernel.write.tensor
+                self._writers[tid] = self._writers.get(tid, 0) + 1
+        # row-chain plan: runs of scheduled map/reduce kernels fused into
+        # one kernel B6 each (matmul chains take precedence)
+        (self.row_fused, row_skip, row_away,
+         self.rowchain_declines) = plan_rowchain_fusions(
+            program, self.target, self._lowering, self.policy,
+            consumed=self._skip_kernels | set(self.fused))
+        self._skip_kernels = self._skip_kernels | row_skip
+        self._fused_away = self._fused_away | row_away
 
         self.input_tids = sorted(
             tid
@@ -94,9 +118,27 @@ class TorchExecutor:
         donated = set(self.donated_tids)
         self.kept_tids = [t for t in self.input_tids if t not in donated]
         self._extreme = extreme_accumulated_results(self.target)
-        self._consts: dict = {}  # literal -> 0-d device tensor
         self.stats: dict[str, int] = {}  # lowering paths, from the 1st run
         self._ran = False
+
+    def _lowering(self, i: int) -> KernelLowering:
+        """Kernel ``i``'s lowering, made on first use and kept."""
+        low = self._lowerings.get(i)
+        if low is None:
+            kernel = self.target.kernels[i]
+            low = KernelLowering(
+                self.program, kernel, self.shapes, self.dtype, self.device,
+                self.policy, None, self._consts)
+            # a RESULT tensor with one writer holds its accumulation
+            # identity when that kernel runs: the generated kernels store
+            # their value without reading it
+            tid = kernel.write.tensor if kernel.write is not None else None
+            low.fresh_output = (
+                tid is not None
+                and self.program.tensors[tid].kind == ir.TensorKind.RESULT
+                and self._writers.get(tid) == 1)
+            self._lowerings[i] = low
+        return low
 
     def run(
         self,
@@ -136,7 +178,7 @@ class TorchExecutor:
         extern_memo: dict = {}  # one logical extern call per run
         for i, kernel in enumerate(self.target.kernels):
             if i in self._skip_kernels:
-                continue  # folded into an earlier matmul's epilogue
+                continue  # folded into an earlier matmul or row chain
             if i in self.fused:
                 sm, chain = self.fused[i]
                 value = sm.lower_fused(tensors, chain)
@@ -146,10 +188,20 @@ class TorchExecutor:
                 if stats is not None:
                     stats["matmul-fused"] = stats.get("matmul-fused", 0) + 1
                 continue
-            KernelLowering(
-                program, kernel, self.shapes, self.dtype, self.device,
-                self.policy, extern_memo, self._consts,
-            ).run(tensors, epoch, stats)
+            if i in self.row_fused:
+                chain = self.row_fused[i]
+                for member in chain.members:
+                    member.low.epoch = epoch
+                # the final tensor and every escaping intermediate come
+                # out of one launch
+                tensors.update(chain.lower(tensors))
+                if stats is not None:
+                    stats["rowchain"] = stats.get("rowchain", 0) + 1
+                continue
+            low = self._lowering(i)
+            low.extern_memo = extern_memo
+            low.run(tensors, epoch, stats)
+        extern_memo.clear()  # the kept lowerings must not hold its outputs
         self._ran = True
         return {tid: tensors[tid] for tid in self.output_tids}
 

@@ -3,13 +3,16 @@
 Counterpart of ``exprgrad_tpu/backend/policy.py`` for the modes and the
 fallback report:
 
-* ``schedule_mode="auto"`` (default): a scheduled contraction that the
-  classifier accepts runs the kernel.  The JAX package decides ``auto``
-  with a cost model calibrated on the TPU (``pallas_calibration.json``);
-  those constants are TPU measurements and are not ported, so here
-  ``auto`` takes the kernel whenever the classifier accepts.  A cost model
+* ``schedule_mode="auto"`` (default): a scheduled kernel that a
+  classifier accepts runs its kernel: a contraction kernel B1, any other
+  map/reduce kernel the generated kernel B5, a run of them over one loop
+  nest the fused row chain B6.  The JAX package decides ``auto`` with a
+  cost model calibrated on the TPU (``pallas_calibration.json``: launch
+  time, matmul and elementwise rates, the row chain's bandwidth); those
+  constants are TPU measurements and are not ported, so here ``auto``
+  takes the kernel whenever the classifier accepts.  A cost model
   measured on the H100 waits for ROADMAP.md A6.
-* ``schedule_mode="force"``: always honor a schedule the classifier
+* ``schedule_mode="force"``: always honor a schedule a classifier
   accepts.
 * ``schedule_mode="ignore"``: never run the kernel for a schedule.
 
@@ -38,8 +41,9 @@ class SchedulePolicy:
 
     @property
     def routes_schedules(self) -> bool:
-        """Whether schedules reach the kernel at all: under ``auto`` and
-        ``force`` every contraction the classifier accepts runs it."""
+        """Whether schedules reach the kernels at all: under ``auto`` and
+        ``force`` every kernel a classifier accepts runs its kernel (B1,
+        B5, or B6 for a row chain)."""
         return self.mode != "ignore"
 
     def fallback(self, stats: dict | None, kernel_desc: str,

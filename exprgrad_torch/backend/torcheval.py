@@ -22,15 +22,19 @@ Tensors are never updated in place: a write returns a new tensor, as in
 the JAX package, so the model's parameters stay intact until the run
 that updates them has finished.
 
-Scheduled kernels (``Fun.schedule``) are routed first, as
-``jaxeval.py`` routes them: a contraction the classifier of
-:mod:`~exprgrad_torch.backend.scheduled` accepts runs kernel B1 (stat
-``matmul``) under the policy of :mod:`~exprgrad_torch.backend.policy`.
-A decline lowers through the paths above with a ``ScheduleWarning`` and
-a ``schedule-fallback`` stat.  Under ``schedule_mode="force"`` a declined
-kernel for which the JAX package has no plain route of its own raises:
-the JAX package would run its generated map/reduce or row-chain kernel
-there (B5, B6), which the port does not have yet.
+Scheduled kernels (``Fun.schedule``) are routed first, in the order of
+``jaxeval.py``, under the policy of :mod:`~exprgrad_torch.backend.policy`:
+a contraction the classifier of :mod:`~exprgrad_torch.backend.scheduled`
+accepts runs kernel B1 (stat ``matmul``); any other kernel the classifier
+of :mod:`~exprgrad_torch.backend.mapreduce` accepts runs a generated
+map/reduce kernel, B5 (stat ``mapreduce``).  A kernel both decline lowers
+through the paths above with a ``ScheduleWarning`` and a
+``schedule-fallback`` stat; a matmul-shaped kernel that B1 declined late
+reports B1's reason.  Runs of map/reduce kernels that fuse into one row
+chain (B6) never reach this module: the executor runs them.
+
+The executor keeps one lowering per kernel, so the classification of a
+scheduled kernel and its generated kernel are made once per executor.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from ..ir import Kernel, LinearIndex, Op, Program
 from ..passes.shapes import resolve_loop_bounds
 
 from ..registry import ExternContext, get_extern
+from .mapreduce import ScheduledMapReduce
 from .policy import SchedulePolicy
 from .scheduled import ScheduledMatmul, is_scheduled
 
@@ -163,6 +168,11 @@ class KernelLowering:
         self.dynamic_axes: list[int] = []
         self.epoch = 0
         self._bounds_ok = self._eval_bounds()
+        # set by the executor: the output is a RESULT tensor this kernel
+        # alone writes, so it holds the identity when the kernel runs
+        self.fresh_output = False
+        self._matmul: Optional[ScheduledMatmul] = None
+        self._mapreduce: Optional[ScheduledMapReduce] = None
 
     # ------------------------------------------------------------------
     def _const(self, value):
@@ -898,6 +908,37 @@ class KernelLowering:
         return f"the kernel writing {name or '?'!r}"
 
     # ------------------------------------------------------------------
+    def scheduled_matmul(self) -> ScheduledMatmul:
+        """Kernel B1's classification of this kernel (made once)."""
+        if self._matmul is None:
+            self._matmul = ScheduledMatmul(self, self.kernel)
+        return self._matmul
+
+    def scheduled_mapreduce(self) -> ScheduledMapReduce:
+        """Kernel B5's classification of this kernel (made once)."""
+        if self._mapreduce is None:
+            self._mapreduce = ScheduledMapReduce(self, self.kernel)
+        return self._mapreduce
+
+    def _general_only(self) -> bool:
+        """add-accumulation with static bounds is required by the einsum
+        matcher and the matmul kernel; dynamic bounds need the general
+        path's hull mask"""
+        return (self.kernel.write.accumulate != "add"
+                or bool(self.dynamic_axes))
+
+    def run_plain(self, tensors: dict, epoch: int):
+        """The new value of the kernel's output by its plain lowering (the
+        einsum or the general paths): the plain version of kernel B5."""
+        self.epoch = epoch
+        result = None if self._general_only() else self._try_contraction(
+            tensors)
+        if result is None:
+            self.sub_path = "unknown"
+            result = self._general(tensors)
+        self.env = {}  # the executor keeps this lowering; free the run's grids
+        return result
+
     def run(self, tensors: dict, epoch: int,
             stats: Optional[dict] = None) -> None:
         """Execute the kernel, replacing ``tensors[write.tensor]``.
@@ -917,41 +958,30 @@ class KernelLowering:
             # recompute kernels need no fence in eager execution: nothing
             # can hoist or merge them; the stat still counts them
             stats["remat"] = stats.get("remat", 0) + 1
-        # add-accumulation with static bounds is required by the einsum
-        # matcher and the matmul kernel; dynamic bounds need the general
-        # path's hull mask
-        general_only = (
-            self.kernel.write.accumulate != "add" or bool(self.dynamic_axes)
-        )
+        general_only = self._general_only()
         result = None
         path = "einsum"
         fallback_reason = None
         if is_scheduled(self.kernel) and self.policy.routes_schedules:
-            sm = None if general_only else ScheduledMatmul(self, self.kernel)
+            sm = None if general_only else self.scheduled_matmul()
             if sm is not None and sm.ok:
                 path = "matmul"
                 result = sm.lower(tensors)
             else:
-                why = (sm.why if sm is not None else
-                       "not an add-accumulated kernel with static bounds")
-                fallback_reason = f"unsupported kernel shape ({why})"
-                if (self.policy.mode == "force"
-                        and self.dtype != torch.float64):
-                    # the JAX package's own plain route for a declined
-                    # schedule is the einsum path (its map/reduce emitter
-                    # declines float64 and contractions); anything else
-                    # it runs on kernels the port has not ported yet
-                    if not general_only:
-                        result = self._try_contraction(tensors)
-                    if result is None:
-                        raise ModelRuntimeError(
-                            f"schedule on {self._kernel_desc()} cannot be "
-                            f"forced: {why}; the JAX package runs such "
-                            "kernels on its generated map/reduce and "
-                            "row-chain kernels, which the port has not "
-                            "ported yet (ROADMAP.md B5, B6); compile with "
-                            "schedule_mode='auto' or 'ignore'"
-                        )
+                mr = self.scheduled_mapreduce()
+                if mr.ok:
+                    path = "mapreduce"
+                    result = mr.lower(tensors)
+                else:
+                    # a matmul-shaped kernel that B1 declined late
+                    # (transposed operands) reports that cause, not the
+                    # map/reduce classifier's generic "contraction"
+                    why = mr.why
+                    if (sm is not None and why.startswith("contraction")
+                            and ("tile sizes" in sm.why
+                                 or "transposed" in sm.why)):
+                        why = sm.why
+                    fallback_reason = f"unsupported kernel shape ({why})"
         if result is None and not general_only:
             result = self._try_contraction(tensors)
         if result is None:
@@ -964,3 +994,4 @@ class KernelLowering:
                 self.policy.fallback(stats, self._kernel_desc(),
                                      f"{fallback_reason}; lowered via {path}")
         tensors[self.kernel.write.tensor] = result
+        self.env = {}  # the executor keeps this lowering; free the run's grids

@@ -1,16 +1,23 @@
-"""Profile the PyTorch/CUDA port's scheduled-contraction paths on one GPU.
+"""Profile the PyTorch/CUDA port's scheduled paths on one GPU.
 
     python3 scripts/profile_torch_scheduled.py [--out FILE]
 
-Builds the two programs that chip_smoke.py runs through kernel B1
-(exprgrad_torch/csrc/matmul.cu), compiled with schedule_mode="force" on
-the card, random data from seed 0:
+Builds the programs that chip_smoke.py runs through kernel B1
+(exprgrad_torch/csrc/matmul.cu) and the generated kernels B5 and B6
+(exprgrad_torch/ops/mapreduce.py, rowchain.py), compiled with
+schedule_mode="force" on the card, random data from seed 0:
 
 - path (a): c[y,x] = a[y,it]*b[it,x] at 4096^3 float32 with
   schedule(tile 512), call("c") with numpy arrays in and out;
 - path (b): the scheduled MLP at the flash_transformer FFN width (dense
   512->2048, relu, dense 2048->512, residual, squared error, adam),
-  apply("train") on [2048, 512] rows.
+  apply("train") on [2048, 512] rows;
+- path (c): the schedule DSL programs of examples/scheduled_kernels.py
+  sections 3-9 and bench.py's softmax 8192^2 and scatter-add, one call
+  of each with numpy arrays in and out;
+- path (d): the flash_transformer head with row-tiled rms_norm and
+  softmax (chip_smoke.py's transformer_head), apply("train") on
+  [2048, 512] rows and one-hot labels over a vocabulary of 2048.
 
 For each: ten warm runs on the host clock ending in
 torch.cuda.synchronize(), ms each; one warm run under torch.profiler
@@ -35,8 +42,8 @@ import torch
 
 from profile_torch_serving import gpu_line, profiled
 
-from chip_smoke import MATMUL_N, MATMUL_TILE, MLP, MLP_ROWS, matmul_graph, \
-    scheduled_mlp
+from chip_smoke import HEAD, MATMUL_N, MATMUL_TILE, MLP, MLP_ROWS, \
+    matmul_graph, path_c_programs, scheduled_mlp, transformer_head
 
 
 def host_runs(name, fn, gpu, count=10):
@@ -99,8 +106,32 @@ def main() -> int:
         mlp.apply("train", batch)
         torch.cuda.synchronize()
 
+    programs = [(egt.compile(graph, seed=0, schedule_mode="force",
+                             device="cuda"), target, inputs)
+                for _, graph, target, inputs, _ in path_c_programs(egt)]
+
+    def path_c():
+        for model, target, inputs in programs:
+            model.call(target, inputs)
+        torch.cuda.synchronize()
+
+    head = egt.compile(transformer_head(egt, HEAD["dim"], HEAD["vocab"]),
+                       seed=0, schedule_mode="force", device="cuda")
+    head_batch = {"x": rng.standard_normal((HEAD["rows"], HEAD["dim"]),
+                                           dtype=np.float32),
+                  "labels": np.eye(HEAD["vocab"], dtype=np.float32)[
+                      rng.integers(0, HEAD["vocab"], HEAD["rows"])]}
+
+    def head_step():
+        head.epoch += 1
+        head.apply("train", head_batch)
+        torch.cuda.synchronize()
+
     paths = ((f"path (a) call c {n}^3", call_c),
-             (f"path (b) train step [{MLP_ROWS},{MLP['dim']}]", train_step))
+             (f"path (b) train step [{MLP_ROWS},{MLP['dim']}]", train_step),
+             (f"path (c) {len(programs)} calls", path_c),
+             (f"path (d) train step [{HEAD['rows']},{HEAD['dim']}]",
+              head_step))
     for _, fn in paths:
         fn()
         fn()  # warm: kernel build, executor, allocator, cuBLAS handles
@@ -111,7 +142,8 @@ def main() -> int:
             profiled(name, fn, out, gpu)
             host_profile(name, fn, out)
     print(f"lowering: path (a) {mm.lowering_stats('c')}, path (b) train "
-          f"{mlp.lowering_stats('train')}")
+          f"{mlp.lowering_stats('train')}, path (d) train "
+          f"{head.lowering_stats('train')}")
     print(f"full tables: {args.out}")
     return 0
 

@@ -24,7 +24,7 @@ import exprgrad_torch as egt
 import exprgrad_torch.models.transformer
 import exprgrad_tpu
 import exprgrad_tpu.models.transformer
-from exprgrad_torch import ModelRuntimeError, ScheduleWarning
+from exprgrad_torch import ScheduleWarning
 from exprgrad_torch.io import serialize as port_serialize
 from exprgrad_tpu import Fun, compile, input, iters
 from exprgrad_tpu.fun import to_program
@@ -370,8 +370,8 @@ def test_schedule_falls_back_with_warning():
     """A float64 model keeps the exact einsum path for a scheduled
     contraction in every mode, as the JAX package does; a float32 one
     runs the kernel (its plain version here).  Under "force", a scheduled
-    kernel that the JAX package would run on a generated map/reduce
-    kernel (B5) raises."""
+    non-contraction runs the generated map/reduce kernel (B5, stat
+    ``mapreduce``) where the JAX package runs ``pallas-mapreduce``."""
     target = _scheduled_matmul(egt)
     a = np.random.default_rng(0).standard_normal((8, 4))
     port = egt.compile(target, dtype="float64", seed=0, device="cpu")
@@ -396,14 +396,22 @@ def test_schedule_falls_back_with_warning():
     f32.call("out", {"a": a.astype(np.float32)})
     assert f32.lowering_stats("out") == {"matmul": 1}
 
-    y, x = egt.iters("y", "x")
-    rowsum = egt.Fun("out")
-    rowsum[y] = egt.exp(egt.input("a")[y, x])
-    rowsum.schedule(tile={"y": 8})
-    forced = egt.compile(rowsum.target("out"), device="cpu",
-                         schedule_mode="force")
-    with pytest.raises(ModelRuntimeError, match="B5, B6"):
-        forced.call("out", {"a": a.astype(np.float32)})
+    def rowsum(m):
+        y, x = m.iters("y", "x")
+        out = m.Fun("out")
+        out[y] = m.exp(m.input("a")[y, x])
+        out.schedule(tile={"y": 8})
+        return out.target("out")
+
+    a32 = {"a": a.astype(np.float32)}
+    forced = egt.compile(rowsum(egt), device="cpu", schedule_mode="force")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = forced.call("out", a32)
+    assert forced.lowering_stats("out") == {"mapreduce": 1}
+    ref = compile(rowsum(exprgrad_tpu), backend="jax", schedule_mode="force")
+    np.testing.assert_allclose(got, ref.call("out", a32), **F32)
+    assert ref.lowering_stats("out") == {"pallas-mapreduce": 1}
 
 
 def test_jax_only_methods_raise():

@@ -1,8 +1,9 @@
 """The port runs without jax and without the JAX package: import,
 compile, predict and generate, a scheduled MLP (chip_smoke.py's program,
-narrow), and train (steps, fit, the scan epoch, checkpoints, EMA, the
-training driver) on the CPU in a fresh interpreter where ``import jax``
-and ``import exprgrad_tpu`` fail.
+narrow), a scheduled softmax row chain and scatter-add (the generated
+kernels' plain versions), and train (steps, fit, the scan epoch,
+checkpoints, EMA, the training driver) on the CPU in a fresh interpreter
+where ``import jax`` and ``import exprgrad_tpu`` fail.
 
 The check runs in a subprocess because this test process already holds
 both (the parity tests import them); ``sys.modules[name] = None`` makes
@@ -50,6 +51,23 @@ SCRIPT = textwrap.dedent("""
     rows = np.random.default_rng(1).normal(size=(12, 8)).astype(np.float32)
     assert mlp.call("predict", {"v": rows}).shape == (12, 8)
     assert mlp.lowering_stats("predict") == {"matmul-fused": 2}
+
+    # the generated map/reduce and row-chain kernels (their plain
+    # versions on the CPU), built by the modules of B5 and B6
+    from chip_smoke import fam_scatter_add, softmax_chain
+    import exprgrad_torch.backend.mapreduce, exprgrad_torch.backend.rowchain
+    import exprgrad_torch.ops.mapreduce, exprgrad_torch.ops.rowchain
+    import exprgrad_torch.utils.triton_build
+    for build, stat in ((lambda m: softmax_chain(m, {"y": 16}, 32, 64),
+                         {"rowchain": 1}), (fam_scatter_add,
+                                            {"mapreduce": 1})):
+        graph, args = build(egt)
+        prog = egt.compile(graph, seed=0, schedule_mode="force",
+                           device="cpu")
+        name = next(iter(prog.program.targets))
+        assert np.isfinite(prog.call(name, args)).all()
+        assert prog.lowering_stats(name) == stat, prog.lowering_stats(name)
+    assert "triton" not in sys.modules  # imported only at a launch
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "exprgrad_tpu")
                     and sys.modules[m] is not None)
