@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve,
-train, and run scheduled contractions, map/reduce kernels and row chains.
+train, run scheduled contractions, map/reduce kernels and row chains, and
+serve a continuous batch over a paged KV pool.
 
     python3 chip_smoke.py
 
@@ -58,7 +59,19 @@ Phases (any failed check raises and the script exits non-zero):
    512->2048 scheduled as path (b)'s, softmax(row_tile=32), the
    cross-entropy, adam) on [2048, 512] rows: predict (two row chains,
    one B1 launch) and three fit steps launch the kernels as the stats
-   say and agree with the CPU port; the time of a train step.
+   say and agree with the CPU port; the time of a train step;
+12. hold the paged decode-attention kernel (B7) against its plain
+   version (decode_attention over gather_view) on the seven cases of
+   tests/test_paged_attention.py, path (e)'s decode step, bench.py's
+   paged shape and a few edges, and time it at the last two beside the
+   plain version and gather_view + scaled_dot_product_attention; then
+   path (e): the serving model behind ContinuousBatcher(slots=8,
+   capacity=256, paged=True, page_size=32, pool_pages=32) under
+   bench.py's staggered mix of 12 requests.  With attention="flash" B7
+   launches once per block per decode dispatch, with "gather" never;
+   the pool preempts and every page comes back; with a float32 cache
+   the greedy streams of flash, gather and solo generate agree but at
+   near-ties of the solo logits; the bfloat16 drives are timed.
 
 Each path runs with the kernels' launch counters set to 0 just before
 it and read just after.  It needs a CUDA device and the rest of the
@@ -162,6 +175,27 @@ BF16_FAMILIES = ("elementwise", "ragged", "stencil", "gather", "scatter_add",
 # exp-scaled products)
 GEN_FUZZ = dict(rtol=3e-4, atol=3e-4)
 FUZZ_SEEDS = 14
+
+# Phase 12, paged serving.  Path (e): the serving model behind the
+# continuous batcher, 8 slots over the model's whole context, pages of 32
+# slots and half the dense reservation (32 of 64 pages), so recompute
+# preemption must happen; bench.py's staggered mix (bench.py:575-622): 12
+# requests, prompts of 48-159 tokens, budgets of 32-95.
+BATCHER = dict(slots=8, capacity=256, paged=True, page_size=32,
+               pool_pages=32)
+MIX = dict(n=12, prompt=(48, 160), budget=(32, 96))
+# two greedy streams may part only where the solo run's top two logits are
+# this close: float32 sums in another order can flip such a near-tie
+NEAR_TIE = 1e-4
+# B7's shapes: path (e)'s decode step (8 slots, 4 heads, d 128, tables of 8
+# pages of 32, 4 resident a row in the 33-page bfloat16 pool), and
+# bench.py:1111's (b 8, hkv 8, group 1, d 128, 16 pages of 128 a row,
+# every slot live, a bfloat16 pool of 129 pages)
+PAGED_SERVING_CASE = (8, 4, 4, 1, 128, 8, 32, torch.bfloat16)
+PAGED_SERVING_LENS = (100, 128, 97, 120, 105, 128, 110, 99)
+PAGED_BENCH_CASE = (8, 8, 8, 1, 128, 16, 128, torch.bfloat16)
+PAGED_BENCH_LENS = (2048,) * 8
+PAGED_BENCH_PAGES = 8 * 16 + 1
 
 
 def gpu_line() -> str:
@@ -1521,6 +1555,290 @@ def path_d(egt, gpu) -> dict:
     return {"predict": predict_launches, "fit": fit_launches}
 
 
+# --- paged serving: kernel B7 and the continuous batcher (phase 12) -------
+
+def paged_case(gen, dev, b, h, hkv, t, d, P, page, dtype, n_pages=None,
+               lens=None, q_dtype=torch.float32, seed=0):
+    """Inputs of paged decode attention: a pool of random values in every
+    page (garbage where nothing was written), a page table of distinct
+    pages per row with -1 past each row's length, ``key_pos`` live below
+    the length and -1 after it, ``q_pos`` the last ``t`` positions.
+    Returns (q, pool, table, key_pos, q_pos) on ``dev``."""
+    from exprgrad_torch.ops.paged import PagedKVPool
+
+    rng = np.random.default_rng(seed)
+    n_pages = n_pages or 4 * P
+    shape = (n_pages, hkv, page, d)
+    if dtype == torch.int8:
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(shape[:3], generator=gen, device=dev) + 0.5
+                  for _ in range(2))
+        pool = PagedKVPool(k=k, v=v, k_scale=ks, v_scale=vs)
+    else:
+        pool = PagedKVPool(*(torch.randn(shape, generator=gen, device=dev)
+                             .to(dtype) for _ in range(2)))
+    lens = (rng.integers(t, P * page, b) if lens is None
+            else np.asarray(lens))
+    table = np.full((b, P), -1, np.int32)
+    free = rng.permutation(n_pages)
+    used = 0
+    for i in range(b):
+        n = -(-int(lens[i]) // page)
+        table[i, :n] = free[used:used + n]
+        used += n
+    slots = np.arange(P * page)
+    key_pos = np.where(slots[None] < lens[:, None], slots[None], -1)
+    q_pos = (lens[:, None] - t + np.arange(t)[None])
+    q = torch.randn((b, h, t, d), generator=gen, device=dev).to(q_dtype)
+    return (q, pool, torch.as_tensor(table, device=dev),
+            torch.as_tensor(key_pos.astype(np.int32), device=dev),
+            torch.as_tensor(q_pos.astype(np.int32), device=dev))
+
+
+def paged_bound(q, pool, table, key_pos, q_pos, window=None) -> tuple:
+    """The bound of one paged-attention call on these inputs: the bytes of
+    q, the out, the table and positions and the resident pages' K and V
+    (and scales), each read or written once; the multiply-adds of QK and
+    PV over the (query, key) pairs that attend (4d flops a pair)."""
+    b, h, t, d = q.shape
+    _, hkv, page, _ = pool.k.shape
+    resident = int((table >= 0).sum()) * hkv * page
+    kv = 2 * resident * d * pool.k.element_size()
+    if pool.k_scale is not None:
+        kv += 2 * resident * 4
+    small = 2 * q.numel() * q.element_size() + 4 * (
+        table.numel() + key_pos.numel() + q_pos.numel())
+    kp = key_pos.long()[:, None, :]
+    qp = q_pos.long()[:, :, None]
+    keep = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        keep = keep & (kp > qp - window)
+    pairs = int(keep.sum()) * h
+    return bound(4.0 * d * pairs, kv + small)
+
+
+def check_paged_kernel(gen, dev) -> float:
+    """Phase 12 (a): B7 against its plain version on the card, on the seven
+    cases of tests/test_paged_attention.py, the serving decode step, bench.py's
+    shape, and the edges (rows over one block, a page of 12, a head_dim
+    with no 16-byte rows, bfloat16 queries, a row with no live key).
+    Returns the largest |kernel - plain| over the cases."""
+    from exprgrad_torch.ops import paged_attention as pa
+
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    cases = [  # name, (b, h, hkv, t, d, P, page, pool dtype), window, extra
+        ("mha", (2, 4, 4, 1, 128, 4, 64, f32), None, {}),
+        ("gqa", (2, 4, 2, 1, 128, 4, 64, f32), None, {}),
+        ("mqa d64", (2, 8, 1, 1, 64, 3, 32, f32), None, {}),
+        ("t=3", (2, 4, 2, 3, 64, 4, 64, f32), None, {}),
+        ("window 40", (2, 4, 4, 1, 128, 4, 64, f32), 40, {}),
+        ("int8 + scales", (1, 4, 2, 2, 128, 3, 128, i8), None, {}),
+        ("bf16 pages, window 24", (2, 2, 2, 2, 32, 4, 16, bf16), 24, {}),
+        ("serving decode step", PAGED_SERVING_CASE, None,
+         dict(n_pages=33, lens=PAGED_SERVING_LENS)),
+        ("bench.py paged shape", PAGED_BENCH_CASE, None,
+         dict(n_pages=PAGED_BENCH_PAGES, lens=PAGED_BENCH_LENS)),
+        ("12 rows, page 12, d 40, window 20",
+         (2, 8, 2, 3, 40, 5, 12, bf16), 20, {}),
+        ("bf16 queries, int8 d 48", (3, 4, 2, 1, 48, 4, 16, i8), None,
+         dict(q_dtype=bf16)),
+    ]
+    worst = 0.0
+    for i, (name, shape, window, extra) in enumerate(cases):
+        q, pool, table, key_pos, q_pos = paged_case(gen, dev, *shape,
+                                                    seed=i, **extra)
+        if name.startswith("bf16 queries"):
+            key_pos[1] = -1          # row 1 sees no key: 0 on both
+        got = pa.paged_decode_attention(q, pool, table, key_pos, q_pos,
+                                        window=window)
+        torch.cuda.synchronize()
+        want = pa.paged_decode_attention_plain(q, pool, table, key_pos,
+                                               q_pos, window=window)
+        tol = F32_OUT if q.dtype == torch.float32 else BF16_OUT
+        assert torch.isfinite(got).all(), name
+        torch.testing.assert_close(got.float(), want.float(), **tol,
+                                   msg=lambda m: f"paged {name}: {m}")
+        err = (got.float() - want.float()).abs().max().item()
+        if name.startswith("bf16 queries"):
+            assert torch.all(got[1] == 0), "a row with no key is not 0"
+        worst = max(worst, err)
+        print(f"kernel check paged {name}: max |err| {err:.3e} "
+              f"(q {tuple(q.shape)} {str(q.dtype)[6:]}, pool "
+              f"{tuple(pool.k.shape)} {str(pool.k.dtype)[6:]}, "
+              f"{int((table >= 0).sum())} resident pages)")
+    return worst
+
+
+def time_paged_kernel(gen, dev, gpu, name, shape, lens, n_pages) -> dict:
+    """Phase 12 (b): B7 at one shape beside its plain version and the
+    library route (gather_view, then scaled_dot_product_attention with a
+    boolean mask: two calls), with CUDA events, in turns."""
+    from exprgrad_torch.ops import paged_attention as pa
+    from exprgrad_torch.ops.paged import gather_view
+
+    q, pool, table, key_pos, q_pos = paged_case(gen, dev, *shape, lens=lens,
+                                                n_pages=n_pages)
+    h, hkv = q.shape[1], pool.k.shape[1]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = ((key_pos[:, None, None, :] >= 0)
+            & (key_pos[:, None, None, :] <= q_pos[:, None, :, None]))
+    clamped = table.clamp(min=0)
+    gqa = {"enable_gqa": True} if h != hkv else {}
+
+    def library():
+        view = gather_view(pool, clamped)
+        return sdpa(q, view.k.to(q.dtype), view.v.to(q.dtype),
+                    attn_mask=mask, **gqa)
+
+    fns = {"kernel": lambda: pa.paged_decode_attention(
+               q, pool, table, key_pos, q_pos),
+           "plain": lambda: pa.paged_decode_attention_plain(
+               q, pool, table, key_pos, q_pos),
+           "library": library}
+    torch.testing.assert_close(fns["library"](), fns["plain"](), **F32_OUT)
+    runs = {k: [] for k in fns}
+    for which in ("plain", "library", "kernel", "kernel", "library",
+                  "plain"):
+        runs[which].append(cuda_ms(fns[which], iters=50, warmup=5))
+    res = {k: sum(v) / len(v) for k, v in runs.items()}
+    res["runs"] = runs
+    res["bound"] = paged_bound(q, pool, table, key_pos, q_pos)
+    res["err"] = (fns["kernel"]() - fns["plain"]()).abs().max().item()
+    print(f"paged attention {name}: kernel {res['kernel']:.5f} ms, plain "
+          f"{res['plain']:.5f} ms, gather_view + scaled_dot_product_attention"
+          f" (two calls) {res['library']:.5f} ms, bound "
+          f"{res['bound'][0]:.5f} ms ({res['bound'][1]}); runs {runs} on "
+          f"{gpu}")
+    return res
+
+
+def _percentiles(values) -> str:
+    p50, p90 = np.percentile(np.asarray(values), [50, 90])
+    return f"p50 {p50 * 1e3:.1f} ms, p90 {p90 * 1e3:.1f} ms"
+
+
+def staggered_mix(vocab):
+    """bench.py's staggered mix from seed 0: (prompts, budgets)."""
+    rng = np.random.default_rng(0)
+    n = MIX["n"]
+    sizes = rng.integers(*MIX["prompt"], n)
+    budgets = [int(x) for x in rng.integers(*MIX["budget"], n)]
+    prompts = [rng.integers(0, vocab, s).astype(np.float32) for s in sizes]
+    return prompts, budgets
+
+
+def drive_mix(server, kind, prompts, budgets):
+    """Serve the mix through ``ContinuousBatcher(server, attention=kind,
+    **BATCHER)``: half the requests up front, then one more before each
+    ``step()``.  Returns (streams in submission order, the batcher, the
+    seconds from its construction to the last token, synchronized, the
+    number of ``step()`` calls)."""
+    from exprgrad_torch.models import ContinuousBatcher
+
+    n = len(prompts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = ContinuousBatcher(server, attention=kind, **BATCHER)
+    rids = [b.submit(p, m) for p, m in zip(prompts[:n // 2],
+                                          budgets[:n // 2])]
+    out, steps = {}, 0
+    while len(out) < n:
+        if len(rids) < n:
+            i = len(rids)
+            rids.append(b.submit(prompts[i], budgets[i]))
+        out.update(b.step())
+        steps += 1
+    torch.cuda.synchronize()
+    return [out[r] for r in rids], b, time.perf_counter() - t0, steps
+
+
+def path_e(egt, gpu) -> dict:
+    """Phase 12 (c): the continuous batcher over a paged pool at the serving
+    width, through kernel B7 (``attention="flash"``) and through the
+    gathered view (``"gather"``), under bench.py's staggered mix."""
+    from exprgrad_torch.models import FlashLMServer, flash_transformer
+    from exprgrad_torch.ops import (attention, mapreduce, matmul,
+                                    paged_attention, rowchain)
+
+    counters = (attention, matmul, mapreduce, rowchain, paged_attention)
+    model = egt.compile(flash_transformer(**SERVING), seed=0, device="cuda")
+    vocab, blocks = SERVING["vocab"], SERVING["blocks"]
+    prompts, budgets = staggered_mix(vocab)
+    n = len(prompts)
+
+    def drive(server, kind):
+        """The mix with the kernels' counters at 0 just before; returns
+        (streams, batcher, seconds, B7 launches)."""
+        for c in counters:
+            c.launches = 0
+        streams, b, secs, _ = drive_mix(server, kind, prompts, budgets)
+        launches = paged_attention.launches
+        others = sum(c.launches for c in counters[:-1])
+        stats = b.stats
+        want = blocks * stats["dispatches"] if kind == "flash" else 0
+        assert launches == want, (kind, launches, stats)
+        assert others == 0, others
+        assert stats["preemptions"] > 0, stats
+        assert stats["free_pages"] == stats["pool_pages"], stats
+        for s, m in zip(streams, budgets):
+            assert s.shape == (m,), (s.shape, m)
+            assert np.all((s >= 0) & (s < vocab))
+        return streams, b, secs, launches
+
+    # float32 cache: flash, gather and solo serving give the same greedy
+    # streams, but where float32 reassociation flips a near-tie
+    srv32 = FlashLMServer(model, cache_dtype=torch.float32)
+    flash32, b32, _, l32 = drive(srv32, "flash")
+    gather32, _, _, _ = drive(srv32, "gather")
+    solo = [srv32.generate(p[None], n_new=m)[0].cpu().numpy().astype(
+        np.int64) for p, m in zip(prompts, budgets)]
+    parted = []
+    for i, (f, g, s) in enumerate(zip(flash32, gather32, solo)):
+        differ = np.flatnonzero((f != g) | (f != s))
+        if not differ.size:
+            continue
+        j = int(differ[0])
+        seq = np.concatenate([prompts[i], s[:j].astype(np.float32)])
+        logits, _ = srv32.prefill(seq[None], srv32.init_caches(1))
+        top = torch.topk(logits[0, -1], 2).values
+        margin = float(top[0] - top[1])
+        parted.append((i, j, margin))
+        print(f"path (e) float32 request {i}: streams part at token {j} "
+              f"(flash {f[j]}, gather {g[j]}, solo {s[j]}); solo top-2 "
+              f"logit margin {margin:.3e}")
+        assert margin <= NEAR_TIE, (i, j, margin)
+    print(f"path (e) float32 cache: {n - len(parted)} of {n} greedy streams "
+          f"equal across flash, gather and solo; stats {b32.stats}; B7 "
+          f"launches {l32} = {blocks} blocks x {b32.stats['dispatches']} "
+          f"dispatches")
+
+    # the default bfloat16 cache: a warm drive of each, then the timed ones
+    srv = FlashLMServer(model)
+    drive(srv, "flash")
+    drive(srv, "gather")
+    res = {}
+    for kind in ("flash", "gather"):
+        streams, b, secs, launches = drive(srv, kind)
+        tokens = sum(len(s) for s in streams)
+        m = b.request_metrics()
+        res[kind] = dict(streams=streams, secs=secs, launches=launches,
+                         stats=b.stats, tokens=tokens)
+        print(f"path (e) {kind} (bf16 cache): {tokens} tokens in {secs:.3f} s"
+              f": {tokens / secs:.1f} tokens/s, {n / secs:.2f} requests/s, "
+              f"ttft {_percentiles([r['ttft_s'] for r in m])}, latency "
+              f"{_percentiles([r['latency_s'] for r in m])}; "
+              f"{secs / b.stats['dispatches'] * 1e3:.2f} ms per decode "
+              f"dispatch; "
+              f"stats {b.stats}; B7 launches {launches} on {gpu}")
+    same = sum(np.array_equal(a, b) for a, b in zip(
+        res["flash"]["streams"], res["gather"]["streams"]))
+    print(f"path (e) bf16 cache: {same} of {n} streams equal between flash "
+          f"and gather")
+    return {"launches": res["flash"]["launches"], "parted": parted,
+            "same_bf16": same}
+
+
 def phase_done(name, since) -> float:
     """Print a phase's seconds; returns the time it ended."""
     now = time.perf_counter()
@@ -1868,15 +2186,29 @@ def main() -> int:
     path_c_launches = path_c(egt, gpu)
     t_phase = phase_done("10 (path (c))", t_phase)
     path_d_launches = path_d(egt, gpu)
-    phase_done("11 (path (d))", t_phase)
+    t_phase = phase_done("11 (path (d))", t_phase)
     gen_launches = {
         kind: path_c_launches[kind] + sum(
             run[kind] for run in path_d_launches.values())
         for kind in ("mapreduce", "rowchain")}
     print(f"map/reduce paths: generated kernel launches path (c) "
           f"{path_c_launches}, path (d) {path_d_launches}; Triton compiled "
-          f"for {triton_build.compile_seconds:.1f} s in all; the whole run "
-          f"{time.perf_counter() - t_start:.1f} s")
+          f"for {triton_build.compile_seconds:.1f} s in all")
+
+    # 12. paged serving: B7 against its plain version, its times, and
+    # path (e) with the counters at 0 ------------------------------------
+    paged_err = check_paged_kernel(gen, dev)
+    paged_times = {
+        "serving": time_paged_kernel(
+            gen, dev, gpu, "serving decode step [8,4,1,128], bf16 pool "
+            "33x4x32x128", PAGED_SERVING_CASE, PAGED_SERVING_LENS, 33),
+        "bench": time_paged_kernel(
+            gen, dev, gpu, "bench.py shape [8,8,1,128], bf16 pool "
+            "129x8x128x128", PAGED_BENCH_CASE, PAGED_BENCH_LENS,
+            PAGED_BENCH_PAGES)}
+    path_e_run = path_e(egt, gpu)
+    phase_done("12 (paged attention, path (e))", t_phase)
+    print(f"the whole run {time.perf_counter() - t_start:.1f} s")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "exprgrad_tpu"))
     assert not loaded, f"the port imported {loaded}"
@@ -1920,6 +2252,11 @@ def main() -> int:
             gen_times["rowchain"]["kernel"], gen_times["rowchain"]["plain"],
             gen_times["rowchain"]["library"], gen_times["rowchain"]["bound"],
             route="triton"),
+        row("paged_decode_attention", "exprgrad_torch/csrc/paged_attention.cu",
+            "exprgrad_tpu/ops/paged_attention.py:78", path_e_run["launches"],
+            max(paged_err, paged_times["bench"]["err"]),
+            paged_times["bench"]["kernel"], paged_times["bench"]["plain"],
+            paged_times["bench"]["library"], paged_times["bench"]["bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -15,9 +15,10 @@ from .vit import patchify, tiny_vit
 from .xor import xor_from_scratch, xor_mlp
 
 from .serve import FlashLMServer
+from .batcher import ContinuousBatcher
 
 __all__ = [
-    "FlashLMServer", "conv_autoencoder", "fashion_mnist_cnn",
+    "ContinuousBatcher", "FlashLMServer", "conv_autoencoder", "fashion_mnist_cnn",
     "flash_transformer", "mnist_gan", "mobile_cnn", "patchify",
     "tiny_diffusion", "tiny_mixer", "tiny_recurrent_lm", "tiny_seq2seq",
     "tiny_transformer", "tiny_vae", "tiny_vit", "xor_from_scratch",

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..errors import ModelRuntimeError
@@ -19,6 +20,51 @@ from ..errors import ModelRuntimeError
 def check_top_p(top_p: Optional[float]) -> None:
     if top_p is not None and not 0.0 < top_p <= 1.0:
         raise ModelRuntimeError(f"top_p must lie in (0, 1] (got {top_p})")
+
+
+def make_row_picker(vocab: int):
+    """Return ``pick(logits [b, vocab], generator, temp [b], top_k [b],
+    top_p [b]) -> token ids [b]`` with per-row sampling parameters: one
+    function serves any mix of greedy (``temp <= 0``), plain
+    temperature, top-k (``top_k >= vocab`` disables) and nucleus
+    (``top_p >= 1`` disables) rows — the continuous batcher's
+    per-request knobs.  The parameters are host arrays (numpy or
+    sequences): when no row samples, the pick is the argmax alone and
+    draws nothing.  Greedy rows are the argmax of the logits bit for
+    bit; the filters are :func:`make_picker`'s."""
+
+    def pick(logits, generator, temp, top_k, top_p):
+        temp = np.asarray(temp, np.float32)
+        sampled = temp > 0.0
+        if not sampled.any():
+            return torch.argmax(logits, dim=-1)
+        dev = logits.device
+        scale = torch.as_tensor(np.where(sampled, temp, 1.0)[:, None],
+                                device=dev)
+        sl_in = logits.float() / scale
+        greedy = torch.argmax(sl_in, dim=-1)
+        sl = torch.sort(sl_in, dim=-1, descending=True).values
+        # top-k: threshold at the k-th logit where active
+        kk = torch.as_tensor(np.clip(np.asarray(top_k, np.int64), 1, vocab),
+                             device=dev)
+        kth = torch.gather(sl, 1, kk[:, None] - 1)
+        k_on = (kk < vocab)[:, None]
+        filt = sl_in.masked_fill(k_on & (sl_in < kth), -torch.inf)
+        ranks = torch.arange(vocab, device=dev)[None, :]
+        sl = sl.masked_fill(k_on & (ranks >= kk[:, None]), -torch.inf)
+        # nucleus over the survivors: the smallest prefix reaching top_p
+        probs = torch.softmax(sl, dim=-1)
+        pp = torch.as_tensor(np.asarray(top_p, np.float32)[:, None],
+                             device=dev)
+        keep = torch.cumsum(probs, dim=-1) - probs < pp
+        kth_p = torch.where(keep, sl, torch.inf).amin(dim=-1, keepdim=True)
+        filt = filt.masked_fill((pp < 1.0) & (filt < kth_p), -torch.inf)
+        drawn = torch.multinomial(torch.softmax(filt, dim=-1), 1,
+                                  generator=generator)[:, 0]
+        return torch.where(torch.as_tensor(sampled, device=dev), drawn,
+                           greedy)
+
+    return pick
 
 
 def make_picker(vocab: int, temperature: float,

@@ -1,0 +1,969 @@
+"""Continuous batching for FlashLMServer: slot-based request scheduling.
+
+Counterpart of ``exprgrad_tpu/models/batcher.py``'s
+:class:`ContinuousBatcher` (Yu et al., "Orca: A Distributed Serving
+System for Transformer-Based Generative Models", OSDI 2022 — the
+iteration-level scheduling idea).  Requests arrive at any time with
+their own prompt lengths and budgets; a new request takes a slot the
+moment one frees up, so the card decodes a full batch every step:
+
+* one decode step for the whole slot batch per ``step()``; per-row cache
+  cursors (``ops.decode.append_at``) let each slot sit at its own depth,
+  and validity is masked per row by position (``key_pos``/``q_pos``);
+* admission prefills the prompt, padded to a width bucket, on a batch-1
+  scratch cache and copies its rows into the slot's region (the same
+  bfloat16/int8 rounding as serving alone);
+* ``paged=True`` keeps K/V in a shared page pool (``ops.paged``) with
+  per-slot page tables, pages allocated on demand, recompute preemption
+  when the pool runs dry, prefix sharing (``register_prefix``), chunked
+  prefill and page eviction behind a sliding window.  The paged decode
+  step attends either a gathered dense view (``attention="gather"``) or
+  the pages in place through kernel B7 (``attention="flash"``,
+  ``ops.paged_attention``);
+* all scheduling state (queues, per-slot lengths, budgets, page tables)
+  is host numpy; the device only sees dense batched work.
+
+The JAX package compiles each piece once (``jit`` with buffer donation);
+here each piece is a method that runs eagerly and writes the caches in
+place.  Greedy streams equal serving each prompt alone with
+``server.generate``, up to float reassociation at near-ties; sampled
+rows draw from a ``torch.Generator`` seeded with ``seed``.
+
+Not ported yet (ROADMAP A12): ``decode_chunk > 1``, ``pipeline``,
+``draft=`` (speculative rounds), ``lookup=`` (prompt-lookup rounds) and
+``Seq2SeqBatcher``; they raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..errors import ModelRuntimeError
+from ..ops.decode import KVCache
+from ..ops.paged import (gather_rows, gather_view, init_pool, write_prefill,
+                         write_prefill_at, write_token)
+from ..utils.buckets import bucket_for, normalize_buckets
+from ._sample import check_top_p, make_row_picker
+
+
+class _Request:
+    __slots__ = ("rid", "tokens", "max_new", "out", "consumed", "absorbed",
+                 "submitted", "first_token_at", "finished_at", "preempted",
+                 "temp", "top_k", "top_p", "stop_seq")
+
+    def __init__(self, rid, tokens, max_new):
+        self.rid = rid
+        self.tokens = tokens
+        self.max_new = max_new
+        self.out: list[int] = []
+        self.consumed = 0   # prompt tokens already in cache (admission)
+        self.absorbed = 0   # out tokens already folded into the prompt
+                            # by a recompute preemption
+        self.submitted = time.perf_counter()
+        self.first_token_at: float | None = None
+        self.finished_at: float | None = None
+        self.preempted = 0
+        self.temp = 0.0      # per-request sampling params (submit())
+        self.top_k = 0
+        self.top_p = 1.0
+        self.stop_seq: tuple | None = None  # per-request stop sequence
+
+
+def _check_stop_seq(stop_seq, vocab):
+    """Validate a per-request stop sequence (token ids in [0, vocab))."""
+    if stop_seq is None:
+        return None
+    seq = tuple(int(t) for t in stop_seq)
+    if not seq or any(t < 0 or t >= vocab for t in seq):
+        raise ModelRuntimeError(
+            f"stop_seq must be non-empty token ids in [0, {vocab}); "
+            f"got {list(seq)}"
+        )
+    return seq
+
+
+def _stop_seq_hit(req) -> bool:
+    """True when the request's emitted tail equals its stop sequence
+    (matched on the host, so sequences of any length share the step)."""
+    seq = req.stop_seq
+    return (seq is not None and len(req.out) >= len(seq)
+            and tuple(req.out[-len(seq):]) == seq)
+
+
+def _scratch_caches(pools, page_table_row, pre_len: int, extra: int):
+    """Batch-1 scratch dense caches whose front is the slot's pages
+    gathered in position order, cursor at ``pre_len`` — the shared
+    mechanism of prefix-cached admission and chunked prefill.  ``extra``
+    spare rows follow the gathered region."""
+    minis = []
+    for pool in pools:
+        kp, vp, kps, vps = gather_rows(pool, page_table_row)
+        hkv, dev = kp.shape[1], kp.device
+        pad = torch.zeros((1, hkv, extra, kp.shape[3]), dtype=pool.k.dtype,
+                          device=dev)
+        ones = torch.ones((1, hkv, extra), dtype=torch.float32, device=dev)
+        minis.append(KVCache(
+            k=torch.cat([kp, pad], dim=2),
+            v=torch.cat([vp, pad], dim=2),
+            length=int(pre_len),
+            k_scale=None if kps is None else torch.cat([kps, ones], dim=2),
+            v_scale=None if vps is None else torch.cat([vps, ones], dim=2),
+        ))
+    return minis
+
+
+def _cursor_key_pos(n: int, pos: torch.Tensor, extra: int = 0):
+    """Per-row slot validity for cursor-based caches: [b, n] of the slot
+    index where ``slot <= pos + extra``, else -1 (the decode_attention
+    masking convention), in ``pos``'s integer type."""
+    ids = torch.arange(n, dtype=pos.dtype, device=pos.device)
+    return torch.where(ids[None, :] <= pos[:, None] + extra, ids[None, :],
+                       torch.full_like(ids[None, :], -1))
+
+
+def _pick_first(pick, logits, length: int, generator, temp, top_k, top_p):
+    """First token of a batch-1 prefill: the per-request pick from the
+    logits row at ``length - 1``."""
+    return pick(logits[:, length - 1], generator, np.reshape(temp, (1,)),
+                np.reshape(top_k, (1,)), np.reshape(top_p, (1,)))[0]
+
+
+def _make_paged_io(attention: str, page_table, wpid, woff):
+    """Cache-IO object for the paged decode step: ``append`` writes the
+    fresh K/V at the host-chosen (page, offset) coordinates; attention
+    either gathers a dense view (``attention='gather'``) or attends the
+    pages in place through kernel B7 (``attention='flash'``, where the
+    resident cache crosses device memory once per step instead of
+    twice)."""
+
+    class _IO:
+        @staticmethod
+        def append(pool, k, v):
+            return write_token(pool, k, v, wpid, woff)
+
+        @staticmethod
+        def view(pool):
+            return gather_view(pool, page_table)
+
+    if attention == "flash":
+        from ..ops.paged_attention import paged_decode_attention
+
+        def attend(q, pool, sm_scale, window, key_pos, q_pos):
+            return paged_decode_attention(
+                q.contiguous(), pool, page_table, key_pos, q_pos,
+                sm_scale=sm_scale, window=window)
+
+        _IO.attend = staticmethod(attend)
+    return _IO
+
+
+def _write_slot_rows(caches, minis, slot: int) -> None:
+    """Copy a batch-1 scratch cache's rows into row ``slot`` of the big
+    dense caches (in place)."""
+    for big, m in zip(caches, minis):
+        w = m.k.shape[2]
+        big.k[slot, :, :w] = m.k[0]
+        big.v[slot, :, :w] = m.v[0]
+        if big.k_scale is not None:
+            big.k_scale[slot, :, :w] = m.k_scale[0]
+            big.v_scale[slot, :, :w] = m.v_scale[0]
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to exprgrad_torch yet (ROADMAP A12); the "
+        "JAX package's ContinuousBatcher has it")
+
+
+class ContinuousBatcher:
+    """Iteration-level scheduler over a :class:`FlashLMServer`.
+
+    ``slots`` is the decode batch width (the card works on all slots every
+    step); ``capacity`` bounds ``prompt_len + max_new - 1`` per request.
+    ``prompt_buckets`` quantizes admission prefill widths (default:
+    powers of two up to ``capacity``).
+
+    >>> b = ContinuousBatcher(server, slots=4, capacity=128)
+    >>> rid = b.submit([3, 1, 4], max_new=16)
+    >>> done = b.run()            # {rid: np.ndarray of 16 tokens}
+
+    ``submit`` may be called at any time, including between ``step()``
+    calls while other requests are mid-flight.
+    """
+
+    def __init__(
+        self,
+        server,
+        slots: int = 8,
+        capacity: Optional[int] = None,
+        temperature: float = 0.0,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        stop_token: Optional[int] = None,
+        seed: int = 0,
+        prompt_buckets: Optional[Sequence[int]] = None,
+        paged: bool = False,
+        page_size: int = 16,
+        pool_pages: Optional[int] = None,
+        decode_chunk: int = 1,
+        prefill_chunk: Optional[int] = None,
+        draft=None,
+        lookup: bool = False,
+        stream_tokens: bool = False,
+        attention: str = "gather",
+        pipeline: int = 0,
+    ):
+        check_top_p(top_p)
+        if attention not in ("gather", "flash"):
+            raise ModelRuntimeError(
+                f"attention must be 'gather' (dense view + decode "
+                f"attention) or 'flash' (the paged-attention kernel); "
+                f"got {attention!r}")
+        if attention == "flash" and not paged:
+            raise ModelRuntimeError(
+                "attention='flash' is the paged-attention kernel; it "
+                "requires ContinuousBatcher(paged=True)")
+        self.attention = attention
+        if decode_chunk < 1:
+            raise ModelRuntimeError(
+                f"decode_chunk must be >= 1 (got {decode_chunk})")
+        if pipeline < 0:
+            raise ModelRuntimeError(
+                f"pipeline must be >= 0 (got {pipeline})")
+        if draft is not None:
+            raise _not_ported("speculative batching (draft=)")
+        if lookup:
+            raise _not_ported("prompt-lookup batching (lookup=True)")
+        if decode_chunk > 1:
+            raise _not_ported("multi-step decode (decode_chunk > 1)")
+        if pipeline:
+            raise _not_ported("pipelined decode (pipeline > 0)")
+        if prefill_chunk is not None:
+            if not paged:
+                raise ModelRuntimeError(
+                    "prefill_chunk requires ContinuousBatcher(paged=True)")
+            if prefill_chunk < 1 or prefill_chunk % int(page_size):
+                raise ModelRuntimeError(
+                    f"prefill_chunk must be a positive multiple of "
+                    f"page_size {page_size} (got {prefill_chunk})"
+                )
+        self.prefill_chunk = (
+            None if prefill_chunk is None else int(prefill_chunk))
+        self.server = server
+        self.device = server.device
+        self.slots = int(slots)
+        self.capacity = int(capacity or server.max_seq)
+        if self.capacity > server.max_seq:
+            raise ModelRuntimeError(
+                f"capacity {self.capacity} exceeds the model's max_seq "
+                f"{server.max_seq} position embeddings"
+            )
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.stop_token = stop_token
+        self.prompt_buckets = normalize_buckets(
+            "pow2" if prompt_buckets is None else prompt_buckets,
+            "prompt bucket",
+        )
+        self._row_pick = make_row_picker(server.vocab)
+        # per-slot sampling params (per-request values land here at
+        # reservation)
+        self.req_temp = np.zeros(self.slots, np.float32)
+        self.req_topk = np.full(self.slots, server.vocab, np.int32)
+        self.req_topp = np.ones(self.slots, np.float32)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+        self.paged = bool(paged)
+        if self.paged:
+            # a shared page pool + per-slot page tables; ``pool_pages``
+            # usable pages (default: the dense equivalent) + one trash
+            # page (id 0) that inactive rows write to.  Pages allocate on
+            # demand and pool exhaustion preempts by recompute.
+            self.page_size = int(page_size)
+            if self.page_size < 1:
+                raise ModelRuntimeError("page_size must be >= 1")
+            self.pages_per_slot = -(-self.capacity // self.page_size)
+            usable = (pool_pages if pool_pages is not None
+                      else self.slots * self.pages_per_slot)
+            if usable < 1:
+                raise ModelRuntimeError("pool_pages must be >= 1")
+            self.pool_pages = int(usable)
+            self.caches = [
+                init_pool(self.pool_pages + 1, server.kv_heads,
+                          self.page_size, server.head_dim,
+                          dtype=server.cache_dtype, device=self.device)
+                for _ in server.blocks
+            ]
+            self.free_pages = list(range(1, self.pool_pages + 1))
+            self.slot_pages: list[list[int]] = [[] for _ in range(slots)]
+            self.page_table = np.zeros(
+                (self.slots, self.pages_per_slot), np.int32)
+            self._preempts = 0
+            self._window_evicted = 0
+            self._evict_cursor = np.zeros(self.slots, np.int64)
+            # prefix cache: registered (tokens, pinned pages) entries
+            # whose K/V pages are shared read-only by matching prompts
+            self._prefixes: list[tuple[np.ndarray, list[int]]] = []
+            self._slot_pinned = np.zeros(self.slots, np.int64)
+            self._prefix_hits = 0
+        else:
+            self.caches = server.init_caches(self.slots, self.capacity)
+        self.pos = np.zeros(self.slots, np.int32)     # cached tokens/slot
+        self.last = np.zeros(self.slots, np.float32)  # next token to feed
+        self.active = np.zeros(self.slots, bool)
+        self._req: list[Optional[_Request]] = [None] * self.slots
+        self.queue: deque[_Request] = deque()
+        self._next_rid = 0
+        self._steps = 0
+        self._dispatches = 0
+        # bounded: a long-running server must not leak one record per
+        # request (drain with request_metrics(reset=True) to keep all)
+        self._metrics: deque = deque(maxlen=4096)
+        self.stream_tokens = bool(stream_tokens)
+        self._stream: list[tuple] = []
+
+    # -- device work ---------------------------------------------------
+    def _dev(self, x, dtype=None):
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def _admit(self, prompt, length: int, slot: int, temp, tk, tp):
+        """Prefill a [1, width] padded prompt on a scratch cache, pick the
+        first token, and write the K/V region into the slot's rows."""
+        srv = self.server
+        width = prompt.shape[1]
+        mini = srv.init_caches(1, width)
+        lens = self._dev([length], torch.int32)
+        pos_ids, key_pos = srv._ragged_positions(lens, width, width)
+        x = srv._embed_at(self._dev(prompt), pos_ids)
+        logits, mini = srv._step(x, mini, 0, key_pos=key_pos, q_pos=pos_ids)
+        first = _pick_first(self._row_pick, logits, length, self._gen, temp,
+                            tk, tp)
+        _write_slot_rows(self.caches, mini, slot)
+        return first
+
+    def _decode(self):
+        """One decode step for every slot: feed each slot's pending token
+        at its own position, write K/V at its own cursor, pick the next."""
+        srv = self.server
+        pos = self._dev(self.pos)
+        key_pos = _cursor_key_pos(self.capacity, pos)
+        x = srv._embed_at(self._dev(self.last)[:, None], pos[:, None])
+        logits, self.caches = srv._step(
+            x, self.caches, 0, key_pos=key_pos, q_pos=pos[:, None],
+            row_starts=pos)
+        return self._row_pick(logits[:, -1], self._gen, self.req_temp,
+                              self.req_topk, self.req_topp)
+
+    def _decode_paged(self, wpid, woff):
+        """One paged decode step for every slot: fresh K/V land at the
+        host-chosen (page, offset) coordinates; attention reads each
+        row's pages through a gathered view or kernel B7."""
+        srv = self.server
+        virtual = self.pages_per_slot * self.page_size
+        pos = self._dev(self.pos)
+        key_pos = _cursor_key_pos(virtual, pos)
+        x = srv._embed_at(self._dev(self.last)[:, None], pos[:, None])
+        io = _make_paged_io(self.attention, self._dev(self.page_table),
+                            self._dev(wpid), self._dev(woff))
+        logits, self.caches = srv._step(
+            x, self.caches, 0, key_pos=key_pos, q_pos=pos[:, None],
+            cache_io=io)
+        return self._row_pick(logits[:, -1], self._gen, self.req_temp,
+                              self.req_topk, self.req_topp)
+
+    def _register_prefix_pages(self, prompt, page_ids) -> None:
+        """Prefill the prefix (batch-1, full width) and pin its K/V into
+        the given pool pages."""
+        srv = self.server
+        mini = srv.init_caches(1, len(page_ids) * self.page_size)
+        _, mini = srv.prefill(prompt, mini)
+        for pool, m in zip(self.caches, mini):
+            write_prefill(pool, m, page_ids)
+
+    def _admit_prefix(self, suffix, s_len: int, pre_len: int,
+                      page_table_row, own_pages, temp, tk, tp):
+        """Paged admission tail: gather the slot's pages so far (pinned
+        prefix + chunk-prefilled pages) as the front of a scratch cache,
+        prefill the remaining suffix against it, pick the first token,
+        and copy the suffix's pages out."""
+        srv = self.server
+        pg = self.page_size
+        width_s = suffix.shape[1]
+        cap_s = -(-width_s // pg) * pg
+        virtual = self.pages_per_slot * pg
+        minis = _scratch_caches(self.caches, page_table_row, pre_len, cap_s)
+        dev = self.device
+        pos_ids = (pre_len + torch.clamp(torch.arange(width_s, device=dev),
+                                         max=s_len - 1))[None]
+        slot = torch.arange(virtual + cap_s, device=dev)
+        key_pos = torch.where(slot < pre_len + s_len, slot, -1)[None]
+        x = srv._embed_at(self._dev(suffix), pos_ids)
+        logits, minis = srv._step(x, minis, 0, key_pos=key_pos,
+                                  q_pos=pos_ids)
+        first = _pick_first(self._row_pick, logits, s_len, self._gen, temp,
+                            tk, tp)
+        for pool, m in zip(self.caches, minis):
+            write_prefill_at(pool, m, own_pages, pre_len)
+        return first
+
+    def _prefill_chunk(self, tokens, pre_len: int, page_table_row,
+                       new_pages) -> None:
+        """One page-aligned prompt chunk: append its K/V at the slot's
+        depth and write them into freshly allocated pages.  No token is
+        picked: the final (ragged) tail goes through _admit_prefix."""
+        srv = self.server
+        chunk = tokens.shape[1]
+        virtual = self.pages_per_slot * self.page_size
+        minis = _scratch_caches(self.caches, page_table_row, pre_len, chunk)
+        dev = self.device
+        pos_ids = (pre_len + torch.arange(chunk, device=dev))[None]
+        slot = torch.arange(virtual + chunk, device=dev)
+        key_pos = torch.where(slot < pre_len + chunk, slot, -1)[None]
+        x = srv._embed_at(self._dev(tokens), pos_ids)
+        _, minis = srv._step(x, minis, 0, key_pos=key_pos, q_pos=pos_ids)
+        for pool, m in zip(self.caches, minis):
+            write_prefill_at(pool, m, new_pages, pre_len)
+
+    # -- paged bookkeeping ---------------------------------------------
+    def _admit_chunk(self):
+        """Admission chunk size: the user's prefill_chunk, or — for
+        window models, which rely on between-chunk eviction to bound
+        their prefill burst — an implicit band-sized chunk."""
+        if self.prefill_chunk:
+            return self.prefill_chunk
+        window = self.server.window
+        if window is None:
+            return None
+        return (-(-int(window) // self.page_size) * self.page_size
+                + self.page_size)
+
+    def _pages_for(self, n_rows: int) -> int:
+        return -(-n_rows // self.page_size)
+
+    def _free_slot_pages(self, slot) -> None:
+        self._evict_cursor[slot] = 0
+        pinned = int(self._slot_pinned[slot])
+        # 0 entries are window-evicted placeholders, already in the pool
+        self.free_pages.extend(
+            p for p in self.slot_pages[slot][pinned:] if p)
+        self.slot_pages[slot] = []
+        self._slot_pinned[slot] = 0
+        self.page_table[slot, :] = 0
+
+    def _match_prefix(self, tokens: np.ndarray):
+        """Longest registered prefix usable for this prompt (>= 1 token
+        must remain as suffix): (aligned length, pinned page ids)."""
+        pg = self.page_size
+        best_len, best_pages = 0, None
+        limit = (tokens.size - 1) // pg * pg
+        for arr, pages in self._prefixes:
+            use = min(arr.size, limit)
+            if use <= best_len or use < pg:
+                continue
+            if np.array_equal(tokens[:use], arr[:use]):
+                best_len, best_pages = use, pages[:use // pg]
+        return best_len, best_pages
+
+    def _preempt_one(self, protect: int) -> bool:
+        """Evict a resident slot (other than ``protect``) and requeue it at
+        the front as a recompute continuation; free its pages.
+        Mid-prefill slots go first (least invested, by consumed tokens),
+        then the active slot with the fewest generated tokens.  Greedy
+        decoding makes the recompute emit the same stream."""
+        pre = [s for s in range(self.slots)
+               if s != protect and not self.active[s]
+               and self._req[s] is not None]
+        if pre:
+            victim = min(pre, key=lambda s: self._req[s].consumed)
+            req = self._req[victim]
+            req.consumed = 0
+            req.preempted += 1
+            self.queue.appendleft(req)
+            self._req[victim] = None
+            self._free_slot_pages(victim)
+            self._preempts += 1
+            return True
+        victims = [s for s in range(self.slots)
+                   if self.active[s] and s != protect]
+        if not victims:
+            return False
+        victim = min(victims, key=lambda s: len(self._req[s].out))
+        req = self._req[victim]
+        # fold only the not-yet-absorbed output into the continuation
+        # prompt: the total footprint stays prompt+max_new-1 across any
+        # number of preemptions
+        req.tokens = np.concatenate(
+            [req.tokens, np.asarray(req.out[req.absorbed:], np.float32)])
+        req.absorbed = len(req.out)
+        req.consumed = 0
+        req.preempted += 1
+        self.queue.appendleft(req)
+        self.active[victim] = False
+        self._req[victim] = None
+        self._free_slot_pages(victim)
+        self._preempts += 1
+        return True
+
+    def _ensure_page(self, slot) -> None:
+        """Allocate pages until ``slot`` owns the page its next write
+        lands in; preempt others if the pool is dry."""
+        page_idx = int(self.pos[slot]) // self.page_size
+        self._alloc_pages(slot, page_idx + 1 - len(self.slot_pages[slot]))
+
+    def _alloc_pages(self, slot, n: int) -> None:
+        """Append ``n`` fresh pages to the slot's table, preempting other
+        residents if the pool is dry."""
+        for _ in range(max(0, n)):
+            while not self.free_pages:
+                if not self._preempt_one(protect=slot):
+                    raise ModelRuntimeError(
+                        "page pool exhausted with a single resident "
+                        "request; this cannot happen when submit()'s "
+                        "feasibility check passed"
+                    )
+            pid = self.free_pages.pop()
+            self.slot_pages[slot].append(pid)
+            self.page_table[slot, len(self.slot_pages[slot]) - 1] = pid
+
+    def _pinned_total(self) -> int:
+        return sum(len(p) for _, p in self._prefixes) if self.paged else 0
+
+    def _own_pages_needed(self, tokens: np.ndarray, remaining: int) -> int:
+        """Worst-case pages a request must allocate itself: its full
+        footprint minus the pages the registered prefixes cover.  Window
+        models evict pages behind the attention band, also between
+        prefill chunks, so their worst-case simultaneous residency is the
+        band plus the largest write run between evictions."""
+        need = tokens.size + remaining - 1
+        _, pages = self._match_prefix(tokens)
+        shared = len(pages) if pages else 0
+        full = self._pages_for(need) - shared
+        window = self.server.window
+        if window is None:
+            return full
+        burst = max(1, self._admit_chunk() or 0)   # one token a dispatch
+        steady = self._pages_for(int(window) + burst + 1) + 2
+        return min(full, steady)
+
+    # -- public API ----------------------------------------------------
+    def register_prefix(self, tokens) -> int:
+        """Pin a shared prompt prefix (a system prompt) into pool pages:
+        every later ``submit`` whose prompt starts with it reuses the
+        pinned K/V pages read-only.  Only whole pages are shared; returns
+        the page-aligned length cached.  Paged mode only."""
+        if not self.paged:
+            raise ModelRuntimeError(
+                "prefix caching requires ContinuousBatcher(paged=True)")
+        tokens = np.asarray(tokens, np.float32).reshape(-1)
+        aligned = tokens.size // self.page_size * self.page_size
+        if aligned < self.page_size:
+            raise ModelRuntimeError(
+                f"prefix must span at least one page "
+                f"({self.page_size} tokens; got {tokens.size})"
+            )
+        if self.server.pos is not None and aligned > self.server.max_seq:
+            raise ModelRuntimeError(
+                f"prefix length {aligned} exceeds max_seq "
+                f"{self.server.max_seq}"
+            )
+        tokens = tokens[:aligned]
+        for arr, pages in self._prefixes:
+            if arr.size == aligned and np.array_equal(arr, tokens):
+                return aligned  # already registered
+        n = aligned // self.page_size
+        if len(self.free_pages) < n:
+            raise ModelRuntimeError(
+                f"prefix needs {n} pages but only {len(self.free_pages)} "
+                "are free"
+            )
+        # pinning must not strand any admitted request: every resident
+        # or queued request must still fit in the shrunken unpinned pool
+        avail = self.pool_pages - self._pinned_total() - n
+        for req in list(self.queue) + [r for r in self._req if r]:
+            own = self._own_pages_needed(
+                req.tokens, req.max_new - len(req.out))
+            if own > avail:
+                raise ModelRuntimeError(
+                    f"pinning this prefix ({n} pages) would leave only "
+                    f"{avail} unpinned pages — too few for an admitted "
+                    f"request needing {own}"
+                )
+        pages = [self.free_pages.pop() for _ in range(n)]
+        self._register_prefix_pages(tokens[None, :],
+                                    np.asarray(pages, np.int32))
+        self._prefixes.append((tokens, pages))
+        return aligned
+
+    def release_prefix(self, tokens) -> None:
+        """Unpin a registered prefix and return its pages to the pool.
+        Raises while any resident request still shares the pages."""
+        if not self.paged:
+            raise ModelRuntimeError(
+                "prefix caching requires ContinuousBatcher(paged=True)")
+        tokens = np.asarray(tokens, np.float32).reshape(-1)
+        aligned = tokens.size // self.page_size * self.page_size
+        for i, (arr, pages) in enumerate(self._prefixes):
+            if arr.size != aligned or not np.array_equal(
+                    arr, tokens[:aligned]):
+                continue
+            held = set(pages)
+            for slot in range(self.slots):
+                if self._req[slot] is not None and held & set(
+                        self.slot_pages[slot][:int(self._slot_pinned[slot])]):
+                    raise ModelRuntimeError(
+                        "prefix is in use by a resident request")
+            # queued (and preempted-continuation) requests may have been
+            # accepted counting on this prefix's pages
+            del self._prefixes[i]
+            avail = self.pool_pages - self._pinned_total()
+            for req in self.queue:
+                own = self._own_pages_needed(
+                    req.tokens, req.max_new - len(req.out))
+                if own > avail:
+                    self._prefixes.insert(i, (arr, pages))
+                    raise ModelRuntimeError(
+                        "a queued request depends on this prefix's "
+                        "pages; drain it before releasing"
+                    )
+            self.free_pages.extend(pages)
+            return
+        raise ModelRuntimeError("prefix is not registered")
+
+    def submit(self, prompt, max_new: int, rid=None,
+               temperature=None, top_k=None, top_p=None, stop_seq=None):
+        """Queue a request; returns its id.  Admission happens inside
+        ``step()`` when a slot frees up.
+
+        ``stop_seq`` (a list of token ids) finishes this request once its
+        emitted tail equals the sequence; it composes with the
+        batcher-level ``stop_token``.  ``temperature``/``top_k``/``top_p``
+        override the batcher-level sampling settings for this request."""
+        check_top_p(top_p)
+        tokens = np.asarray(prompt, np.float32).reshape(-1)
+        if tokens.size < 1:
+            raise ModelRuntimeError("empty prompt")
+        if max_new < 1:
+            raise ModelRuntimeError(f"max_new must be >= 1 (got {max_new})")
+        need = tokens.size + max_new - 1
+        if need > self.capacity:
+            raise ModelRuntimeError(
+                f"prompt_len + max_new - 1 = {need} exceeds cache capacity "
+                f"{self.capacity}"
+            )
+        if need > self.server.max_seq:
+            raise ModelRuntimeError(
+                f"prompt_len + max_new - 1 = {need} exceeds the model's "
+                f"max_seq {self.server.max_seq} position embeddings"
+            )
+        if self.paged:
+            avail = self.pool_pages - self._pinned_total()
+            own = self._own_pages_needed(tokens, int(max_new))
+            if own > avail:
+                raise ModelRuntimeError(
+                    f"request needs {own} pages beyond any pinned-prefix "
+                    f"reuse but only {avail} are unpinned "
+                    f"({self.pool_pages} pool minus {self._pinned_total()} "
+                    "pinned); even preempting every other request could "
+                    "not fit it"
+                )
+        if rid is None:
+            rid = self._next_rid
+        self._next_rid = max(self._next_rid, rid if isinstance(rid, int)
+                             else self._next_rid) + 1
+        req = _Request(rid, tokens, int(max_new))
+        req.stop_seq = _check_stop_seq(stop_seq, self.server.vocab)
+        req.temp = float(self.temperature if temperature is None
+                         else temperature)
+        tk = top_k if top_k is not None else self.top_k
+        if tk is not None and tk < 1:
+            raise ModelRuntimeError(f"top_k must be >= 1 (got {tk})")
+        req.top_k = int(self.server.vocab if tk is None else tk)
+        tp = top_p if top_p is not None else self.top_p
+        req.top_p = float(1.0 if tp is None else tp)
+        self.queue.append(req)
+        return rid
+
+    def _bucket(self, width: int) -> int:
+        # bucket widths never exceed the cache (a user bucket list may)
+        return min(bucket_for(self.prompt_buckets, width), self.capacity)
+
+    def _progress_admission(self, slot, allow_preempt: bool = False):
+        """One admission unit for a reserved paged slot: a page-aligned
+        prompt chunk (``prefill_chunk``), or the final ragged tail which
+        prefills against everything cached so far and picks the first
+        token.  Returns a finished (rid, tokens) pair when the first token
+        already completes the request, else None (also when the unit must
+        wait for free pages)."""
+        req = self._req[slot]
+        size = req.tokens.size
+        chunk = self._admit_chunk()
+        if chunk and size - req.consumed - 1 >= chunk:
+            if (len(self.free_pages) < chunk // self.page_size
+                    and not allow_preempt):
+                return None  # wait for decoders to free pages
+            self._alloc_pages(slot, chunk // self.page_size)
+            new_pages = self.slot_pages[slot][-(chunk // self.page_size):]
+            self._prefill_chunk(
+                req.tokens[None, req.consumed:req.consumed + chunk],
+                req.consumed, self.page_table[slot].copy(),
+                np.asarray(new_pages, np.int32))
+            req.consumed += chunk
+            # window models evict behind the band between chunks, which
+            # keeps the prefill burst at O(window + chunk)
+            self._evict_window_pages(slot, frontier=req.consumed)
+            return None  # next chunk (or the tail) next step
+        # final tail: 1..bucket tokens
+        s = size - req.consumed
+        width_s = self._bucket(s)
+        n_own = self._pages_for(s)
+        if len(self.free_pages) < n_own and not allow_preempt:
+            return None  # wait for decoders to free pages
+        self._alloc_pages(slot, n_own)
+        own = self.slot_pages[slot][-n_own:]
+        suffix = np.zeros((1, width_s), np.float32)
+        suffix[0, :s] = req.tokens[req.consumed:]
+        first = self._admit_prefix(
+            suffix, s, req.consumed, self.page_table[slot].copy(),
+            np.asarray(own, np.int32), req.temp, req.top_k, req.top_p)
+        self.active[slot] = True
+        self.pos[slot] = size
+        first = int(first)
+        self.last[slot] = float(first)
+        self._evict_window_pages(slot)
+        if self._emit(slot, first):
+            return self._finish(slot)
+        return None
+
+    def _finish(self, slot) -> tuple:
+        req = self._req[slot]
+        req.finished_at = time.perf_counter()
+        self._metrics.append({
+            "rid": req.rid,
+            "prompt_tokens": int(req.tokens.size) - req.absorbed,
+            "generated_tokens": len(req.out),
+            "ttft_s": req.first_token_at - req.submitted,
+            "latency_s": req.finished_at - req.submitted,
+            "preemptions": req.preempted,
+        })
+        self.active[slot] = False
+        self._req[slot] = None
+        if self.paged:
+            self._free_slot_pages(slot)
+        return (req.rid, np.asarray(req.out, np.int64))
+
+    def _evict_window_pages(self, slot, frontier=None) -> None:
+        """Sliding-window models never attend positions at or below
+        ``frontier - window`` (the slot's cursor, or mid-admission the
+        tokens consumed), so pages wholly outside the band go back to the
+        pool (their table entries become the trash page; the stale rows
+        were window-masked already).  Pinned prefix pages stay.
+        ``_evict_cursor`` remembers the first possibly-live index."""
+        window = self.server.window
+        if window is None:
+            return
+        if frontier is None:
+            frontier = int(self.pos[slot])
+        keep_from = int(frontier) - int(window) + 1
+        pages = self.slot_pages[slot]
+        idx = max(int(self._evict_cursor[slot]),
+                  int(self._slot_pinned[slot]))
+        while idx < len(pages) and (idx + 1) * self.page_size <= keep_from:
+            pid = pages[idx]
+            if pid:
+                self.free_pages.append(pid)
+                pages[idx] = 0
+                self.page_table[slot, idx] = 0
+                self._window_evicted += 1
+            idx += 1
+        self._evict_cursor[slot] = idx
+
+    def _apply_tokens(self, slot, tokens, finished) -> int:
+        """Advance a slot through emitted tokens (pos/last bookkeeping),
+        finishing on budget or stop; returns how many were applied."""
+        applied = 0
+        for tok in tokens:
+            tok = int(tok)
+            self.pos[slot] += 1
+            self.last[slot] = float(tok)
+            applied += 1
+            if self._emit(slot, tok):
+                finished.append(self._finish(slot))
+                break
+        else:
+            if self.paged and applied:
+                self._evict_window_pages(slot)
+        return applied
+
+    def _emit(self, slot, token: int) -> bool:
+        """Record one generated token; True when the request is done."""
+        req = self._req[slot]
+        if req.first_token_at is None:
+            req.first_token_at = time.perf_counter()
+        req.out.append(token)
+        if self.stream_tokens:
+            self._stream.append((req.rid, token))
+        if _stop_seq_hit(req):
+            return True
+        if self.stop_token is not None and token == self.stop_token:
+            return True
+        return len(req.out) >= req.max_new
+
+    def step(self):
+        """One scheduler iteration: admit queued requests into free slots
+        (prefill + first token each), then run one batched decode step
+        for every active slot.  Returns the ``(request_id, tokens)``
+        pairs that completed this iteration."""
+        finished = []
+
+        # 1) reserve free slots for queued requests
+        for slot in range(self.slots):
+            if not self.queue:
+                break
+            if self.active[slot] or self._req[slot] is not None:
+                continue
+            req = self.queue.popleft()
+            self._req[slot] = req
+            self.req_temp[slot] = req.temp
+            self.req_topk[slot] = req.top_k
+            self.req_topp[slot] = req.top_p
+            if self.paged:
+                pre_len, pre_pages = self._match_prefix(req.tokens)
+                req.consumed = pre_len
+                if pre_len:
+                    self._prefix_hits += 1
+                pages = list(pre_pages or [])
+                self.slot_pages[slot] = pages
+                self._slot_pinned[slot] = len(pages)
+                self.page_table[slot, :] = 0
+                self.page_table[slot, :len(pages)] = pages
+            else:
+                width = self._bucket(req.tokens.size)
+                prompt = np.zeros((1, width), np.float32)
+                prompt[0, :req.tokens.size] = req.tokens
+                first = int(self._admit(prompt, req.tokens.size, slot,
+                                        req.temp, req.top_k, req.top_p))
+                self.active[slot] = True
+                self.pos[slot] = req.tokens.size
+                self.last[slot] = float(first)
+                if self._emit(slot, first):
+                    finished.append(self._finish(slot))
+
+        # 1b) progress paged admissions one unit each (a prompt chunk, or
+        # the final tail which picks the first token).  Admission waits
+        # for free pages rather than stealing from decoders — except that
+        # when nothing is active, the first reserved slot may preempt
+        # other reserved slots so the system always makes progress.
+        if self.paged:
+            privileged = None
+            if not self.active.any():
+                for slot in range(self.slots):
+                    if self._req[slot] is not None:
+                        privileged = slot
+                        break
+            for slot in range(self.slots):
+                if self._req[slot] is None or self.active[slot]:
+                    continue
+                done = self._progress_admission(
+                    slot, allow_preempt=(slot == privileged))
+                if done is not None:
+                    finished.append(done)
+
+        # 2) one decode step for the whole slot batch
+        if self.active.any():
+            self._steps += 1
+            self._dispatches += 1
+            if self.paged:
+                for slot in range(self.slots):
+                    if self.active[slot]:
+                        self._ensure_page(slot)
+                wpid = np.zeros(self.slots, np.int32)  # 0 = trash page
+                woff = np.zeros(self.slots, np.int32)
+                for slot in range(self.slots):
+                    if self.active[slot]:
+                        p = int(self.pos[slot])
+                        wpid[slot] = self.slot_pages[slot][
+                            p // self.page_size]
+                        woff[slot] = p % self.page_size
+                nxt = self._decode_paged(wpid, woff)
+            else:
+                nxt = self._decode()
+            nxt = nxt.cpu().numpy()
+            for slot in range(self.slots):
+                if self.active[slot]:
+                    self._apply_tokens(slot, nxt[slot:slot + 1], finished)
+        return finished
+
+    def run(self) -> dict:
+        """Drive ``step()`` until every queued and active request is done;
+        returns ``{request_id: np.ndarray of generated tokens}``."""
+        out = {}
+        while (self.queue or self.active.any()
+               or any(r is not None for r in self._req)):
+            for rid, toks in self.step():
+                out[rid] = toks
+        return out
+
+    def cancel(self, rid) -> bool:
+        """Abort a request (client disconnect): drop it from the queue, or
+        free its slot and pages at once if resident.  Returns whether
+        anything was cancelled; finished requests return False.
+        Cancelled requests produce no result and no metrics record."""
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                del self.queue[i]
+                return True
+        for slot in range(self.slots):
+            req = self._req[slot]
+            if req is not None and req.rid == rid:
+                self.active[slot] = False
+                self._req[slot] = None
+                if self.paged:
+                    self._free_slot_pages(slot)
+                return True
+        return False
+
+    def drain_tokens(self) -> list:
+        """Tokens emitted since the last drain, in emission order, as
+        ``(request_id, token_id)`` pairs — the hook for streaming
+        responses token by token.  Requires ``stream_tokens=True``."""
+        if not self.stream_tokens:
+            raise ModelRuntimeError(
+                "token streaming is off; construct with "
+                "ContinuousBatcher(..., stream_tokens=True)")
+        out = self._stream
+        self._stream = []
+        return out
+
+    def request_metrics(self, reset: bool = False) -> list:
+        """Per-finished-request records, in completion order: request id,
+        prompt/generated token counts, time to first token (``ttft_s``:
+        submit to first emitted token), total ``latency_s``, and how often
+        the request was preempted.  ``reset=True`` drains the list."""
+        out = list(self._metrics)
+        if reset:
+            self._metrics.clear()
+        return out  # bounded FIFO: at most the newest 4096 records
+
+    @property
+    def stats(self) -> dict:
+        """Scheduler counters: decode iterations run and occupancy now."""
+        out = {
+            "decode_steps": self._steps,
+            "dispatches": self._dispatches,
+            "active": int(self.active.sum()),
+            "queued": len(self.queue),
+        }
+        if self.paged:
+            out["free_pages"] = len(self.free_pages)
+            out["pool_pages"] = self.pool_pages
+            out["preemptions"] = self._preempts
+            out["window_evicted"] = self._window_evicted
+            out["prefixes"] = len(self._prefixes)
+            out["prefix_hits"] = self._prefix_hits
+        return out

@@ -9,9 +9,12 @@ token costs one thin step.  The JAX package's ``lax.scan`` generation
 loop is a Python loop here.
 
 Ported: parameter matching, prefill, decode and ``generate`` with greedy,
-temperature, top-k, top-p and ``stop_token``.  Not yet ported: ragged
-``lengths``, ``stop_seq``, weight quantization, meshes, speculative,
-lookup and beam decoding, and ``score``.
+temperature, top-k, top-p and ``stop_token``; float32, bfloat16 and int8
+caches; and the pieces the continuous batcher (``models/batcher.py``)
+drives: ``_step`` with per-row positions, cursors and a cache-IO hook,
+``_embed_at`` and ``_ragged_positions``.  Not yet ported: ragged
+``lengths`` and ``stop_seq`` in ``generate``, weight quantization,
+meshes, speculative, lookup and beam decoding, and ``score``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 
 from ..errors import ModelRuntimeError
 
-from ..ops.decode import append, decode_attention, init_cache
+from ..ops.decode import append, append_at, decode_attention, init_cache
 from ._sample import check_top_p, make_picker
 
 
@@ -48,8 +51,8 @@ class FlashLMServer:
     their name sequence — embed, pos, then per block
     [rms.g, wq, wk, wv, wo, rms.g, weights, bias, weights, bias], then the
     head [rms.g, weights, bias] — and a mismatch raises instead of
-    serving garbage.  ``cache_dtype`` defaults to bfloat16, as in the JAX
-    package.
+    serving garbage.  ``cache_dtype`` (float32, bfloat16 or int8)
+    defaults to bfloat16, as in the JAX package.
     """
 
     def __init__(self, model, cache_dtype=None, eps: float = 1e-5):
@@ -148,9 +151,20 @@ class FlashLMServer:
         ms = torch.mean(x * x, dim=-1, keepdim=True)
         return x / torch.sqrt(ms + self.eps) * gamma
 
-    def _step(self, x, caches, pos_offset: int):
+    def _step(self, x, caches, pos_offset: int, key_pos=None, q_pos=None,
+              row_starts=None, cache_io=None):
         """One forward pass of ``t`` fresh (embedded) tokens with their K/V
-        appended to the caches.  Returns (logits, caches)."""
+        appended to the caches.  Returns (logits, caches).
+
+        ``key_pos``/``q_pos`` turn on position masking (see
+        ``ops.decode.decode_attention``); ``q_pos`` [b, t] then also
+        gives the rotary positions.  ``row_starts`` [b] writes the fresh
+        K/V at per-row slot offsets instead of the batch-wide cursor
+        (continuous batching).  ``cache_io`` takes over cache storage: an
+        object with ``append(cache, k, v) -> cache`` and either
+        ``view(cache) -> KVCache`` (a dense view to attend) or
+        ``attend(q, cache, sm_scale, window, key_pos, q_pos)`` (attention
+        over the cache in place: the paged kernel)."""
         new_caches = []
         for blk, cache in zip(self.blocks, caches):
             rn = self._rms(x, blk.attn_g)
@@ -158,13 +172,29 @@ class FlashLMServer:
             k = torch.einsum("ntc,hcd->nhtd", rn, blk.wk)
             v = torch.einsum("ntc,hcd->nhtd", rn, blk.wv)
             if self.rope_base is not None:
-                rot_pos = pos_offset + torch.arange(x.shape[1],
-                                                    device=x.device)
+                if q_pos is not None:   # true per-sequence positions
+                    rot_pos = q_pos
+                else:
+                    rot_pos = pos_offset + torch.arange(x.shape[1],
+                                                        device=x.device)
                 q = self._rope_rotate(q, rot_pos)
                 k = self._rope_rotate(k, rot_pos)
-            cache = append(cache, k, v)
-            att = decode_attention(q, cache, sm_scale=self.scale,
-                                   window=self.window)
+            att = None
+            if cache_io is not None:
+                cache = cache_io.append(cache, k, v)
+                if hasattr(cache_io, "attend"):
+                    att = cache_io.attend(q, cache, self.scale, self.window,
+                                          key_pos, q_pos)
+                else:
+                    view = cache_io.view(cache)
+            elif row_starts is None:
+                cache = view = append(cache, k, v)
+            else:
+                cache = view = append_at(cache, k, v, row_starts)
+            if att is None:
+                att = decode_attention(q, view, sm_scale=self.scale,
+                                       window=self.window, key_pos=key_pos,
+                                       q_pos=q_pos)
             x = x + torch.einsum("nhtd,hde->nte", att, blk.wo)
             rn2 = self._rms(x, blk.ffn_g)
             if blk.w3 is not None:  # swiglu: silu(gate) * up, no biases
@@ -185,19 +215,46 @@ class FlashLMServer:
         pos_ids = pos_offset + torch.arange(ids.shape[1], device=ids.device)
         return self.embed[ids] + self.pos[pos_ids][None, :, :]
 
+    def _embed_at(self, tokens, pos_ids):
+        """Embed ``tokens`` [b, t] at explicit per-sequence positions
+        ``pos_ids`` [b, t].  Positions past the table are clamped to its
+        last row, as JAX's gather clamps: a parked batcher slot may sit
+        there, and its row is never read."""
+        ids = tokens.long()
+        if self.pos is None:
+            return self.embed[ids]
+        at = pos_ids.long().clamp(0, self.pos.shape[0] - 1)
+        return self.embed[ids] + self.pos[at]
+
     def _rope_rotate(self, x, positions):
-        """Rotate ``x`` [b, h, t, hd] by absolute ``positions`` [t] —
-        mirrors layers.attention.rope (rotate-half)."""
+        """Rotate ``x`` [b, h, t, hd] by absolute ``positions`` ([t] or
+        [b, t]) — mirrors layers.attention.rope (rotate-half)."""
         hd = x.shape[-1]
         half = hd // 2
         inv = torch.exp(
             torch.arange(half, dtype=torch.float32, device=x.device)
             * (-2.0 * math.log(self.rope_base) / hd)
         )
-        ang = positions.float()[:, None] * inv            # [t, half]
+        ang = positions.float()[..., None] * inv       # [b?, t, half]
+        if ang.dim() == 2:
+            ang = ang[None]
+        ang = ang[:, None]                              # [b?, 1, t, half]
         c, s = torch.cos(ang), torch.sin(ang)
         x1, x2 = x[..., :half], x[..., half:]
         return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+    def _ragged_positions(self, lens, width: int, capacity: int):
+        """(pos_ids [b, width], key_pos [b, capacity]) for a right-padded
+        batch of lengths ``lens`` [b]: true positions with pad queries
+        clamped, pad and unwritten cache slots marked -1."""
+        dev = lens.device
+        slot = torch.arange(capacity, device=dev)
+        pos_ids = torch.minimum(torch.arange(width, device=dev)[None, :],
+                                lens[:, None] - 1)
+        key_pos = torch.where(
+            (slot[None, :] < lens[:, None]) & (slot[None, :] < width),
+            slot[None, :], -1)
+        return pos_ids, key_pos
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, dtype=self.embed.dtype,

@@ -71,6 +71,11 @@ _SIGNATURES = {
                           _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _P],
     # a, b, c, m, n, k, transpose, in_dtype, out_dtype, program, stream
     "egt_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, EpiProgram, _P],
+    # q, k, v, k_scale, v_scale, table, key_pos, q_pos, out, b, h, hkv,
+    # n_pages, t, d, page, n_tbl, scale, window, vec, q_dtype, kv_dtype,
+    # stream
+    "egt_paged_decode": [_P] * 9 + [_I] * 8 + [ctypes.c_float]
+                        + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

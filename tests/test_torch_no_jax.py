@@ -1,15 +1,19 @@
 """The port runs without jax and without the JAX package: import,
-compile, predict and generate, a scheduled MLP (chip_smoke.py's program,
-narrow), a scheduled softmax row chain and scatter-add (the generated
-kernels' plain versions), and train (steps, fit, the scan epoch,
-checkpoints, EMA, the training driver) on the CPU in a fresh interpreter
-where ``import jax`` and ``import exprgrad_tpu`` fail.
+compile, predict and generate, continuous batching over a paged pool
+through the paged-attention kernel's plain version, a scheduled MLP
+(chip_smoke.py's program, narrow), a scheduled softmax row chain and
+scatter-add (the generated kernels' plain versions), and train (steps,
+fit, the scan epoch, checkpoints, EMA, the training driver) on the CPU
+in a fresh interpreter where ``import jax`` and ``import exprgrad_tpu``
+fail.  The CUDA sources define every entry point the ctypes binding
+names, with its parameter types (nvcc cannot run here).
 
 The check runs in a subprocess because this test process already holds
 both (the parity tests import them); ``sys.modules[name] = None`` makes
 any later import of ``name`` raise ImportError.
 """
 
+import ctypes
 import subprocess
 import sys
 import textwrap
@@ -43,6 +47,19 @@ SCRIPT = textwrap.dedent("""
     assert model.lowering_stats("predict")["attention-impl:flash"] == 1
     out = FlashLMServer(model).generate(toks[:, :8], n_new=5)
     assert out.shape == (2, 5), out.shape
+
+    # continuous batching over a paged int8 pool, attending the pages
+    # through the paged-attention kernel's plain version
+    from exprgrad_torch.models import ContinuousBatcher
+    from exprgrad_torch.ops import paged, paged_attention
+    b = ContinuousBatcher(FlashLMServer(model, cache_dtype=torch.int8),
+                          slots=2, capacity=32, paged=True, page_size=4,
+                          pool_pages=6, attention="flash")
+    rids = [b.submit(t, 6) for t in toks[:3, :9]]
+    done = b.run()
+    assert all(done[r].shape == (6,) for r in rids), done
+    assert b.stats["preemptions"] > 0, b.stats
+    assert b.stats["free_pages"] == 6 and paged_attention.launches == 0
 
     import exprgrad_torch.layers
     from chip_smoke import scheduled_mlp
@@ -130,6 +147,36 @@ def test_port_runs_with_jax_blocked():
 
 def test_port_trains_with_jax_blocked():
     _run_blocked(TRAIN_SCRIPT)
+
+
+def _c_type(param: str):
+    """The ctypes type a C parameter declaration is bound with."""
+    from exprgrad_torch.utils import kernels
+
+    if "*" in param:
+        return kernels._P
+    kind = param.split()[-2] if len(param.split()) > 1 else param
+    return {"int": kernels._I, "float": ctypes.c_float,
+            "EpiProgram": kernels.EpiProgram}[kind]
+
+
+def test_cuda_sources_define_every_bound_entry_point():
+    """Each name in ``utils/kernels._SIGNATURES`` is an ``extern "C"``
+    function of exactly one ``csrc/*.cu`` file, whose parameters have
+    the bound argtypes in order — a mismatch would pass garbage through
+    ctypes on the card."""
+    from exprgrad_torch.utils import kernels
+
+    sources = {src.name: src.read_text() for src in
+               sorted(kernels._CSRC.glob("*.cu"))}
+    assert "paged_attention.cu" in sources
+    for name, argtypes in kernels._SIGNATURES.items():
+        decl = f'extern "C" int {name}('
+        found = [text for text in sources.values() if decl in text]
+        assert len(found) == 1, name
+        head = found[0][found[0].index(decl) + len(decl):]
+        params = [p.strip() for p in head[:head.index(")")].split(",")]
+        assert [_c_type(p) for p in params] == list(argtypes), name
 
 
 def test_compile_on_cuda_without_a_gpu_raises(monkeypatch):
