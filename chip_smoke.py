@@ -9,8 +9,10 @@ Phases (any failed check raises and the script exits non-zero):
 1. build the port's CUDA kernels from exprgrad_torch/csrc;
 2. hold the flash-attention kernels (forward; backward dq and dkv)
    against their plain PyTorch versions on the card at the serving shape
-   and at GQA, window, rectangular, offset, dead-row and bfloat16
-   shapes, and time them at the serving shape;
+   and at GQA, window, rectangular, offset, dead-row, head_dim 36,
+   ragged (sq 200, skv 77) and bfloat16 shapes, and time them at the
+   serving shape beside scaled_dot_product_attention (whose kernels
+   torch.profiler names at the end of the run);
 3. compile the serving model flash_transformer(vocab=2048, dim=512,
    heads=4, hidden=2048, blocks=2, max_seq=256) and drive the main path
    once: "predict" on [8, 256] tokens, then 8 requests of 128-token
@@ -33,8 +35,9 @@ Phases (any failed check raises and the script exits non-zero):
 6. hold the scheduled matmul kernel (B1) against its plain version at
    4096^3, ragged 30x50x70 and 1000^3, a transposed store, each extra
    operand pattern of the epilogue (row bias, col broadcast, full
-   residual, with relu and select) and bfloat16 inputs, and time it at
-   4096^3 beside torch.matmul (TF32 off);
+   residual, with relu and select; the residual also at 4095x4097x33)
+   and bfloat16 inputs, and time it at 4096^3 beside torch.matmul (TF32
+   off);
 7. path (a): c[y,x] = a[y,it]*b[it,x] at 4096^3 float32 with
    schedule(tile 512), compiled with schedule_mode="force": one kernel
    launch per call, lowering {"matmul": 1}, the product against
@@ -73,8 +76,12 @@ Phases (any failed check raises and the script exits non-zero):
    the greedy streams of flash, gather and solo generate agree but at
    near-ties of the solo logits; the bfloat16 drives are timed.
 
-Each path runs with the kernels' launch counters set to 0 just before
-it and read just after.  It needs a CUDA device and the rest of the
+B1 and B2 compute float32 on the tensor cores as split TF32 and are held
+to the same tolerances as the float32 kernels before them
+(tests/test_torch_tf32x3.py gives the argument); the bounds of B1-B4
+are reckoned at split TF32, 3 x operations over 495 TFLOP/s.  Each path
+runs with the kernels' launch counters set to 0 just before it and read
+just after.  It needs a CUDA device and the rest of the
 repository; without either it fails.  The line before the last is the
 JSON list of kernels (time, bound, plain and library times); the last
 line is a JSON object naming the device.
@@ -135,10 +142,15 @@ def matmul_f32_tol(k):
 # a bfloat16 output rounds once more than the float64 plain version
 MATMUL_BF16_OUT = dict(rtol=1e-2, atol=1e-2)
 
-# Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): float32
-# outside the tensor cores, and HBM3.
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
+# float32 outside the tensor cores, TF32 on the tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+# float32 products at float32's accuracy on the tensor cores: split TF32
+# runs three TF32 products per product (csrc/tf32x3.cuh), so the bound of
+# a float32 product is 3 x its operations over the TF32 rate
+SPLIT_TF32 = dict(passes=3, rate=PEAK_TF32_FLOPS)
 
 SERVING = dict(vocab=2048, dim=512, heads=4, hidden=2048, blocks=2,
                max_seq=256)
@@ -281,10 +293,12 @@ def update_err(params, ref, start) -> tuple:
     return (diff / moved) ** 0.5, worst
 
 
-def bound(flops: float, nbytes: float) -> tuple:
+def bound(flops: float, nbytes: float, rate: float = PEAK_F32_FLOPS,
+          passes: int = 1) -> tuple:
     """(the least milliseconds the card could take, what bounds it): the
-    operations over the float32 peak or the bytes over HBM's rate."""
-    op_ms = flops / PEAK_F32_FLOPS * 1e3
+    operations (``passes`` times ``flops``) over ``rate``, float32 outside
+    the tensor cores by default, or the bytes over HBM's rate."""
+    op_ms = passes * flops / rate * 1e3
     byte_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
 
@@ -294,14 +308,105 @@ def attention_bounds(b, h, s, d) -> dict:
     multiply-adds over the live (row, key) pairs only (s(s+1)/2 of s^2),
     each input read once and each output written once.  Per live pair
     the forward does QK and PV (4d flops), dq recomputes S and does dP
-    and dS.K (6d), dkv recomputes S and does P^T.dO, dP and dS^T.Q (8d)."""
+    and dS.K (6d), dkv recomputes S and does P^T.dO, dP and dS^T.Q (8d).
+    All three at split TF32, the route on which the card can do float32
+    products at float32's accuracy fastest."""
     pairs = b * h * s * (s + 1) / 2
     full, rows = b * h * s * d * 4, b * h * s * 4
     return {
-        "forward": bound(4 * d * pairs, 3 * full + full + rows),
-        "dq": bound(6 * d * pairs, 5 * full + rows + full + rows),
-        "dkv": bound(8 * d * pairs, 4 * full + 2 * rows + 2 * full),
+        "forward": bound(4 * d * pairs, 3 * full + full + rows, **SPLIT_TF32),
+        "dq": bound(6 * d * pairs, 5 * full + rows + full + rows,
+                    **SPLIT_TF32),
+        "dkv": bound(8 * d * pairs, 4 * full + 2 * rows + 2 * full,
+                     **SPLIT_TF32),
     }
+
+
+def flash_cases(gen, dev) -> list:
+    """Phase 2's shapes: (name, (q, k, v), keywords, out tolerance, lse
+    tolerance), the serving shape first."""
+    def qkv(b, h, hkv, sq, skv, d, dtype=torch.float32):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((b, h, sq, d), (b, hkv, skv, d),
+                              (b, hkv, skv, d))]
+
+    bf16 = torch.bfloat16
+    return [
+        ("serving [8,4,256,128] f32 causal", qkv(8, 4, 4, 256, 256, 128),
+         dict(causal=True), F32_OUT, F32_LSE_ATOL),
+        ("gqa h4/hkv1 causal", qkv(2, 4, 1, 256, 256, 128),
+         dict(causal=True), F32_OUT, F32_LSE_ATOL),
+        ("window 64", qkv(2, 4, 2, 256, 256, 128),
+         dict(causal=True, window=64), F32_OUT, F32_LSE_ATOL),
+        ("non-causal sq 128, skv 320", qkv(2, 4, 4, 128, 320, 128),
+         dict(), F32_OUT, F32_LSE_ATOL),
+        ("ragged sq 100, d 64", qkv(2, 2, 2, 100, 100, 64),
+         dict(causal=True), F32_OUT, F32_LSE_ATOL),
+        ("offsets (192, 0)", qkv(2, 4, 2, 64, 256, 128),
+         dict(causal=True, offsets=(192, 0)), F32_OUT, F32_LSE_ATOL),
+        ("offsets (0, 16) window 8", qkv(2, 4, 2, 64, 64, 128),
+         dict(causal=True, offsets=(0, 16), window=8), F32_OUT,
+         F32_LSE_ATOL),
+        ("dead shard offsets (0, 512)", qkv(1, 4, 4, 64, 64, 128),
+         dict(causal=True, offsets=(0, 512)), F32_OUT, F32_LSE_ATOL),
+        # d not a multiple of 8: the MMAs' last k step reads zero columns
+        ("d 36 causal", qkv(2, 4, 2, 256, 256, 36),
+         dict(causal=True), F32_OUT, F32_LSE_ATOL),
+        # sq and skv not multiples of the 32-row q and 64-row kv tiles
+        ("non-causal sq 200, skv 77", qkv(2, 4, 4, 200, 77, 128),
+         dict(), F32_OUT, F32_LSE_ATOL),
+        ("serving shape bf16 causal", qkv(8, 4, 4, 256, 256, 128, bf16),
+         dict(causal=True), BF16_OUT, BF16_LSE_ATOL),
+        # 72-byte rows: plain loads in place of cp.async
+        ("d 36 bf16 causal", qkv(2, 4, 2, 256, 256, 36, bf16),
+         dict(causal=True), BF16_OUT, BF16_LSE_ATOL),
+    ]
+
+
+def check_flash_forward(attention, cases) -> float:
+    """Phase 2: the forward kernel against its plain version at every
+    case; returns the max |out error| at the serving shape."""
+    errs = []
+    for name, (q, k, v), kw, out_tol, lse_atol in cases:
+        got = attention.flash_attention_forward(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = attention.attention_forward_plain(q, k, v, **kw)
+        errs.append(compare(name, got, want, out_tol, lse_atol))
+    return errs[0]
+
+
+def kernel_names(fn) -> list:
+    """The CUDA kernels one call of ``fn`` launches, by torch.profiler
+    (called after the timed phases, so that no profiler session runs
+    before them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def time_flash_forward(attention, q, k, v, gpu) -> dict:
+    """Phase 2 timing at the serving shape: the kernel and its plain
+    version in turns, then scaled_dot_product_attention (TF32 off)."""
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = (attention.attention_forward_plain if which == "plain"
+              else attention.flash_attention_forward)
+        times[which].append(cuda_ms(lambda: fn(q, k, v, causal=True)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"kernel": sum(times["kernel"]) / 2,
+           "plain": sum(times["plain"]) / 2,
+           "library": cuda_ms(lambda: sdpa(q, k, v, is_causal=True))}
+    print(f"flash fwd [8,4,256,128] f32 causal: kernel {out['kernel']:.4f} "
+          f"ms, plain {out['plain']:.4f} ms (runs {times}), "
+          f"scaled_dot_product_attention {out['library']:.4f} ms on {gpu}")
+    return out
 
 
 def epilogue(code, consts=(), patterns=()):
@@ -1017,6 +1122,9 @@ def check_matmul_kernel(gen, dev) -> float:
          f32, col_select),
         ("full residual + relu, transposed 300x200x500", (300, 200, 500),
          True, f32, f32, residual_relu),
+        # k of 4097 (rows of 16388 bytes: plain loads), ragged tiles
+        ("full residual + relu 4095x4097x33", (4095, 4097, 33), False, f32,
+         f32, residual_relu),
         ("bf16 in, f32 out 1024^3", (1024, 1024, 1024), False, bf16, f32,
          None),
         ("bf16 in and out, row bias + relu 1024x1024x512",
@@ -1061,7 +1169,7 @@ def time_matmul(gen, dev, n, gpu) -> dict:
                  "plain"):
         runs[name].append(cuda_ms(fns[name], iters=10, warmup=2))
     out = {name: sum(v) / len(v) for name, v in runs.items()}
-    out["bound"] = bound(2.0 * n ** 3, 3 * n * n * 4)
+    out["bound"] = bound(2.0 * n ** 3, 3 * n * n * 4, **SPLIT_TF32)
     print(f"matmul {n}^3 f32: kernel {out['kernel']:.4f} ms, plain "
           f"(float64) {out['plain']:.4f} ms, torch.matmul TF32 off "
           f"{out['library']:.4f} ms, bound {out['bound'][0]:.4f} ms "
@@ -1878,57 +1986,13 @@ def main() -> int:
     # 2. kernel against its plain version -------------------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-
-    def qkv(b, h, hkv, sq, skv, d, dtype=torch.float32):
-        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
-                for shape in ((b, h, sq, d), (b, hkv, skv, d),
-                              (b, hkv, skv, d))]
-
-    cases = [
-        ("serving [8,4,256,128] f32 causal", qkv(8, 4, 4, 256, 256, 128),
-         dict(causal=True), F32_OUT, F32_LSE_ATOL),
-        ("gqa h4/hkv1 causal", qkv(2, 4, 1, 256, 256, 128),
-         dict(causal=True), F32_OUT, F32_LSE_ATOL),
-        ("window 64", qkv(2, 4, 2, 256, 256, 128),
-         dict(causal=True, window=64), F32_OUT, F32_LSE_ATOL),
-        ("non-causal sq 128, skv 320", qkv(2, 4, 4, 128, 320, 128),
-         dict(), F32_OUT, F32_LSE_ATOL),
-        ("ragged sq 100, d 64", qkv(2, 2, 2, 100, 100, 64),
-         dict(causal=True), F32_OUT, F32_LSE_ATOL),
-        ("offsets (192, 0)", qkv(2, 4, 2, 64, 256, 128),
-         dict(causal=True, offsets=(192, 0)), F32_OUT, F32_LSE_ATOL),
-        ("offsets (0, 16) window 8", qkv(2, 4, 2, 64, 64, 128),
-         dict(causal=True, offsets=(0, 16), window=8), F32_OUT,
-         F32_LSE_ATOL),
-        ("dead shard offsets (0, 512)", qkv(1, 4, 4, 64, 64, 128),
-         dict(causal=True, offsets=(0, 512)), F32_OUT, F32_LSE_ATOL),
-        ("serving shape bf16 causal",
-         qkv(8, 4, 4, 256, 256, 128, torch.bfloat16),
-         dict(causal=True), BF16_OUT, BF16_LSE_ATOL),
-    ]
-    slice_err = None
-    for name, (q, k, v), kw, out_tol, lse_atol in cases:
-        got = attention.flash_attention_forward(q, k, v, **kw)
-        torch.cuda.synchronize()
-        want = attention.attention_forward_plain(q, k, v, **kw)
-        err = compare(name, got, want, out_tol, lse_atol)
-        if slice_err is None:
-            slice_err = err
-
+    cases = flash_cases(gen, dev)
+    slice_err = check_flash_forward(attention, cases)
     q, k, v = cases[0][1]
-    times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = (attention.attention_forward_plain if which == "plain"
-              else attention.flash_attention_forward)
-        times[which].append(cuda_ms(lambda: fn(q, k, v, causal=True)))
-    kernel_ms = sum(times["kernel"]) / 2
-    plain_ms = sum(times["plain"]) / 2
-    torch.backends.cuda.matmul.allow_tf32 = False
+    fwd_times = time_flash_forward(attention, q, k, v, gpu)
+    kernel_ms, plain_ms = fwd_times["kernel"], fwd_times["plain"]
+    sdpa_ms = fwd_times["library"]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True))
-    print(f"flash fwd [8,4,256,128] f32 causal: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms (runs {times}), "
-          f"scaled_dot_product_attention {sdpa_ms:.4f} ms on {gpu}")
 
     # the backward kernels against their plain version, on the forward
     # kernel's (out, lse) as the train step hands them over
@@ -2208,6 +2272,9 @@ def main() -> int:
             PAGED_BENCH_PAGES)}
     path_e_run = path_e(egt, gpu)
     phase_done("12 (paged attention, path (e))", t_phase)
+    q, k, v = cases[0][1]
+    print(f"scaled_dot_product_attention [8,4,256,128] f32 causal runs "
+          f"{kernel_names(lambda: sdpa(q, k, v, is_causal=True))}")
     print(f"the whole run {time.perf_counter() - t_start:.1f} s")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "exprgrad_tpu"))

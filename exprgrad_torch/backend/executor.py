@@ -47,6 +47,15 @@ def torch_dtype(program: Program) -> torch.dtype:
     return getattr(torch, program.scalar_type.value)
 
 
+def random_seed(seed: int, tid: int) -> int:
+    """The generator seed of RANDOM tensor ``tid`` in a run seeded with
+    ``seed``: a hash of the pair, the counterpart of the JAX package's
+    ``fold_in(PRNGKey(seed), tid)``."""
+    state = np.random.SeedSequence(
+        [int(seed) % 2**64, int(tid)]).generate_state(1)
+    return int(state[0])
+
+
 class TorchExecutor:
     def __init__(
         self,
@@ -165,15 +174,17 @@ class TorchExecutor:
             else:
                 tensors[tid] = torch.zeros(shape, dtype=self.dtype,
                                            device=self.device)
-        if self.random_tids:
+        for tid in self.random_tids:
+            # one stream per (seed, tid), as the JAX package folds tid into
+            # its key: a tensor's values do not depend on the target's
+            # other RANDOM tensors (the streams are not jax.random's)
             gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(seed))
-            for tid in self.random_tids:
-                lo, hi = program.tensors[tid].random_range
-                tensors[tid] = torch.rand(
-                    tuple(self.shapes[tid]), generator=gen, dtype=self.dtype,
-                    device=self.device,
-                ) * (hi - lo) + lo
+            gen.manual_seed(random_seed(seed, tid))
+            lo, hi = program.tensors[tid].random_range
+            tensors[tid] = torch.rand(
+                tuple(self.shapes[tid]), generator=gen, dtype=self.dtype,
+                device=self.device,
+            ) * (hi - lo) + lo
         stats = None if self._ran else self.stats
         extern_memo: dict = {}  # one logical extern call per run
         for i, kernel in enumerate(self.target.kernels):

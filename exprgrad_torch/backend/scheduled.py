@@ -12,7 +12,7 @@ elementwise kernels after it folded into the kernel's epilogue.
 
 What differs from the TPU emitter:
 
-* The block is the kernel's own (64x64, 16-deep k slices), not the user's
+* The block is the kernel's own (128x128, 32-deep k slices), not the user's
   tile: ``tile_for``'s sublane/lane alignment and VMEM budget are TPU
   rules.  The JAX emitter accepts every tile (it pads), and so does this
   one.

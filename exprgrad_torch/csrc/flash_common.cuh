@@ -58,16 +58,17 @@ struct Band {
   int lo, hi;
 };
 
-// kv tiles holding a live key for the local query rows [r_first, r_last]
+// kv tiles of `tile` rows holding a live key for the local query rows
+// [r_first, r_last]
 static __device__ __forceinline__ Band kv_band(int r_first, int r_last,
                                                int skv, int causal,
                                                int window, int q_off,
-                                               int k_off) {
+                                               int k_off, int tile = kTile) {
   int c_lo = 0, c_hi = skv - 1;
   if (window > 0) c_lo = max(c_lo, r_first + q_off - window + 1 - k_off);
   if (causal) c_hi = min(c_hi, r_last + q_off - k_off);
   if (c_hi < c_lo) return {0, -1};
-  return {c_lo / kTile, c_hi / kTile};
+  return {c_lo / tile, c_hi / tile};
 }
 
 // q tiles holding a live query for the local kv columns [c_first, c_last]

@@ -1,4 +1,4 @@
-// Flash-attention forward for Hopper (sm_90a), FP32 FMA on CUDA cores.
+// Flash-attention forward for Hopper (sm_90a) on the tensor cores.
 //
 // Replaces the Pallas TPU kernel exprgrad_tpu/ops/attention.py::_fwd_kernel
 // (launched by _forward).  Computes, per (batch, head):
@@ -14,178 +14,539 @@
 // live key anywhere gives out = 0 and lse = -inf, which is what the TPU
 // kernel returns for a row whose tiles are all dead.
 //
-// Layout of the work: one block per (b*h, 32-row q tile), four warps of
-// eight query rows each.  The TPU kernel's sequential kv grid axis becomes
-// a loop inside the block, and the loop runs only over the live band of kv
-// tiles for this q tile (what _tri_schedule and _kv_band enumerate on the
-// TPU).  In the score step lane j of a warp owns kv column j of the tile;
-// in the P.V step it owns output columns j, j+32, j+64, j+96.
+// Layout of the work (FlashAttention-2): one block of eight warps per
+// (b*h, 32-row q tile).  Two row groups of 16 query rows, four warps
+// each: a warp takes 16 of the 64 columns of every kv tile and keeps its
+// S (16 x 16) and O (16 x d) fragments in registers, with the online max
+// and sum per fragment row, reduced over the four lanes of a quad; at the
+// end the four warps of a row group merge their (m, l, O) through shared
+// memory.  The TPU kernel's sequential kv grid axis becomes a loop over
+// the live band of 64-row kv tiles (what _tri_schedule and _kv_band
+// enumerate on the TPU); the mask is applied only on tiles that hold a
+// dead (row, col) pair or columns past skv (_tile_needs_mask on the TPU).
+// K and V tiles come through a ring of kStages buffers filled by cp.async,
+// so the next tile loads while this one computes, with one block barrier
+// per tile.  Blocks walk the q tiles from the last, so under a causal
+// mask the longest bands start first, and 32-row q tiles keep the longest
+// band at half the work of a 64-row one.
+//
+// Products run on the tensor cores with mma.sync: bfloat16 as m16n8k16
+// with a float32 accumulator (P is rounded to bfloat16 for P.V), float32
+// as split TF32 (tf32x3.cuh: three m16n8k8 TF32 MMAs per product, about
+// float32's accuracy, as precision="highest" asks).  Q is split once, in
+// shared memory; K and V as each warp reads them.  The TF32 products read
+// k in a permuted order, so S's accumulator fragment is P's operand
+// fragment as it stands: P never leaves registers.  d need not be a
+// multiple of 8: the columns past d are zero in shared memory.  Rows of
+// d * sizeof(T) bytes that are not a multiple of 16 (or a base that is not
+// 16-byte aligned) take plain loads instead of cp.async.
 //
 // What bounds it: at the serving shape [8, 4, 256, 128] f32 causal the
-// call does ~0.54 GFLOP and moves ~17 MB, which the card's FP32 rate
-// (67 TFLOP/s) and memory (3.35 TB/s) would finish in under 10 us.  The
-// grid is only 256 blocks of four warps, about two per SM, and the last
-// q tile walks eight kv tiles where the first walks one; so the time is
-// launch and latency (a shared-memory round trip and two block barriers
-// per kv tile, with few warps to hide them), not flops or bytes.  The
-// design keeps it simple and right: FP32 FMA, as precision="highest"
-// asks of float32 (TF32 tensor cores would round the inputs); no async
-// copies.  mma.sync/wgmma for bfloat16, and TMA, are later work.
+// call does 0.54 GFLOP of products (1.6 GFLOP of TF32 MMAs in split TF32)
+// and moves 16.8 MB: at 495 TFLOP/s TF32 and 3.35 TB/s the bytes bound it
+// at 5 us.  It takes about 35 us on an H100: mma.sync does not reach that
+// TF32 rate (B1 sustains about one m16n8k8 TF32 MMA per 13 cycles per
+// scheduler), and more than half the time is not the products but the
+// launch, two waves of 32 x 8 = 256 blocks (one an SM: 168 KB of shared
+// memory in float32), the K/V tiles each 32-row q tile reloads from L2,
+// the softmax and the merge (scripts/probe_torch_kernels.py cuts each
+// part out in turn).  wgmma and TMA are later work: wgmma's TF32 form
+// wants both operands K-major, and V [kv, d] is not, and the split values
+// would have to go back to shared memory.
 
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using namespace egt_flash;
+using namespace egt_mma;
 
-constexpr int kBlockQ = kTile;  // query rows per block
-constexpr int kBlockK = kTile;  // kv rows per tile (one per lane)
+constexpr int kBlockQ = 32;                // query rows per block
+constexpr int kBlockK = 64;                // kv rows per tile
+constexpr int kStages = 2;                 // K/V tiles in the cp.async ring
+constexpr int kRowGroups = kBlockQ / 16;   // 16 query rows per warp
+constexpr int kSplit = 4;                  // warps per row group
+constexpr int kWarpK = kBlockK / kSplit;   // kv columns per warp
+constexpr int kFwdThreads = kRowGroups * kSplit * 32;
+constexpr int kSTiles = kWarpK / 8;        // a warp's 8-column n-tiles of S
+constexpr int kXLd = kMaxD + 8;            // stride of the warps' merge
 
-// shared memory: Q [kBlockQ][kMaxD], K [kBlockK][kMaxD + 1] (padded so
-// lanes reading one column of K hit distinct banks), V [kBlockK][kMaxD],
-// P [kBlockQ][kBlockK]
-constexpr int kSmemFloats = kBlockQ * kMaxD + kBlockK * (kMaxD + 1) +
-                            kBlockK * kMaxD + kBlockQ * kBlockK;
-constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
+// Row strides of the shared tiles, in elements, chosen so the fragment
+// loads hit 32 distinct banks (tf32x3.cuh gives the lanes' positions):
+// float32 Q and K are read as float2 at (g, 2t) -> stride = 8 mod 32, V
+// at rows (2t, 2t+1) -> stride = 4 mod 16; bfloat16 reads words at (g, t)
+// -> 68 words, and V's halves at rows (2t, 2t+1) the same.
+template <typename T> struct Layout;
+template <> struct Layout<float> {
+  static constexpr int kQK = kMaxD + 8;
+  static constexpr int kV = kMaxD + 4;
+};
+template <> struct Layout<__nv_bfloat16> {
+  static constexpr int kQK = kMaxD + 8;
+  static constexpr int kV = kMaxD + 8;
+};
+
+// Q [kBlockQ][kQK] (float32: its TF32 big parts), Q's small parts
+// [kBlockQ][kQK] (float32 only), K [kStages][kBlockK][kQK],
+// V [kStages][kBlockK][kV]
+template <typename T>
+__host__ __device__ constexpr int q_small_rows() {
+  return sizeof(T) == 4 ? kBlockQ : 0;
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(T) *
+         (size_t)((kBlockQ + q_small_rows<T>()) * Layout<T>::kQK +
+                  kStages * kBlockK * (Layout<T>::kQK + Layout<T>::kV));
+}
+
+// Rows [r0, r0 + n) of a [rows, d] matrix into a shared tile of row
+// stride ld; rows past `rows` are zero.  Columns [d, kMaxD) are not
+// written (the kernel zeroes them once).  vec: 16-byte cp.async, else
+// plain loads.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
+                                          int r0, int n, int rows, int d,
+                                          bool vec, int tid) {
+  if (vec) {
+    // walk whole kMaxD-wide rows, so the index math is shifts, and skip
+    // the chunks past d
+    constexpr int kPer = 16 / sizeof(T);
+    constexpr int kRow = kMaxD / kPer;
+    for (int i = tid; i < n * kRow; i += kFwdThreads) {
+      const int r = i / kRow, c = (i % kRow) * kPer;
+      if (c >= d) continue;
+      const bool in = r0 + r < rows;
+      cp_async16(dst + r * ld + c, in ? src + (size_t)(r0 + r) * d + c : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < n * d; i += kFwdThreads) {
+      const int r = i / d, c = i - r * d;
+      dst[r * ld + c] =
+          r0 + r < rows ? src[(size_t)(r0 + r) * d + c] : from_float<T>(0.f);
+    }
+  }
+}
+
+// zero columns [d, kMaxD) of `rows` rows of stride ld
+template <typename T>
+__device__ __forceinline__ void zero_pad(T* dst, int rows, int ld, int d,
+                                         int tid) {
+  const int pad = kMaxD - d;
+  for (int i = tid; i < rows * pad; i += kFwdThreads) {
+    const int r = i / pad;
+    dst[r * ld + d + i - r * pad] = from_float<T>(0.f);
+  }
+}
+
+// float32: Q's tile in place into its TF32 big parts, and the small parts
+// beside it, once for all kv tiles; bfloat16 reads Q as it is
+__device__ __forceinline__ void split_q(float* q, float* q_small, int tid) {
+  constexpr int ld = Layout<float>::kQK;
+  for (int i = tid; i < kBlockQ * kMaxD; i += kFwdThreads) {
+    const int at = (i / kMaxD) * ld + i % kMaxD;
+    uint32_t big, small;
+    split_tf32(q[at], big, small);
+    q[at] = __uint_as_float(big);
+    q_small[at] = __uint_as_float(small);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void split_q(__nv_bfloat16*, __nv_bfloat16*,
+                                        int) {}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// s += Q_w K^T for a warp's 16 rows (big parts qw, small parts qs) against
+// its kv rows (tk), over the first kD columns (zero past d).  big . big and
+// the two small terms go to separate sums, which halves the chain of
+// dependent MMAs the warp waits on.
+template <int kD>
+__device__ __forceinline__ void qk(float (&s)[kSTiles][4], const float* qw,
+                                   const float* qs, const float* tk, int g,
+                                   int t) {
+  constexpr int ld = Layout<float>::kQK;
+  float c[kSTiles][4];
+#pragma unroll
+  for (int j = 0; j < kSTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kD / 8; ++ks) {
+    const int lo = g * ld + 8 * ks + 2 * t, hi = lo + 8 * ld;
+    const float2 b_lo = *reinterpret_cast<const float2*>(qw + lo);
+    const float2 b_hi = *reinterpret_cast<const float2*>(qw + hi);
+    const float2 s_lo = *reinterpret_cast<const float2*>(qs + lo);
+    const float2 s_hi = *reinterpret_cast<const float2*>(qs + hi);
+    const uint32_t ab[4] = {__float_as_uint(b_lo.x), __float_as_uint(b_hi.x),
+                            __float_as_uint(b_lo.y), __float_as_uint(b_hi.y)};
+    const uint32_t as[4] = {__float_as_uint(s_lo.x), __float_as_uint(s_hi.x),
+                            __float_as_uint(s_lo.y), __float_as_uint(s_hi.y)};
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(
+          tk + (8 * j + g) * ld + 8 * ks + 2 * t);
+      uint32_t bb[2], bs[2];
+      split_tf32(b.x, bb[0], bs[0]);
+      split_tf32(b.y, bb[1], bs[1]);
+      mma_tf32(c[j], as, bb);
+      mma_tf32(c[j], ab, bs);
+      mma_tf32(s[j], ab, bb);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kSTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += c[j][e];
+}
+
+template <int kD>
+__device__ __forceinline__ void qk(float (&s)[kSTiles][4],
+                                   const __nv_bfloat16* qw,
+                                   const __nv_bfloat16*,
+                                   const __nv_bfloat16* tk, int g, int t) {
+  constexpr int ld = Layout<__nv_bfloat16>::kQK;
+#pragma unroll
+  for (int ks = 0; ks < kD / 16; ++ks) {
+    const __nv_bfloat16* a = qw + 16 * ks + 2 * t;
+    const uint32_t af[4] = {ld32(a + g * ld), ld32(a + (g + 8) * ld),
+                            ld32(a + g * ld + 8),
+                            ld32(a + (g + 8) * ld + 8)};
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) {
+      const __nv_bfloat16* b = tk + (8 * j + g) * ld + 16 * ks + 2 * t;
+      const uint32_t bf[2] = {ld32(b), ld32(b + 8)};
+      mma_bf16(s[j], af, bf);
+    }
+  }
+}
+
+// o = alpha * o + P V for a warp's 16 rows over the first kD columns; p
+// holds S's fragments after the softmax.  Each 8-column n-tile of P V is
+// summed over the warp's kv columns in a fresh accumulator and added to o
+// in float32 with round-to-nearest: the tensor cores truncate each MMA's
+// sum, and a long kv loop into one accumulator would add that bias up.
+template <int kD>
+__device__ __forceinline__ void pv(float (&o)[kD / 8][4],
+                                   const float (&p)[kSTiles][4],
+                                   const float (&alpha)[2], const float* tv,
+                                   int g, int t) {
+  constexpr int ld = Layout<float>::kV;
+  // (c0, c2, c1, c3) of S's n-tile ks are P's (a0, a1, a2, a3) under the
+  // permuted k: kv columns 2t and 2t+1 are logical t and t+4
+  uint32_t pb[kSTiles][4], ps[kSTiles][4];
+#pragma unroll
+  for (int ks = 0; ks < kSTiles; ++ks) {
+    split_tf32(p[ks][0], pb[ks][0], ps[ks][0]);
+    split_tf32(p[ks][2], pb[ks][1], ps[ks][1]);
+    split_tf32(p[ks][1], pb[ks][2], ps[ks][2]);
+    split_tf32(p[ks][3], pb[ks][3], ps[ks][3]);
+  }
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < kSTiles; ++ks) {
+      const float* v0 = tv + (8 * ks + 2 * t) * ld + 8 * j + g;
+      uint32_t bb[2], bs[2];
+      split_tf32(v0[0], bb[0], bs[0]);
+      split_tf32(v0[ld], bb[1], bs[1]);
+      mma_tf32x3(acc, pb[ks], ps[ks], bb, bs);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = fmaf(o[j][e], alpha[e >> 1], acc[e]);
+  }
+}
+
+template <int kD>
+__device__ __forceinline__ void pv(float (&o)[kD / 8][4],
+                                   const float (&p)[kSTiles][4],
+                                   const float (&alpha)[2],
+                                   const __nv_bfloat16* tv, int g, int t) {
+  constexpr int ld = Layout<__nv_bfloat16>::kV;
+  uint32_t af[kSTiles / 2][4];
+#pragma unroll
+  for (int ks = 0; ks < kSTiles / 2; ++ks) {
+    af[ks][0] = pack_bf16(p[2 * ks][0], p[2 * ks][1]);
+    af[ks][1] = pack_bf16(p[2 * ks][2], p[2 * ks][3]);
+    af[ks][2] = pack_bf16(p[2 * ks + 1][0], p[2 * ks + 1][1]);
+    af[ks][3] = pack_bf16(p[2 * ks + 1][2], p[2 * ks + 1][3]);
+  }
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < kSTiles / 2; ++ks) {
+      const __nv_bfloat16* v0 = tv + (16 * ks + 2 * t) * ld + 8 * j + g;
+      const uint32_t bf[2] = {pack_bf16(v0[0], v0[ld]),
+                              pack_bf16(v0[8 * ld], v0[9 * ld])};
+      mma_bf16(acc, af[ks], bf);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = fmaf(o[j][e], alpha[e >> 1], acc[e]);
+  }
+}
+
+// does global query row `row` see any of the keys [k_off, k_off + skv)?
+__device__ __forceinline__ bool row_live(int row, int skv, int causal,
+                                         int window, int k_off) {
+  int lo = k_off, hi = k_off + skv - 1;
+  if (window > 0) lo = max(lo, row - window + 1);
+  if (causal) hi = min(hi, row);
+  return lo <= hi;
+}
+
+// kD: the head columns the MMAs cover, d rounded up to 32, 64 or 128
+template <typename T, int kD>
+__global__ void __launch_bounds__(kFwdThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int h, int group, int sq, int skv,
                  int d, float scale, int causal, int window, int q_off,
-                 int k_off) {
-  extern __shared__ float smem[];
-  float* s_q = smem;
-  float* s_k = s_q + kBlockQ * kMaxD;
-  float* s_v = s_k + kBlockK * (kMaxD + 1);
-  float* s_p = s_v + kBlockK * kMaxD;
+                 int k_off, int vec) {
+  using L = Layout<T>;
+  static_assert((kSplit - 1) * kBlockQ * (kXLd + 2) * sizeof(float) <=
+                    smem_bytes<T>(),
+                "the warps' merge must fit in the tiles' shared memory");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_q = reinterpret_cast<T*>(smem_raw);
+  T* s_qs = s_q + kBlockQ * L::kQK;
+  T* s_k = s_qs + q_small_rows<T>() * L::kQK;
+  T* s_v = s_k + kStages * kBlockK * L::kQK;
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // last tile first
+  const int q_last = min(q0 + kBlockQ, sq) - 1;
   const int kv_head = (bh / h) * (h / group) + (bh % h) / group;
   const T* qp = q + (size_t)bh * sq * d;
   const T* kp = k + (size_t)kv_head * skv * d;
   const T* vp = v + (size_t)kv_head * skv * d;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int r0 = warp * kRows;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp % kRowGroups, kq = warp / kRowGroups;
+  const int wr = rg * 16;      // the warp's first row in the block
+  const int wc = kq * kWarpK;  // and its first column in a kv tile
 
-  for (int i = tid; i < kBlockQ * d; i += blockDim.x) {
-    const int r = i / d, c = i % d;
-    s_q[r * kMaxD + c] =
-        q0 + r < sq ? to_float(qp[(size_t)(q0 + r) * d + c]) : 0.f;
+  // the columns past d are read by the MMAs' last k steps: zero them once
+  // in Q and every K and V buffer
+  zero_pad(s_q, kBlockQ, L::kQK, d, tid);
+  zero_pad(s_k, kStages * kBlockK, L::kQK, d, tid);
+  zero_pad(s_v, kStages * kBlockK, L::kV, d, tid);
+
+  const Band band = kv_band(q0, q_last, skv, causal, window, q_off, k_off,
+                            kBlockK);
+  float o[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  // rows g and g + 8 of the warp: running max and this lane's part of the
+  // sum, over the warp's columns
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  // Q and the first kStages - 1 tiles, one cp.async group each (Q with
+  // the first); then each tile's turn waits for its group and issues the
+  // tile kStages - 1 ahead into the buffer the last turn freed
+  for (int st = 0; st < kStages - 1; ++st) {
+    const int tile = band.lo + st;
+    if (tile <= band.hi) {
+      if (st == 0) load_tile(s_q, L::kQK, qp, q0, kBlockQ, sq, d, vec, tid);
+      load_tile(s_k + st * kBlockK * L::kQK, L::kQK, kp, tile * kBlockK,
+                kBlockK, skv, d, vec, tid);
+      load_tile(s_v + st * kBlockK * L::kV, L::kV, vp, tile * kBlockK,
+                kBlockK, skv, d, vec, tid);
+    }
+    cp_async_commit();
+  }
+  for (int tile = band.lo; tile <= band.hi; ++tile) {
+    const int buf = (tile - band.lo) % kStages;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // this tile is in; every warp is done with the last
+    if (tile == band.lo) split_q(s_q, s_qs, tid);
+    const int ahead = tile + kStages - 1;
+    if (ahead <= band.hi) {
+      const int at = (ahead - band.lo) % kStages;
+      load_tile(s_k + at * kBlockK * L::kQK, L::kQK, kp, ahead * kBlockK,
+                kBlockK, skv, d, vec, tid);
+      load_tile(s_v + at * kBlockK * L::kV, L::kV, vp, ahead * kBlockK,
+                kBlockK, skv, d, vec, tid);
+    }
+    cp_async_commit();
+    const T* tk = s_k + buf * kBlockK * L::kQK;
+    const T* tv = s_v + buf * kBlockK * L::kV;
+    const int kv0 = tile * kBlockK;
+
+    float s[kSTiles][4];
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    qk<kD>(s, s_q + wr * L::kQK, s_qs + wr * L::kQK, tk + wc * L::kQK, g, t);
+
+    // every (row, col) pair of the block and tile live: no mask
+    const bool full =
+        kv0 + kBlockK <= skv &&
+        (!causal || kv0 + kBlockK - 1 + k_off <= q0 + q_off) &&
+        (window <= 0 || kv0 + k_off > q_last + q_off - window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (!full) {
+          const int col = kv0 + wc + 8 * j + 2 * t + (e & 1);
+          const int row = q0 + wr + g + 8 * (e >> 1);
+          if (!(col < skv && attends(row + q_off, col + k_off, causal, window)))
+            x = kMasked;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_next = fmaxf(m_run[r], mx[r]);
+      alpha[r] = expf(m_run[r] - m_next);
+      m_run[r] = m_next;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m_run[e >> 1]);
+        s[j][e] = p;
+        l_run[e >> 1] += p;
+      }
+    pv<kD>(o, s, alpha, tv + wc * L::kV, g, t);
   }
 
-  // live band of kv tiles for this q tile
-  const Band band = kv_band(q0, min(q0 + kBlockQ, sq) - 1, skv, causal,
-                            window, q_off, k_off);
-
-  float m[kRows], l[kRows], acc[kRows][kCols];
-  bool live[kRows];
 #pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    m[rr] = -INFINITY;
-    l[rr] = 0.f;
-    live[rr] = false;
-#pragma unroll
-    for (int jj = 0; jj < kCols; ++jj) acc[rr][jj] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
 
-  for (int t = band.lo; t <= band.hi; ++t) {
-    const int kv0 = t * kBlockK;
-    __syncthreads();  // the previous tile's K/V reads are done
-    for (int i = tid; i < kBlockK * d; i += blockDim.x) {
-      const int r = i / d, c = i % d;
-      const bool in = kv0 + r < skv;
-      const size_t at = (size_t)(kv0 + r) * d + c;
-      s_k[r * (kMaxD + 1) + c] = in ? to_float(kp[at]) : 0.f;
-      s_v[r * kMaxD + c] = in ? to_float(vp[at]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores of this warp's rows against kv column `lane`
-    float s[kRows];
+  // the warps of a row group merge their (m, l, o): all but the first hand
+  // theirs over through shared memory, free once every warp is done with
+  // the last tile
+  __syncthreads();
+  float* xo = reinterpret_cast<float*>(smem_raw);  // [kSplit-1][kBlockQ][kXLd]
+  float* xm = xo + (kSplit - 1) * kBlockQ * kXLd;  // [kSplit-1][kBlockQ]
+  float* xl = xm + (kSplit - 1) * kBlockQ;         // [kSplit-1][kBlockQ]
+  if (kq > 0) {
+    const int slot = (kq - 1) * kBlockQ;
 #pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) s[rr] = 0.f;
-    const float* krow = s_k + lane * (kMaxD + 1);
-    for (int c = 0; c < d; ++c) {
-      const float kc = krow[c];
+    for (int r = 0; r < 2; ++r) {
+      const int lr = slot + wr + g + 8 * r;
 #pragma unroll
-      for (int rr = 0; rr < kRows; ++rr)
-        s[rr] = fmaf(s_q[(r0 + rr) * kMaxD + c], kc, s[rr]);
-    }
-
-    const int col = kv0 + lane + k_off;
-    const bool col_in = kv0 + lane < skv;
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int row = q0 + r0 + rr + q_off;
-      const bool keep = col_in && attends(row, col, causal, window);
-      const float sv = keep ? s[rr] * scale : kMasked;
-      const bool any_keep = __any_sync(0xffffffffu, keep);
-      live[rr] = live[rr] || any_keep;
-      const float m_next = fmaxf(m[rr], warp_max(sv));
-      const float alpha = expf(m[rr] - m_next);
-      const float p = expf(sv - m_next);
-      l[rr] = alpha * l[rr] + warp_sum(p);
-      m[rr] = m_next;
-#pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) acc[rr][jj] *= alpha;
-      s_p[(r0 + rr) * kBlockK + lane] = p;
-    }
-    __syncwarp();
-
-    for (int c = 0; c < kBlockK; ++c) {
-      float vc[kCols];
-#pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) vc[jj] = s_v[c * kMaxD + lane + 32 * jj];
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) {
-        const float p = s_p[(r0 + rr) * kBlockK + c];
-#pragma unroll
-        for (int jj = 0; jj < kCols; ++jj)
-          acc[rr][jj] = fmaf(p, vc[jj], acc[rr][jj]);
+      for (int j = 0; j < kD / 8; ++j)
+        *reinterpret_cast<float2*>(xo + lr * kXLd + 8 * j + 2 * t) =
+            make_float2(o[j][2 * r], o[j][2 * r + 1]);
+      if (t == 0) {
+        xm[lr] = m_run[r];
+        xl[lr] = l_run[r];
       }
     }
-    __syncwarp();  // P is rewritten by the next tile
   }
-
+  __syncthreads();
+  if (kq > 0) return;
 #pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    const int r = q0 + r0 + rr;
-    if (r >= sq) continue;
-    const float inv = live[rr] ? 1.f / l[rr] : 0.f;
-    T* orow = out + ((size_t)bh * sq + r) * d;
+  for (int r = 0; r < 2; ++r) {
+    const int lr = wr + g + 8 * r;
+    float m = m_run[r];
 #pragma unroll
-    for (int jj = 0; jj < kCols; ++jj) {
-      const int c = lane + 32 * jj;
-      if (c < d) orow[c] = from_float<T>(acc[rr][jj] * inv);
+    for (int x = 0; x < kSplit - 1; ++x) m = fmaxf(m, xm[x * kBlockQ + lr]);
+    // all -inf only where the band is empty and the row dead
+    const float a0 = m_run[r] == -INFINITY ? 0.f : expf(m_run[r] - m);
+    l_run[r] *= a0;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      o[j][2 * r] *= a0;
+      o[j][2 * r + 1] *= a0;
     }
-    if (lane == 0)
-      lse[(size_t)bh * sq + r] = live[rr] ? m[rr] + logf(l[rr]) : -INFINITY;
+#pragma unroll
+    for (int x = 0; x < kSplit - 1; ++x) {
+      const int at = x * kBlockQ + lr;
+      const float a = xm[at] == -INFINITY ? 0.f : expf(xm[at] - m);
+      l_run[r] += xl[at] * a;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        const float2 y =
+            *reinterpret_cast<const float2*>(xo + at * kXLd + 8 * j + 2 * t);
+        o[j][2 * r] = fmaf(y.x, a, o[j][2 * r]);
+        o[j][2 * r + 1] = fmaf(y.y, a, o[j][2 * r + 1]);
+      }
+    }
+    m_run[r] = m;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + g + 8 * r;
+    if (row >= sq) continue;
+    const bool live = row_live(row + q_off, skv, causal, window, k_off);
+    const float inv = live ? 1.f / l_run[r] : 0.f;
+    T* orow = out + ((size_t)bh * sq + row) * d;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (c < d) orow[c] = from_float<T>(o[j][2 * r] * inv);
+      if (c + 1 < d) orow[c + 1] = from_float<T>(o[j][2 * r + 1] * inv);
+    }
+    if (t == 0)
+      lse[(size_t)bh * sq + row] = live ? m_run[r] + logf(l_run[r]) : -INFINITY;
   }
 }
 
-template <typename T>
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+template <typename T, int kD>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int b, int h, int hkv, int sq, int skv, int d, float scale,
            int causal, int window, int q_off, int k_off,
            cudaStream_t stream) {
   static bool smem_set = false;
-  const int err = allow_smem(flash_fwd_kernel<T>, kSmemBytes, &smem_set);
+  constexpr size_t bytes = smem_bytes<T>();
+  const int err = allow_smem(flash_fwd_kernel<T, kD>, bytes, &smem_set);
   if (err != (int)cudaSuccess) return err;
+  const int vec = (d * sizeof(T)) % 16 == 0 && aligned16(q) &&
+                  aligned16(k) && aligned16(v);
   const dim3 grid(b * h, (sq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<T><<<grid, kWarps * 32, kSmemBytes, stream>>>(
+  flash_fwd_kernel<T, kD><<<grid, kFwdThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), h, h / hkv, sq, skv, d, scale, causal,
-      window, q_off, k_off);
+      window, q_off, k_off, vec);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_d(const void* q, const void* k, const void* v, void* out,
+             void* lse, int b, int h, int hkv, int sq, int skv, int d,
+             float scale, int causal, int window, int q_off, int k_off,
+             cudaStream_t stream) {
+  if (d <= 32)
+    return launch<T, 32>(q, k, v, out, lse, b, h, hkv, sq, skv, d, scale,
+                         causal, window, q_off, k_off, stream);
+  if (d <= 64)
+    return launch<T, 64>(q, k, v, out, lse, b, h, hkv, sq, skv, d, scale,
+                         causal, window, q_off, k_off, stream);
+  return launch<T, kMaxD>(q, k, v, out, lse, b, h, hkv, sq, skv, d, scale,
+                          causal, window, q_off, k_off, stream);
 }
 
 }  // namespace
@@ -203,10 +564,10 @@ extern "C" int egt_flash_fwd(const void* q, const void* k, const void* v,
   if (b * h == 0 || sq == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, out, lse, b, h, hkv, sq, skv, d, scale,
-                         causal, window, q_off, k_off, s);
+    return launch_d<float>(q, k, v, out, lse, b, h, hkv, sq, skv, d, scale,
+                           causal, window, q_off, k_off, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, lse, b, h, hkv, sq, skv, d,
-                                 scale, causal, window, q_off, k_off, s);
+    return launch_d<__nv_bfloat16>(q, k, v, out, lse, b, h, hkv, sq, skv, d,
+                                   scale, causal, window, q_off, k_off, s);
   return (int)cudaErrorInvalidValue;
 }

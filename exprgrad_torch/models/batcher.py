@@ -29,7 +29,7 @@ place.  Greedy streams equal serving each prompt alone with
 ``server.generate``, up to float reassociation at near-ties; sampled
 rows draw from a ``torch.Generator`` seeded with ``seed``.
 
-Not ported yet (ROADMAP A12): ``decode_chunk > 1``, ``pipeline``,
+Not ported yet (ROADMAP A13): ``decode_chunk > 1``, ``pipeline``,
 ``draft=`` (speculative rounds), ``lookup=`` (prompt-lookup rounds) and
 ``Seq2SeqBatcher``; they raise ``NotImplementedError``.
 """
@@ -176,7 +176,7 @@ def _write_slot_rows(caches, minis, slot: int) -> None:
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported to exprgrad_torch yet (ROADMAP A12); the "
+        f"{what} is not ported to exprgrad_torch yet (ROADMAP A13); the "
         "JAX package's ContinuousBatcher has it")
 
 

@@ -104,16 +104,10 @@ def _launch(entry: str, q: torch.Tensor, *args) -> None:
     """Call a C entry point on q's device and current stream: tensors go
     as data pointers, then q's kernel dtype code and the stream are
     appended; raises if the launch failed."""
-    lib = kernels.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(
-            q.data_ptr(),
-            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args),
-            _KERNEL_DTYPES[q.dtype], stream,
-        )
-    kernels.check(err, entry)
+    kernels.call(entry, q.device, q.data_ptr(),
+                 *[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args],
+                 _KERNEL_DTYPES[q.dtype])
 
 
 def attention_forward_plain(q, k, v, sm_scale: Optional[float] = None,

@@ -233,14 +233,9 @@ def matmul_impl(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
     if out.numel() == 0:
         return out  # nothing to launch
     prog = _program(epilogue, extra)
-    lib = kernels.load()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.egt_matmul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-            int(transpose_out), _KERNEL_DTYPES[a.dtype],
-            _KERNEL_DTYPES[out_dtype], prog, stream)
-    kernels.check(err, "egt_matmul")
+    kernels.call("egt_matmul", a.device, a.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), m, n, k, int(transpose_out),
+                 _KERNEL_DTYPES[a.dtype], _KERNEL_DTYPES[out_dtype], prog)
     global launches
     launches += 1
     return out

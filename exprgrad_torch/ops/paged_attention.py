@@ -143,19 +143,15 @@ def paged_decode_attention(q: torch.Tensor, pool: PagedKVPool,
               and pool.k.data_ptr() % 16 == 0
               and pool.v.data_ptr() % 16 == 0)
     out = torch.empty_like(q)
-    lib = kernels.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.egt_paged_decode(
-            q.data_ptr(), pool.k.data_ptr(), pool.v.data_ptr(),
-            pool.k_scale.data_ptr() if quant else None,
-            pool.v_scale.data_ptr() if quant else None,
-            tensors["page_table"].data_ptr(), tensors["key_pos"].data_ptr(),
-            tensors["q_pos"].data_ptr(), out.data_ptr(), b, h, hkv,
-            pool.k.shape[0], t, d, page, P, float(sm_scale),
-            int(window or 0), vec, _Q_DTYPES[q.dtype],
-            _KV_DTYPES[pool.k.dtype], stream)
-    kernels.check(err, "egt_paged_decode")
+    kernels.call(
+        "egt_paged_decode", q.device,
+        q.data_ptr(), pool.k.data_ptr(), pool.v.data_ptr(),
+        pool.k_scale.data_ptr() if quant else None,
+        pool.v_scale.data_ptr() if quant else None,
+        tensors["page_table"].data_ptr(), tensors["key_pos"].data_ptr(),
+        tensors["q_pos"].data_ptr(), out.data_ptr(), b, h, hkv,
+        pool.k.shape[0], t, d, page, P, float(sm_scale),
+        int(window or 0), vec, _Q_DTYPES[q.dtype], _KV_DTYPES[pool.k.dtype])
     global launches
     launches += 1
     return out

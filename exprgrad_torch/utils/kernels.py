@@ -25,6 +25,8 @@ import tempfile
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "exprgrad_torch"
 NVCC_FLAGS = (
@@ -168,3 +170,18 @@ def check(err: int, name: str) -> None:
     """Raise when a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name} failed with cudaError_t {err}")
+
+
+def call(name: str, device: torch.device, *args) -> None:
+    """Launch C entry point ``name`` on ``device`` and its current stream,
+    whose handle is appended to ``args``; raises if the launch failed.
+    The device is switched only when it is not the current one: a launch
+    is on every call's path, so it stays cheap on the host."""
+    fn = getattr(load(), name)
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(err, name)

@@ -367,7 +367,7 @@ def test_unported_options_raise(kw):
     _, tsrv = _servers()
     if kw.get("draft"):
         kw = dict(draft=tsrv)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A13"):
         ContinuousBatcher(tsrv, slots=2, capacity=64, **kw)
 
 
