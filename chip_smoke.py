@@ -10,9 +10,11 @@ Phases (any failed check raises and the script exits non-zero):
 2. hold the flash-attention kernels (forward; backward dq and dkv)
    against their plain PyTorch versions on the card at the serving shape
    and at GQA, window, rectangular, offset, dead-row, head_dim 36,
-   ragged (sq 200, skv 77) and bfloat16 shapes, and time them at the
-   serving shape beside scaled_dot_product_attention (whose kernels
-   torch.profiler names at the end of the run);
+   ragged (sq 200, skv 77; GQA h8/hkv2 at sq 300, d 64) and bfloat16
+   shapes, check that two backward runs on the same inputs give the same
+   bits, and time them at the serving shape (the backward in float32 and
+   bfloat16) beside scaled_dot_product_attention and its backward (whose
+   kernels torch.profiler names and times at the end of the run);
 3. compile the serving model flash_transformer(vocab=2048, dim=512,
    heads=4, hidden=2048, blocks=2, max_seq=256) and drive the main path
    once: "predict" on [8, 256] tokens, then 8 requests of 128-token
@@ -76,7 +78,7 @@ Phases (any failed check raises and the script exits non-zero):
    the greedy streams of flash, gather and solo generate agree but at
    near-ties of the solo logits; the bfloat16 drives are timed.
 
-B1 and B2 compute float32 on the tensor cores as split TF32 and are held
+B1-B4 compute float32 on the tensor cores as split TF32 and are held
 to the same tolerances as the float32 kernels before them
 (tests/test_torch_tf32x3.py gives the argument); the bounds of B1-B4
 are reckoned at split TF32, 3 x operations over 495 TFLOP/s.  Each path
@@ -355,8 +357,14 @@ def flash_cases(gen, dev) -> list:
         # sq and skv not multiples of the 32-row q and 64-row kv tiles
         ("non-causal sq 200, skv 77", qkv(2, 4, 4, 200, 77, 128),
          dict(), F32_OUT, F32_LSE_ATOL),
+        # GQA with lengths not a multiple of any tile of the kernels
+        ("gqa h8/hkv2 causal sq 300, d 64", qkv(2, 8, 2, 300, 300, 64),
+         dict(causal=True), F32_OUT, F32_LSE_ATOL),
         ("serving shape bf16 causal", qkv(8, 4, 4, 256, 256, 128, bf16),
          dict(causal=True), BF16_OUT, BF16_LSE_ATOL),
+        ("gqa h8/hkv2 bf16 causal sq 300, d 64",
+         qkv(2, 8, 2, 300, 300, 64, bf16), dict(causal=True), BF16_OUT,
+         BF16_LSE_ATOL),
         # 72-byte rows: plain loads in place of cp.async
         ("d 36 bf16 causal", qkv(2, 4, 2, 256, 256, 36, bf16),
          dict(causal=True), BF16_OUT, BF16_LSE_ATOL),
@@ -379,15 +387,94 @@ def kernel_names(fn) -> list:
     """The CUDA kernels one call of ``fn`` launches, by torch.profiler
     (called after the timed phases, so that no profiler session runs
     before them)."""
+    return sorted(device_kernels(fn, calls=1))
+
+
+def device_kernels(fn, calls=20) -> dict:
+    """{kernel name: device ms per call of ``fn``} by torch.profiler over
+    ``calls`` calls (after the timed phases, as kernel_names)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    per_call = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_call[e.name] = (per_call.get(e.name, 0.0)
+                                + e.time_range.elapsed_us() / 1e3 / calls)
+    return per_call
+
+
+def check_flash_backward(attention, cases, gen, dev) -> tuple:
+    """Phase 2: the backward kernels against their plain version at every
+    case, on the forward kernel's (out, lse) as the train step hands them
+    over, and bit for bit against a second run on the same inputs (no
+    atomics: the same inputs give the same bits); returns (max |dq err|,
+    max |dk, dv err|) at the serving shape."""
+    errs = []
+    for name, (q, k, v), kw, _, _ in cases:
+        tol = F32_GRAD if q.dtype == torch.float32 else BF16_GRAD
+        out, lse = attention.flash_attention_forward(q, k, v, **kw)
+        g = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        got = attention.flash_attention_backward(q, k, v, out, lse, g, **kw)
+        again = attention.flash_attention_backward(q, k, v, out, lse, g,
+                                                   **kw)
+        torch.cuda.synchronize()
+        for part, a, b in zip(("dq", "dk", "dv"), got, again):
+            assert torch.equal(a, b), f"{name} {part}: two runs differ"
+        want = attention.attention_backward_plain(q, k, v, out, lse, g, **kw)
+        errs.append(compare_grads(name, got, want, tol, lse))
+    print(f"backward repeat check: dq, dk and dv equal bit for bit in two "
+          f"runs at all {len(cases)} cases")
+    return errs[0]
+
+
+def time_flash_backward(attention, q, k, v, gen, dev, gpu) -> dict:
+    """Phase 2 timing of dq and dkv at one causal shape: the kernels and
+    the plain backward in turns (plain, kernel, kernel, plain), then
+    scaled_dot_product_attention's backward by CUDA events (its graph
+    kept and walked again: autograd's host work included)."""
+    out, lse = attention.flash_attention_forward(q, k, v, causal=True)
+    g = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    _, delta = attention.flash_bwd_dq(q, k, v, out, lse, g, causal=True)
+    times = {"plain": [], "dq": [], "dkv": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        if which == "plain":
+            times["plain"].append(cuda_ms(
+                lambda: attention.attention_backward_plain(
+                    q, k, v, out, lse, g, causal=True)))
+            continue
+        times["dq"].append(cuda_ms(
+            lambda: attention.flash_bwd_dq(q, k, v, out, lse, g,
+                                           causal=True)))
+        times["dkv"].append(cuda_ms(
+            lambda: attention.flash_bwd_dkv(q, k, v, lse, delta, g,
+                                            causal=True)))
+    res = {key: sum(val) / 2 for key, val in times.items()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sdpa_bwd = sdpa_backward(q, k, v, g)
+    res["library"] = cuda_ms(sdpa_bwd)
+    res["runs"] = times
+    print(f"flash bwd {list(q.shape)} {str(q.dtype)[6:]} causal: dq "
+          f"{res['dq']:.4f} ms, dkv {res['dkv']:.4f} ms, plain backward "
+          f"(dq, dk, dv) {res['plain']:.4f} ms (runs {times}), "
+          f"scaled_dot_product_attention backward (dq, dk, dv) "
+          f"{res['library']:.4f} ms by CUDA events on {gpu}")
+    return res
+
+
+def sdpa_backward(q, k, v, g):
+    """A call of scaled_dot_product_attention's backward alone at a causal
+    shape: its graph is built once and walked again at every call."""
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg,
+                                                           is_causal=True)
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), g,
+                                       retain_graph=True)
 
 
 def time_flash_forward(attention, q, k, v, gpu) -> dict:
@@ -1994,52 +2081,14 @@ def main() -> int:
     sdpa_ms = fwd_times["library"]
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    # the backward kernels against their plain version, on the forward
-    # kernel's (out, lse) as the train step hands them over
-    bwd_err = None
-    for name, (q, k, v), kw, _, _ in cases:
-        tol = F32_GRAD if q.dtype == torch.float32 else BF16_GRAD
-        out, lse = attention.flash_attention_forward(q, k, v, **kw)
-        g = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
-        got = attention.flash_attention_backward(q, k, v, out, lse, g, **kw)
-        torch.cuda.synchronize()
-        want = attention.attention_backward_plain(q, k, v, out, lse, g, **kw)
-        err = compare_grads(name, got, want, tol, lse)
-        if bwd_err is None:
-            bwd_err = err
-
+    # the backward kernels against their plain version, then their times
+    bwd_err = check_flash_backward(attention, cases, gen, dev)
     q, k, v = cases[0][1]
-    out, lse = attention.flash_attention_forward(q, k, v, causal=True)
-    g = torch.randn(q.shape, generator=gen, device=dev)
-    _, delta = attention.flash_bwd_dq(q, k, v, out, lse, g, causal=True)
-    bwd_times = {"plain": [], "dq": [], "dkv": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        if which == "plain":
-            bwd_times["plain"].append(cuda_ms(
-                lambda: attention.attention_backward_plain(
-                    q, k, v, out, lse, g, causal=True)))
-            continue
-        bwd_times["dq"].append(cuda_ms(
-            lambda: attention.flash_bwd_dq(q, k, v, out, lse, g,
-                                           causal=True)))
-        bwd_times["dkv"].append(cuda_ms(
-            lambda: attention.flash_bwd_dkv(q, k, v, lse, delta, g,
-                                            causal=True)))
-    dq_ms = sum(bwd_times["dq"]) / 2
-    dkv_ms = sum(bwd_times["dkv"]) / 2
-    plain_bwd_ms = sum(bwd_times["plain"]) / 2
-    # the library's backward alone: the graph is kept and walked again
-    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-    sdpa_out = sdpa(qg, kg, vg, is_causal=True)
-    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        sdpa_out, (qg, kg, vg), g, retain_graph=True))
-    del qg, kg, vg, sdpa_out
+    bwd_times = time_flash_backward(attention, q, k, v, gen, dev, gpu)
+    (bf16_case,) = (c for c in cases if c[0] == "serving shape bf16 causal")
+    time_flash_backward(attention, *bf16_case[1], gen, dev, gpu)
     att_bounds = attention_bounds(*q.shape[:3], q.shape[3])
-    print(f"flash bwd [8,4,256,128] f32 causal: dq {dq_ms:.4f} ms, "
-          f"dkv {dkv_ms:.4f} ms, plain backward (dq, dk, dv) "
-          f"{plain_bwd_ms:.4f} ms (runs {bwd_times}), "
-          f"scaled_dot_product_attention backward (dq, dk, dv) "
-          f"{sdpa_bwd_ms:.4f} ms; bounds {att_bounds} on {gpu}")
+    print(f"flash bounds {att_bounds} on {gpu}")
 
     t_phase = phase_done("2 (flash kernels)", t_phase)
 
@@ -2275,6 +2324,14 @@ def main() -> int:
     q, k, v = cases[0][1]
     print(f"scaled_dot_product_attention [8,4,256,128] f32 causal runs "
           f"{kernel_names(lambda: sdpa(q, k, v, is_causal=True))}")
+    # its backward by device time, which settles the library's figure
+    # for dq and dkv without autograd's host work
+    sdpa_bwd = device_kernels(sdpa_backward(
+        q, k, v, torch.randn(q.shape, generator=gen, device=dev)))
+    sdpa_bwd_ms = sum(sdpa_bwd.values())
+    print(f"scaled_dot_product_attention backward [8,4,256,128] f32 causal "
+          f"runs, device ms per call: {sdpa_bwd}; {sdpa_bwd_ms:.5f} ms in "
+          f"all on {gpu}")
     print(f"the whole run {time.perf_counter() - t_start:.1f} s")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "exprgrad_tpu"))
@@ -2295,11 +2352,12 @@ def main() -> int:
             kernel_ms, plain_ms, sdpa_ms, att_bounds["forward"]),
         row("flash_attention_backward_dq", "exprgrad_torch/csrc/flash_bwd.cu",
             "exprgrad_tpu/ops/attention.py:375", train_launches["dq"],
-            bwd_err[0], dq_ms, plain_bwd_ms, sdpa_bwd_ms, att_bounds["dq"]),
+            bwd_err[0], bwd_times["dq"], bwd_times["plain"], sdpa_bwd_ms,
+            att_bounds["dq"]),
         row("flash_attention_backward_dkv",
             "exprgrad_torch/csrc/flash_bwd.cu",
             "exprgrad_tpu/ops/attention.py:444", train_launches["dkv"],
-            bwd_err[1], dkv_ms, plain_bwd_ms, sdpa_bwd_ms,
+            bwd_err[1], bwd_times["dkv"], bwd_times["plain"], sdpa_bwd_ms,
             att_bounds["dkv"]),
         row("scheduled_matmul", "exprgrad_torch/csrc/matmul.cu",
             "exprgrad_tpu/ops/matmul.py:24", mm_launches, mm_err,

@@ -104,67 +104,6 @@ __host__ __device__ constexpr size_t smem_bytes() {
                   kStages * kBlockK * (Layout<T>::kQK + Layout<T>::kV));
 }
 
-// Rows [r0, r0 + n) of a [rows, d] matrix into a shared tile of row
-// stride ld; rows past `rows` are zero.  Columns [d, kMaxD) are not
-// written (the kernel zeroes them once).  vec: 16-byte cp.async, else
-// plain loads.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
-                                          int r0, int n, int rows, int d,
-                                          bool vec, int tid) {
-  if (vec) {
-    // walk whole kMaxD-wide rows, so the index math is shifts, and skip
-    // the chunks past d
-    constexpr int kPer = 16 / sizeof(T);
-    constexpr int kRow = kMaxD / kPer;
-    for (int i = tid; i < n * kRow; i += kFwdThreads) {
-      const int r = i / kRow, c = (i % kRow) * kPer;
-      if (c >= d) continue;
-      const bool in = r0 + r < rows;
-      cp_async16(dst + r * ld + c, in ? src + (size_t)(r0 + r) * d + c : src,
-                 in ? 16 : 0);
-    }
-  } else {
-    for (int i = tid; i < n * d; i += kFwdThreads) {
-      const int r = i / d, c = i - r * d;
-      dst[r * ld + c] =
-          r0 + r < rows ? src[(size_t)(r0 + r) * d + c] : from_float<T>(0.f);
-    }
-  }
-}
-
-// zero columns [d, kMaxD) of `rows` rows of stride ld
-template <typename T>
-__device__ __forceinline__ void zero_pad(T* dst, int rows, int ld, int d,
-                                         int tid) {
-  const int pad = kMaxD - d;
-  for (int i = tid; i < rows * pad; i += kFwdThreads) {
-    const int r = i / pad;
-    dst[r * ld + d + i - r * pad] = from_float<T>(0.f);
-  }
-}
-
-// float32: Q's tile in place into its TF32 big parts, and the small parts
-// beside it, once for all kv tiles; bfloat16 reads Q as it is
-__device__ __forceinline__ void split_q(float* q, float* q_small, int tid) {
-  constexpr int ld = Layout<float>::kQK;
-  for (int i = tid; i < kBlockQ * kMaxD; i += kFwdThreads) {
-    const int at = (i / kMaxD) * ld + i % kMaxD;
-    uint32_t big, small;
-    split_tf32(q[at], big, small);
-    q[at] = __uint_as_float(big);
-    q_small[at] = __uint_as_float(small);
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void split_q(__nv_bfloat16*, __nv_bfloat16*,
-                                        int) {}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // s += Q_w K^T for a warp's 16 rows (big parts qw, small parts qs) against
 // its kv rows (tk), over the first kD columns (zero past d).  big . big and
 // the two small terms go to separate sums, which halves the chain of
@@ -229,72 +168,6 @@ __device__ __forceinline__ void qk(float (&s)[kSTiles][4],
   }
 }
 
-// o = alpha * o + P V for a warp's 16 rows over the first kD columns; p
-// holds S's fragments after the softmax.  Each 8-column n-tile of P V is
-// summed over the warp's kv columns in a fresh accumulator and added to o
-// in float32 with round-to-nearest: the tensor cores truncate each MMA's
-// sum, and a long kv loop into one accumulator would add that bias up.
-template <int kD>
-__device__ __forceinline__ void pv(float (&o)[kD / 8][4],
-                                   const float (&p)[kSTiles][4],
-                                   const float (&alpha)[2], const float* tv,
-                                   int g, int t) {
-  constexpr int ld = Layout<float>::kV;
-  // (c0, c2, c1, c3) of S's n-tile ks are P's (a0, a1, a2, a3) under the
-  // permuted k: kv columns 2t and 2t+1 are logical t and t+4
-  uint32_t pb[kSTiles][4], ps[kSTiles][4];
-#pragma unroll
-  for (int ks = 0; ks < kSTiles; ++ks) {
-    split_tf32(p[ks][0], pb[ks][0], ps[ks][0]);
-    split_tf32(p[ks][2], pb[ks][1], ps[ks][1]);
-    split_tf32(p[ks][1], pb[ks][2], ps[ks][2]);
-    split_tf32(p[ks][3], pb[ks][3], ps[ks][3]);
-  }
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int ks = 0; ks < kSTiles; ++ks) {
-      const float* v0 = tv + (8 * ks + 2 * t) * ld + 8 * j + g;
-      uint32_t bb[2], bs[2];
-      split_tf32(v0[0], bb[0], bs[0]);
-      split_tf32(v0[ld], bb[1], bs[1]);
-      mma_tf32x3(acc, pb[ks], ps[ks], bb, bs);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = fmaf(o[j][e], alpha[e >> 1], acc[e]);
-  }
-}
-
-template <int kD>
-__device__ __forceinline__ void pv(float (&o)[kD / 8][4],
-                                   const float (&p)[kSTiles][4],
-                                   const float (&alpha)[2],
-                                   const __nv_bfloat16* tv, int g, int t) {
-  constexpr int ld = Layout<__nv_bfloat16>::kV;
-  uint32_t af[kSTiles / 2][4];
-#pragma unroll
-  for (int ks = 0; ks < kSTiles / 2; ++ks) {
-    af[ks][0] = pack_bf16(p[2 * ks][0], p[2 * ks][1]);
-    af[ks][1] = pack_bf16(p[2 * ks][2], p[2 * ks][3]);
-    af[ks][2] = pack_bf16(p[2 * ks + 1][0], p[2 * ks + 1][1]);
-    af[ks][3] = pack_bf16(p[2 * ks + 1][2], p[2 * ks + 1][3]);
-  }
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int ks = 0; ks < kSTiles / 2; ++ks) {
-      const __nv_bfloat16* v0 = tv + (16 * ks + 2 * t) * ld + 8 * j + g;
-      const uint32_t bf[2] = {pack_bf16(v0[0], v0[ld]),
-                              pack_bf16(v0[8 * ld], v0[9 * ld])};
-      mma_bf16(acc, af[ks], bf);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = fmaf(o[j][e], alpha[e >> 1], acc[e]);
-  }
-}
-
 // does global query row `row` see any of the keys [k_off, k_off + skv)?
 __device__ __forceinline__ bool row_live(int row, int skv, int causal,
                                          int window, int k_off) {
@@ -339,9 +212,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the columns past d are read by the MMAs' last k steps: zero them once
   // in Q and every K and V buffer
-  zero_pad(s_q, kBlockQ, L::kQK, d, tid);
-  zero_pad(s_k, kStages * kBlockK, L::kQK, d, tid);
-  zero_pad(s_v, kStages * kBlockK, L::kV, d, tid);
+  zero_pad<kFwdThreads>(s_q, kBlockQ, L::kQK, d, tid);
+  zero_pad<kFwdThreads>(s_k, kStages * kBlockK, L::kQK, d, tid);
+  zero_pad<kFwdThreads>(s_v, kStages * kBlockK, L::kV, d, tid);
 
   const Band band = kv_band(q0, q_last, skv, causal, window, q_off, k_off,
                             kBlockK);
@@ -361,11 +234,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int st = 0; st < kStages - 1; ++st) {
     const int tile = band.lo + st;
     if (tile <= band.hi) {
-      if (st == 0) load_tile(s_q, L::kQK, qp, q0, kBlockQ, sq, d, vec, tid);
-      load_tile(s_k + st * kBlockK * L::kQK, L::kQK, kp, tile * kBlockK,
-                kBlockK, skv, d, vec, tid);
-      load_tile(s_v + st * kBlockK * L::kV, L::kV, vp, tile * kBlockK,
-                kBlockK, skv, d, vec, tid);
+      if (st == 0)
+        load_tile<kFwdThreads>(s_q, L::kQK, qp, q0, kBlockQ, sq, d, vec,
+                               tid);
+      load_tile<kFwdThreads>(s_k + st * kBlockK * L::kQK, L::kQK, kp,
+                             tile * kBlockK, kBlockK, skv, d, vec, tid);
+      load_tile<kFwdThreads>(s_v + st * kBlockK * L::kV, L::kV, vp,
+                             tile * kBlockK, kBlockK, skv, d, vec, tid);
     }
     cp_async_commit();
   }
@@ -373,14 +248,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int buf = (tile - band.lo) % kStages;
     cp_async_wait<kStages - 2>();
     __syncthreads();  // this tile is in; every warp is done with the last
-    if (tile == band.lo) split_q(s_q, s_qs, tid);
+    if (tile == band.lo) {  // Q, once for all kv tiles
+      split_rows<kFwdThreads>(s_q, s_qs, kBlockQ, L::kQK, tid);
+      __syncthreads();
+    }
     const int ahead = tile + kStages - 1;
     if (ahead <= band.hi) {
       const int at = (ahead - band.lo) % kStages;
-      load_tile(s_k + at * kBlockK * L::kQK, L::kQK, kp, ahead * kBlockK,
-                kBlockK, skv, d, vec, tid);
-      load_tile(s_v + at * kBlockK * L::kV, L::kV, vp, ahead * kBlockK,
-                kBlockK, skv, d, vec, tid);
+      load_tile<kFwdThreads>(s_k + at * kBlockK * L::kQK, L::kQK, kp,
+                             ahead * kBlockK, kBlockK, skv, d, vec, tid);
+      load_tile<kFwdThreads>(s_v + at * kBlockK * L::kV, L::kV, vp,
+                             ahead * kBlockK, kBlockK, skv, d, vec, tid);
     }
     cp_async_commit();
     const T* tk = s_k + buf * kBlockK * L::kQK;
@@ -432,7 +310,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[j][e] = p;
         l_run[e >> 1] += p;
       }
-    pv<kD>(o, s, alpha, tv + wc * L::kV, g, t);
+    pv<kD, kSTiles, L::kV>(o, s, alpha, tv + wc * L::kV, g, t);
   }
 
 #pragma unroll
@@ -511,8 +389,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lse[(size_t)bh * sq + row] = live ? m_run[r] + logf(l_run[r]) : -INFINITY;
   }
 }
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <typename T, int kD>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,

@@ -1,7 +1,8 @@
 """Split TF32 ("3xTF32") arithmetic, emulated on the CPU.
 
 The port's tensor-core kernels (``csrc/tf32x3.cuh``, used by B1
-``csrc/matmul.cu`` and B2 ``csrc/flash_fwd.cu``) compute a float32
+``csrc/matmul.cu``, B2 ``csrc/flash_fwd.cu`` and B3/B4
+``csrc/flash_bwd.cu``) compute a float32
 product as three TF32 products: each operand ``x`` is split into
 ``big = rna(x)`` and ``small = rna(x - big)`` (``cvt.rna.tf32.f32``,
 round to nearest, ties away from zero) and ``a * b`` becomes
@@ -12,7 +13,9 @@ is exact in float32, so the error is the split's, about 2^-22 per part.
 This module repeats that arithmetic with integer operations on the
 float32 bits, so that the CPU tests can show which ways of splitting
 stay inside ``chip_smoke.py``'s float32 tolerances
-(``tests/test_torch_tf32x3.py``).  The kernels do not use it.
+(``tests/test_torch_tf32x3.py``); :func:`attention_backward` repeats the
+backward kernels' products and the order in which they sum them.  The
+kernels do not use it.
 
 Splits (:func:`split`):
 
@@ -25,6 +28,8 @@ Splits (:func:`split`):
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -77,3 +82,97 @@ def tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in one TF32 pass (inputs rounded to nearest), summed in
     float32: what TF32 tensor cores give without the split."""
     return tf32_round(a) @ tf32_round(b)
+
+
+# the backward kernels' shape (csrc/flash_bwd.cu): a warp sums one product
+# over its CHUNK rows of a streamed tile (kWarpN), WARPS warps (kSplit)
+# share the tile, and their sums are added at the end
+CHUNK, WARPS = 16, 4
+
+
+def _parts(x: torch.Tensor, how: str) -> tuple:
+    """The TF32 parts a product reads for ``x``: ``(big, small)`` for
+    split TF32, ``(rna(x), None)`` for one TF32 pass."""
+    if how == "single":
+        return tf32_round(x), None
+    return split(x, how)
+
+
+def _chunk_products(a: tuple, b: tuple, chunk: int) -> torch.Tensor:
+    """``a @ b`` summed over each ``chunk`` of k apart: ``[..., k/chunk,
+    m, n]``, from the TF32 parts of ``a`` [..., m, k] and ``b``
+    [..., k, n]."""
+    def rows(x):  # [..., m, k] -> [..., m, c, chunk]
+        return None if x is None else x.reshape(*x.shape[:-1], -1, chunk)
+
+    def cols(x):  # [..., k, n] -> [..., c, chunk, n]
+        return None if x is None else x.reshape(*x.shape[:-2], -1, chunk,
+                                                x.shape[-1])
+
+    (ab, as_), (bb, bs) = tuple(map(rows, a)), tuple(map(cols, b))
+    mm = lambda x, y: torch.einsum("...mck,...ckn->...cmn", x, y)  # noqa: E731
+    if as_ is None:
+        return mm(ab, bb)
+    return (mm(as_, bb) + mm(ab, bs)) + mm(ab, bb)
+
+
+def _warp_sums(parts: torch.Tensor) -> torch.Tensor:
+    """Sum ``[..., c, m, n]`` over c as the kernels do: chunk c goes to
+    warp ``c % WARPS``, each warp adds its chunks in order in float32, and
+    the warps' sums are added in order at the end."""
+    acc = [None] * WARPS
+    for c in range(parts.shape[-3]):
+        w = c % WARPS
+        part = parts[..., c, :, :]
+        acc[w] = part if acc[w] is None else acc[w] + part
+    total = acc[0]
+    for part in acc[1:]:
+        total = total + part
+    return total
+
+
+def attention_backward(q, k, v, out, lse, g, how: str = "rna"):
+    """``(dq, dk, dv)`` of causal attention with every product computed
+    as the backward kernels compute it: split TF32 (``how="rna"``) or one
+    TF32 pass (``how="single"``), each product's sum taken in float32 over
+    one warp's CHUNK rows of a streamed tile at a time, and the chunks
+    added in the kernels' order (``_warp_sums``).
+
+    q [b, h, s, d]; k, v [b, hkv, s, d] (grouped-query attention: dk/dv
+    sum the group's heads, one after the other); out and lse the
+    forward's (lse [b*h, s], -inf for a dead row); g the output
+    cotangent.  S and dP (k = d) are single products; P, delta and dS
+    are float32 elementwise, as in the kernels."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    group = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, out, g = (t.to(torch.float32) for t in (q, k, v, out, g))
+    kr = k.repeat_interleave(group, dim=1)
+    vr = v.repeat_interleave(group, dim=1)
+    qp, kp, vp, gp = (_parts(t, how) for t in (q, kr, vr, g))
+
+    def whole(a, bt):  # a @ bt^T in one chunk of k = d
+        bt = tuple(None if x is None else x.transpose(-1, -2) for x in bt)
+        return _chunk_products(a, bt, d)[..., 0, :, :]
+
+    sc = whole(qp, kp)
+    dp = whole(gp, vp)
+    lse = lse.reshape(b, h, s, 1).to(torch.float32)
+    lse = torch.where(torch.isneginf(lse), torch.full_like(lse, math.inf),
+                      lse)
+    p = torch.exp(sc * scale - lse)
+    p = p.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(), 0.0)
+    delta = (g * out).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = _warp_sums(_chunk_products(_parts(ds, how), kp, CHUNK))
+    # dk/dv: the query rows of each head in turn; chunk c of head i is the
+    # kernels' turn i * (chunks a head) + c
+    pt, dst = (_parts(t.transpose(-1, -2), how) for t in (p, ds))
+
+    def by_group(parts):  # [b, h, c, s, d] -> [b, hkv, group * c, s, d]
+        return parts.reshape(b, hkv, -1, *parts.shape[-2:])
+
+    dv = _warp_sums(by_group(_chunk_products(pt, gp, CHUNK)))
+    dk = _warp_sums(by_group(_chunk_products(dst, qp, CHUNK)))
+    return dq, dk, dv

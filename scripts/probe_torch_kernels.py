@@ -1,24 +1,29 @@
-"""Probe the port's tensor-core kernels B1 and B2 on one GPU.
+"""Probe the port's tensor-core kernels B1-B4 on one GPU.
 
     python3 scripts/probe_torch_kernels.py [--out FILE] [--skip-variants]
 
 Three parts, random inputs from seed 0:
 
-1. times: flash forward (B2, exprgrad_torch/csrc/flash_fwd.cu) at the
+1. times: flash forward (B2, exprgrad_torch/csrc/flash_fwd.cu) and the
+   backward's dq (B3) and dk/dv (B4) kernels (csrc/flash_bwd.cu) at the
    serving shape [8, 4, 256, 128] causal, float32 and bfloat16, beside
-   scaled_dot_product_attention; the scheduled matmul (B1,
-   csrc/matmul.cu) at 4096^3 float32 beside torch.matmul (TF32 off).
-   For each: the host us per call of the Python entry point (enqueue
-   rate, no synchronize) and chip_smoke.py's CUDA-event ms per call,
-   both before the first profiler session, then the kernels' device ms
-   per call by torch.profiler.
+   scaled_dot_product_attention and its backward; the scheduled matmul
+   (B1, csrc/matmul.cu) at 4096^3 float32 beside torch.matmul (TF32
+   off).  For each: the host us per call of the Python entry point
+   (enqueue rate, no synchronize) and chip_smoke.py's CUDA-event ms per
+   call, both before the first profiler session, then the kernels'
+   device ms per call by torch.profiler; sdpa's backward also by its
+   kernels' names.
 2. power: two seconds of back-to-back B1 calls, then of torch.matmul,
    with nvidia-smi sampling the SM clock, power draw and temperature.
-3. variants (skipped by --skip-variants): flash_fwd.cu rebuilt with other
-   tile constants (kBlockQ, kSplit, kBlockK, kStages) and with parts cut
-   out (no Q.K^T, no P.V, no load of the next tile; their outputs are
-   wrong), each as its own library beside the port's, and timed by
-   torch.profiler at the serving shape, causal and not.
+3. variants (--variants fwd,bwd; none with --skip-variants):
+   flash_fwd.cu rebuilt with other tile constants (kBlockQ, kSplit,
+   kBlockK, kStages) and with parts cut out (no Q.K^T, no P.V, no load of
+   the next tile; their outputs are wrong), and flash_bwd.cu rebuilt with
+   parts cut out (no first products S and dP, no products at all, no
+   load of the next tile), each as its own library beside the port's,
+   and timed by torch.profiler at the serving shape, causal and not (the
+   backward's dq and dkv kernels apart).
 
 Summary lines name the card and its power limit; --out (default
 build/probe_torch_kernels.txt) gets them too.  Needs a CUDA device and
@@ -41,7 +46,8 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import cuda_ms, gpu_line  # noqa: E402
+from chip_smoke import (cuda_ms, device_kernels, gpu_line,  # noqa: E402
+                        sdpa_backward)
 
 SERVING = (8, 4, 256, 128)
 MATMUL_N = 4096
@@ -61,9 +67,24 @@ CUTS = {
     "qk": ("qk<kD>(s, s_q + wr * L::kQK, s_qs + wr * L::kQK, "
            "tk + wc * L::kQK, g, t);",
            "s[0][0] = (float)tk[lane] + (float)s_q[lane];"),
-    "pv": ("pv<kD>(o, s, alpha, tv + wc * L::kV, g, t);",
+    "pv": ("pv<kD, kSTiles, L::kV>(o, s, alpha, tv + wc * L::kV, g, t);",
            "o[0][0] += s[0][0] + s[kSTiles - 1][3] + (float)tv[lane];"),
     "load": ("    if (ahead <= band.hi) {", "    if (false) {"),
+}
+# flash_bwd.cu: name -> cuts, each a (regex, replacement) on the source
+# (cutting only the second products would let the compiler drop the
+# first, whose results then go unused: that is "cut all products")
+BWD_VARIANTS = {
+    "port": (),
+    "cut S and dP": ("abt",),
+    "cut all products": ("pv",),
+    "cut next-tile loads": ("load",),
+}
+BWD_CUTS = {
+    "abt": [(r"(void abt\([^{]*\{)", r"\1\n  if (kD > 0) return;")],
+    "pv": [(r"pv<kD, kNT, ld>\([^;]*\);", ";")],
+    "load": [(r"if \(ahead <= band\.hi\) issue", "if (false) issue"),
+             (r"if \(ahead < turns\) issue", "if (false) issue")],
 }
 
 
@@ -101,17 +122,29 @@ def times(say, gen, dev):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    cases = []  # (label, fn, kernel name part, calls)
+    cases = []  # (label, fn, kernel name part or None for all, calls)
     for dtype, lib_part in ((torch.float32, "fmha"),
                             (torch.bfloat16, "flash")):
-        q, k, v = (torch.randn(SERVING, generator=gen, device=dev).to(dtype)
-                   for _ in range(3))
+        q, k, v, g = (torch.randn(SERVING, generator=gen,
+                                  device=dev).to(dtype) for _ in range(4))
+        out, lse = attention.flash_attention_forward(q, k, v, causal=True)
+        _, delta = attention.flash_bwd_dq(q, k, v, out, lse, g, causal=True)
         label = f"{list(SERVING)} {str(dtype)[6:]} causal"
         cases += [(f"B2 {label}", lambda q=q, k=k, v=v:
                    attention.flash_attention_forward(q, k, v, causal=True),
                    "flash_fwd", 50),
                   (f"sdpa {label}", lambda q=q, k=k, v=v:
-                   sdpa(q, k, v, is_causal=True), lib_part, 50)]
+                   sdpa(q, k, v, is_causal=True), lib_part, 50),
+                  (f"B3 dq {label}", lambda q=q, k=k, v=v, o=out, l=lse,
+                   g=g: attention.flash_bwd_dq(q, k, v, o, l, g,
+                                               causal=True),
+                   "flash_bwd_dq", 50),
+                  (f"B4 dkv {label}", lambda q=q, k=k, v=v, l=lse, dl=delta,
+                   g=g: attention.flash_bwd_dkv(q, k, v, l, dl, g,
+                                                causal=True),
+                   "flash_bwd_dkv", 50),
+                  (f"sdpa backward {label}", sdpa_backward(q, k, v, g),
+                   None, 50)]
     a, b = (torch.randn(MATMUL_N, MATMUL_N, generator=gen, device=dev)
             for _ in range(2))
     cases += [(f"B1 {MATMUL_N}^3 float32", lambda: matmul.matmul_impl(a, b),
@@ -124,6 +157,12 @@ def times(say, gen, dev):
               for label, fn, _, calls in cases}
     for label, fn, part, calls in cases:
         host, events = clocks[label]
+        if part is None:  # every kernel of the call, by name
+            named = device_kernels(fn, calls=calls // 2)
+            say(f"{label}: device {sum(named.values()):.5f} ms "
+                f"({named}), host {host:.1f} us per call, CUDA events "
+                f"{events:.5f} ms")
+            continue
         say(f"{label}: device {device_ms(fn, part, calls=calls // 2):.5f} "
             f"ms, host {host:.1f} us per call, CUDA events {events:.5f} ms")
 
@@ -164,14 +203,48 @@ def power(say, gen, dev, seconds=2.0):
             f"call; SM clock, power, temperature: {samples}")
 
 
-def build_variants(out_dir: Path):
+def build_variants(out_dir: Path, source: str, entries: tuple,
+                   edits: dict) -> dict:
+    """Build each variant of csrc/``source`` (name -> a function of the
+    source text) as its own library, one nvcc each, all started together;
+    returns {name: {entry: ctypes function}} with the C entry points
+    renamed per variant."""
     from exprgrad_torch.utils import kernels
 
-    source = (ROOT / "exprgrad_torch/csrc/flash_fwd.cu").read_text()
+    text0 = (ROOT / "exprgrad_torch/csrc" / source).read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     builds = {}
-    for i, (name, (consts, cuts)) in enumerate(VARIANTS.items()):
-        text = source
+    for i, (name, edit) in enumerate(edits.items()):
+        text = edit(text0)
+        for entry in entries:
+            assert f'extern "C" int {entry}(' in text, entry
+            text = text.replace(f'extern "C" int {entry}(',
+                                f'extern "C" int {entry}_v{i}(')
+        stem = f"{Path(source).stem}_v{i}"
+        src, lib = out_dir / f"{stem}.cu", out_dir / f"{stem}.so"
+        src.write_text(text)
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS,
+               f"-I{ROOT / 'exprgrad_torch/csrc'}", "-shared", "-o",
+               str(lib), str(src)]
+        builds[name] = (i, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    fns = {}
+    for name, (i, lib, proc) in builds.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"variant {name} failed to build:\n{log}")
+        fns[name] = {}
+        for entry in entries:
+            fn = getattr(ctypes.CDLL(str(lib)), f"{entry}_v{i}")
+            fn.argtypes = kernels._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+            fns[name][entry] = fn
+    return fns
+
+
+def fwd_edit(consts, cuts):
+    def edit(text):
         for const, value in consts.items():
             text, n = re.subn(rf"constexpr int {const} = [^;]*;",
                               f"constexpr int {const} = {value};", text)
@@ -180,33 +253,25 @@ def build_variants(out_dir: Path):
             old, new = CUTS[cut]
             assert old in text, cut
             text = text.replace(old, new)
-        entry = f"egt_flash_fwd_v{i}"
-        text = text.replace('extern "C" int egt_flash_fwd(',
-                            f'extern "C" int {entry}(')
-        src, lib = out_dir / f"v{i}.cu", out_dir / f"v{i}.so"
-        src.write_text(text)
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS,
-               f"-I{ROOT / 'exprgrad_torch/csrc'}", "-shared", "-o",
-               str(lib), str(src)]
-        builds[name] = (entry, lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    fns = {}
-    for name, (entry, lib, proc) in builds.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"variant {name} failed to build:\n{log}")
-        fn = getattr(ctypes.CDLL(str(lib)), entry)
-        fn.argtypes = kernels._SIGNATURES["egt_flash_fwd"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        return text
+    return edit
+
+
+def bwd_edit(cuts):
+    def edit(text):
+        for cut in cuts:
+            for pattern, repl in BWD_CUTS[cut]:
+                text, n = re.subn(pattern, repl, text)
+                assert n >= 1, cut
+        return text
+    return edit
 
 
 def variants(say, gen, dev, out_dir):
     from exprgrad_torch.utils import kernels
 
-    fns = build_variants(out_dir)
+    fns = build_variants(out_dir, "flash_fwd.cu", ("egt_flash_fwd",), {
+        name: fwd_edit(*spec) for name, spec in VARIANTS.items()})
     b, h, s, d = SERVING
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(SERVING, generator=gen, device=dev).to(dtype)
@@ -214,7 +279,8 @@ def variants(say, gen, dev, out_dir):
         for causal in (True, False):
             res = {}
             for _ in range(2):  # two turns, in the same order
-                for name, fn in fns.items():
+                for name, entry in fns.items():
+                    fn = entry["egt_flash_fwd"]
                     out = torch.empty_like(q)
                     lse = torch.empty(b * h, s, device=dev)
                     stream = torch.cuda.current_stream().cuda_stream
@@ -234,10 +300,59 @@ def variants(say, gen, dev, out_dir):
                 f"call, two turns: {res}")
 
 
+def bwd_variants(say, gen, dev, out_dir):
+    from exprgrad_torch.ops import attention
+    from exprgrad_torch.utils import kernels
+
+    entries = ("egt_flash_bwd_dq", "egt_flash_bwd_dkv")
+    fns = build_variants(out_dir, "flash_bwd.cu", entries, {
+        name: bwd_edit(cuts) for name, cuts in BWD_VARIANTS.items()})
+    b, h, s, d = SERVING
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = (torch.randn(SERVING, generator=gen,
+                                  device=dev).to(dtype) for _ in range(4))
+        code = 0 if dtype == torch.float32 else 1
+        for causal in (True, False):
+            out, lse = attention.flash_attention_forward(q, k, v,
+                                                         causal=causal)
+            _, delta = attention.flash_bwd_dq(q, k, v, out, lse, g,
+                                              causal=causal)
+            dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+            scratch = torch.empty_like(delta)
+            stream = torch.cuda.current_stream().cuda_stream
+            res = {}
+            for _ in range(2):  # two turns, in the same order
+                for name, fn in fns.items():
+                    def call_dq(fn=fn["egt_flash_bwd_dq"]):
+                        kernels.check(fn(
+                            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                            scratch.data_ptr(), dq.data_ptr(), b, h, h, s,
+                            s, d, d ** -0.5, int(causal), 0, 0, 0, code,
+                            stream), "variant")
+
+                    def call_dkv(fn=fn["egt_flash_bwd_dkv"]):
+                        kernels.check(fn(
+                            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                            dk.data_ptr(), dv.data_ptr(), b, h, h, s, s, d,
+                            d ** -0.5, int(causal), 0, 0, 0, code, stream),
+                            "variant")
+
+                    res.setdefault(name, []).append(
+                        (round(device_ms(call_dq, "flash_bwd_dq"), 5),
+                         round(device_ms(call_dkv, "flash_bwd_dkv"), 5)))
+            say(f"backward variants {list(SERVING)} {str(dtype)[6:]} "
+                f"{'causal' if causal else 'not causal'}, device ms per "
+                f"call (dq, dkv), two turns: {res}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/probe_torch_kernels.txt")
     ap.add_argument("--skip-variants", action="store_true")
+    ap.add_argument("--variants", default="fwd,bwd",
+                    help="which kernels' variants to time: fwd, bwd or both")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_torch_kernels: needs a CUDA device", file=sys.stderr)
@@ -255,9 +370,13 @@ def main() -> int:
         gen.manual_seed(0)
         times(say, gen, dev)
         power(say, gen, dev)
-        if not args.skip_variants:
-            variants(say, gen, dev,
-                     ROOT / "build" / "exprgrad_torch" / "probe_variants")
+        which = set() if args.skip_variants else set(
+            args.variants.split(","))
+        out_dir = ROOT / "build" / "exprgrad_torch" / "probe_variants"
+        if "fwd" in which:
+            variants(say, gen, dev, out_dir)
+        if "bwd" in which:
+            bwd_variants(say, gen, dev, out_dir)
     return 0
 
 

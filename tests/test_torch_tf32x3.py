@@ -1,16 +1,19 @@
-"""Split TF32, the float32 arithmetic of kernels B1 and B2, on the CPU.
+"""Split TF32, the float32 arithmetic of kernels B1-B4, on the CPU.
 
-``chip_smoke.py`` holds B1 (``csrc/matmul.cu``) and B2
-(``csrc/flash_fwd.cu``) against their plain versions at the float32
-tolerances the FP32-FMA kernels before them met: ``matmul_f32_tol(k)``
-(``atol = 1e-5 * sqrt(k)``) and ``F32_OUT``/``F32_LSE_ATOL``.  Both now run
-float32 products on the tensor cores as split TF32.  This is the written
+``chip_smoke.py`` holds B1 (``csrc/matmul.cu``), B2
+(``csrc/flash_fwd.cu``) and B3/B4 (``csrc/flash_bwd.cu``) against their
+plain versions at the float32 tolerances the FP32-FMA kernels before them
+met: ``matmul_f32_tol(k)`` (``atol = 1e-5 * sqrt(k)``),
+``F32_OUT``/``F32_LSE_ATOL`` and ``F32_GRAD``.  All now run float32
+products on the tensor cores as split TF32.  This is the written
 argument that those tolerances still hold, with the arithmetic emulated
 bit for bit in ``exprgrad_torch/ops/tf32.py``, on inputs made from a seed
 with numpy (standard normal, as chip_smoke's):
 
-* split TF32 rounded to nearest stays inside them, at k = 4096 and at
-  the serving attention shape [8, 4, 256, 128] causal;
+* split TF32 rounded to nearest stays inside them, at k = 4096, at the
+  serving attention shape [8, 4, 256, 128] causal, and for the backward
+  (dq, dk, dv, each product summed per warp's slice of a tile in the
+  kernels' order) there and at GQA h4/hkv1 (dk/dv over 1024 query rows);
 * one TF32 pass does not, and neither does the mismatched split (the raw
   float32 fed as ``big``, which the tensor core truncates, beside
   ``small = x - rna(x)``);
@@ -27,13 +30,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import F32_LSE_ATOL, F32_OUT, matmul_f32_tol
-from exprgrad_torch.ops.attention import attention_forward_plain
-from exprgrad_torch.ops.tf32 import (split, tf32_matmul, tf32_round,
-                                     tf32x3_matmul)
+from chip_smoke import F32_GRAD, F32_LSE_ATOL, F32_OUT, matmul_f32_tol
+from exprgrad_torch.ops.attention import (attention_backward_plain,
+                                          attention_forward_plain)
+from exprgrad_torch.ops.tf32 import (attention_backward, split, tf32_matmul,
+                                     tf32_round, tf32x3_matmul)
 
 MATMUL = (256, 4096, 256)  # m, k, n
 ATTENTION = (8, 4, 256, 128)  # b, h, s, d; causal
+# the backward's shapes, causal: (b, h, hkv, s, d), as chip_smoke's cases
+BACKWARD = {"serving": (8, 4, 4, 256, 128), "gqa h4/hkv1": (2, 4, 1, 256, 128)}
 
 
 def _normal(seed, *shape):
@@ -154,3 +160,39 @@ def test_consistent_truncation_is_reported(attention_case):
     print(f"consistent truncation at k={MATMUL[1]}: max |err| {err:.3e}; "
           f"attention {ATTENTION}: {_errors(att, att_want)}")
     assert math.isfinite(err)
+
+
+@pytest.fixture(scope="module", params=list(BACKWARD))
+def backward_case(request):
+    """Inputs of the backward at one shape, with the forward's (out, lse)
+    and the plain backward in float64 as the reference."""
+    b, h, hkv, s, d = BACKWARD[request.param]
+    q = _normal(7, b, h, s, d)
+    k, v = (_normal(seed, b, hkv, s, d) for seed in (8, 9))
+    g = _normal(10, b, h, s, d)
+    out, lse = attention_forward_plain(q.double(), k.double(), v.double(),
+                                       causal=True)
+    want = attention_backward_plain(q.double(), k.double(), v.double(),
+                                    out, lse, g.double(), causal=True)
+    return request.param, (q, k, v, out.float(), lse, g), want
+
+
+def _grad_errors(got, want) -> str:
+    return ", ".join(f"max |{part} err| {(a.double() - w).abs().max():.3e}"
+                     for part, a, w in zip(("dq", "dk", "dv"), got, want))
+
+
+def test_split_tf32_backward_meets_the_chip_tolerance(backward_case):
+    name, args, want = backward_case
+    got = attention_backward(*args, how="rna")
+    print(f"split TF32 (rna) backward {name}: {_grad_errors(got, want)}")
+    for part, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert _within(a, w, **F32_GRAD), part
+
+
+def test_one_tf32_pass_backward_misses_the_chip_tolerance(backward_case):
+    name, args, want = backward_case
+    got = attention_backward(*args, how="single")
+    print(f"one TF32 pass backward {name}: {_grad_errors(got, want)}")
+    for part, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert not _within(a, w, **F32_GRAD), part
