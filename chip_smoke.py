@@ -52,10 +52,13 @@ Phases (any failed check raises and the script exits non-zero):
 9. hold the generated map/reduce kernel (B5) and fused row chain (B6)
    against their plain versions (the port's own lowering of the same
    IR, schedule_mode="ignore") on the card: one program per family of
-   the classifier in float32 (seven in bfloat16), then 14 seeds each of
-   the JAX package's three map/reduce fuzzers; and time B6 at softmax
-   8192^2 and B5 at bench.py's scatter-add (n=16384, v=2048, d=512)
-   beside their plain versions, torch.softmax and index_add;
+   the classifier in float32 (ten in bfloat16), then 14 seeds each of
+   the JAX package's three map/reduce fuzzers, and bench.py's scatter-add
+   with every index on one destination, with 90% on one and with 5%
+   outside [0, v); every case runs the generated kernels twice, which
+   must give the same bits; and time B6
+   at softmax 8192^2 and B5 at bench.py's scatter-add (n=16384, v=2048,
+   d=512) beside their plain versions, torch.softmax and index_add;
 10. path (c): the programs of examples/scheduled_kernels.py sections 3-9
    and bench.py's two map/reduce cells under schedule_mode="force":
    each launches its kernels once, as its lowering stats say, and
@@ -68,8 +71,12 @@ Phases (any failed check raises and the script exits non-zero):
 12. hold the paged decode-attention kernel (B7) against its plain
    version (decode_attention over gather_view) on the seven cases of
    tests/test_paged_attention.py, path (e)'s decode step, bench.py's
-   paged shape and a few edges, and time it at the last two beside the
-   plain version and gather_view + scaled_dot_product_attention; then
+   paged shape and a few edges (the splits' among them: live pages that
+   end inside a split, splits with no resident page, a window that ends
+   inside a split, int8 pages over six splits, a one-entry table, rows of
+   2048 slots at page 16), each run twice for the same bits, and time it
+   at path (e)'s decode step and bench.py's shape beside the plain
+   version and gather_view + scaled_dot_product_attention; then
    path (e): the serving model behind ContinuousBatcher(slots=8,
    capacity=256, paged=True, page_size=32, pool_pages=32) under
    bench.py's staggered mix of 12 requests.  With attention="flash" B7
@@ -83,10 +90,13 @@ to the same tolerances as the float32 kernels before them
 (tests/test_torch_tf32x3.py gives the argument); the bounds of B1-B4
 are reckoned at split TF32, 3 x operations over 495 TFLOP/s.  Each path
 runs with the kernels' launch counters set to 0 just before it and read
-just after.  It needs a CUDA device and the rest of the
-repository; without either it fails.  The line before the last is the
-JSON list of kernels (time, bound, plain and library times); the last
-line is a JSON object naming the device.
+just after.  After the timed phases torch.profiler gives the device
+time of every kernel a B5 scatter-add, a B6 softmax and a B7 call
+launch, beside index_add's, torch.softmax's and the library route's.
+It needs a CUDA device and the rest of the repository; without either
+it fails.  The line before the
+last is the JSON list of kernels (time, bound, plain and library times);
+the last line is a JSON object naming the device.
 """
 
 import json
@@ -177,14 +187,17 @@ HEAD_STEPS = 3
 GEN_F32 = dict(rtol=1e-5, atol=1e-5)
 # the softmax rows: every value is below 1 and each row sums 8192 exps
 SOFTMAX_TOL = dict(rtol=1e-5, atol=1e-6)
-# scatters: both versions add with float32 atomics, whose order changes
-# from run to run; a target sums up to ~100 values of order one
+# scatters: the kernel sums each destination's positions in position
+# order (in register chains and fixed pieces), the plain lowering in the
+# order of torch's indexed accumulation; a target sums up to 16384 values
+# (all indices on one destination), of order 1/sqrt(512) each
 GEN_SCATTER = dict(rtol=1e-5, atol=1e-5)
 # bfloat16: the kernel computes in float32 and rounds once, the plain
 # lowering rounds after every op in bfloat16 (2^-8 relative each)
 GEN_BF16 = dict(rtol=3e-2, atol=3e-2)
 BF16_FAMILIES = ("elementwise", "ragged", "stencil", "gather", "scatter_add",
-                 "softmax", "rms_norm")
+                 "scatter_max", "scatter_min", "pure_scatter", "softmax",
+                 "rms_norm")
 # the differential fuzzers' own tolerance (sums of up to 7200 terms of
 # exp-scaled products)
 GEN_FUZZ = dict(rtol=3e-4, atol=3e-4)
@@ -210,6 +223,10 @@ PAGED_SERVING_LENS = (100, 128, 97, 120, 105, 128, 110, 99)
 PAGED_BENCH_CASE = (8, 8, 8, 1, 128, 16, 128, torch.bfloat16)
 PAGED_BENCH_LENS = (2048,) * 8
 PAGED_BENCH_PAGES = 8 * 16 + 1
+# rows of bench.py's paged shape whose live pages end inside a split (1000,
+# 1500, 700, 1800 slots) and whose later splits hold no resident page (129
+# and 1 slots)
+PAGED_SPLIT_LENS = (2048, 1000, 1500, 700, 2000, 129, 1, 1800)
 
 
 def gpu_line() -> str:
@@ -233,6 +250,19 @@ def cuda_ms(fn, iters=50, warmup=5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls=200) -> float:
+    """Host microseconds per call of ``fn``, enqueue only (no synchronize
+    inside the timed calls)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def compare(name, got, want, out_tol, lse_atol) -> float:
@@ -392,7 +422,18 @@ def kernel_names(fn) -> list:
 
 def device_kernels(fn, calls=20) -> dict:
     """{kernel name: device ms per call of ``fn``} by torch.profiler over
-    ``calls`` calls (after the timed phases, as kernel_names)."""
+    ``calls`` calls (after the timed phases, as kernel_names).  The
+    profiler can drop events: a session in which a kernel's launches are
+    not a whole multiple of the calls is taken again, up to three times."""
+    for _ in range(3):
+        times = _kernel_times(fn, calls)
+        if times and all(len(ms) % calls == 0 for ms in times.values()):
+            break
+    return {name: sum(ms) / calls for name, ms in times.items()}
+
+
+def _kernel_times(fn, calls) -> dict:
+    """{kernel name: [ms of each launch]} over ``calls`` calls of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -401,12 +442,11 @@ def device_kernels(fn, calls=20) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    per_call = {}
+    out = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            per_call[e.name] = (per_call.get(e.name, 0.0)
-                                + e.time_range.elapsed_us() / 1e3 / calls)
-    return per_call
+            out.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    return out
 
 
 def check_flash_backward(attention, cases, gen, dev) -> tuple:
@@ -1369,9 +1409,10 @@ def executor_of(model):
 
 def kernel_vs_plain(egt, graphs, args, target="out", epoch=3):
     """The target on the card through the generated kernels
-    (schedule_mode="force") and through the plain lowering
-    (schedule_mode="ignore"), same parameters and inputs: (kernel output,
-    plain output, the kernel model's stats)."""
+    (schedule_mode="force"), twice, which must give the same bits, and
+    through the plain lowering (schedule_mode="ignore"), same parameters
+    and inputs: (kernel output, plain output, the kernel model's
+    stats)."""
     outs = []
     for mode in ("force", "ignore"):
         model = egt.compile(graphs, seed=0, schedule_mode=mode,
@@ -1380,13 +1421,17 @@ def kernel_vs_plain(egt, graphs, args, target="out", epoch=3):
         outs.append(model.call(target, args))
         if mode == "force":
             stats = model.lowering_stats(target)
+            again = model.call(target, args)
+            assert np.array_equal(outs[0], again, equal_nan=True), (
+                f"{target}: two runs of the generated kernels differ")
     return outs[0], outs[1], stats
 
 
 def bf16_kernel_vs_plain(egt, graph, args, epoch=3):
     """The same pair in bfloat16: the compiled program with its scalar
     type set to bfloat16, run by an executor of each mode on bfloat16
-    copies of the inputs and parameters."""
+    copies of the inputs and parameters (the generated kernels twice,
+    which must give the same bits)."""
     from exprgrad_torch.backend.executor import TorchExecutor
     from exprgrad_torch.passes import infer_shapes
 
@@ -1403,6 +1448,10 @@ def bf16_kernel_vs_plain(egt, graph, args, epoch=3):
     for mode in ("force", "ignore"):
         ex = TorchExecutor(prog, "out", shapes, model.device, mode)
         got[mode] = ex.run(dict(tensors), shapes, epoch, 0)[out].float()
+        if mode == "force":
+            again = ex.run(dict(tensors), shapes, epoch, 0)[out].float()
+            assert torch.equal(got[mode], again), (
+                "two bfloat16 runs of the generated kernels differ")
     return got["force"], got["ignore"]
 
 
@@ -1420,9 +1469,9 @@ def assert_same(name, got, want, tol) -> float:
 
 def check_generated_kernels(egt, gpu) -> dict:
     """Phase 9: B5 and B6 against their plain versions on the card, one
-    program per family in float32 (and seven in bfloat16), then the
-    seeded sweep of random kernels and chains.  Returns the max |error|
-    of each kernel."""
+    program per family in float32 (and ten in bfloat16), then the seeded
+    sweep of random kernels and chains, each run twice for the same
+    bits.  Returns the max |error| of each kernel."""
     worst = {"mapreduce": 0.0, "rowchain": 0.0}
     families = [(n, f, "mapreduce") for n, f in MAPREDUCE_FAMILIES.items()]
     families += [(n, f, "rowchain") for n, f in ROWCHAIN_FAMILIES.items()]
@@ -1433,7 +1482,8 @@ def check_generated_kernels(egt, gpu) -> dict:
         tol = GEN_SCATTER if "scatter" in name else GEN_F32
         err = assert_same(f"{kind} {name}", got, want, tol)
         worst[kind] = max(worst[kind], err)
-        line = f"kernel check {kind} {name}: max |err| {err:.3e}"
+        line = (f"kernel check {kind} {name}: two runs equal bit for bit; "
+                f"max |err| {err:.3e}")
         if name in BF16_FAMILIES:
             got, want = bf16_kernel_vs_plain(egt, graph, args)
             bf_err = assert_same(f"{kind} {name} bf16", got.cpu(),
@@ -1473,6 +1523,59 @@ def check_generated_kernels(egt, gpu) -> dict:
     return worst
 
 
+def scatter_tokens(kind, n, v, seed=0):
+    """bench.py's scatter-add indices (uniform in [0, v)) and the edges of
+    phase 9: every index on one destination, 90% on one, 5% outside
+    [0, v)."""
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, v, n)
+    if kind == "all on one destination":
+        tok = np.full(n, 7)
+    elif kind == "90% on one destination":
+        tok = np.where(rng.random(n) < 0.9, 11, tok)
+    elif kind == "5% outside [0, v)":
+        tok = np.where(rng.random(n) < 0.05,
+                       rng.choice([-1, v, v + 100, -50], n), tok)
+    return tok.astype(np.float32)
+
+
+SCATTER_EDGES = ("all on one destination", "90% on one destination",
+                 "5% outside [0, v)")
+
+
+def check_scatter_cases(egt) -> float:
+    """Phase 9 (b): bench.py's scatter-add at its full shape with every
+    index on one destination, with 90% on one and with 5% outside [0, v),
+    each run twice on the card (the same bits both times) and held against
+    the plain lowering.  The indices outside are dropped; the plain
+    lowering clamps them, as the JAX package's XLA path does, so that case
+    is held against numpy's sum in float64.  Returns the max |error|."""
+    worst = 0.0
+    v, d, n = SCATTER["v"], SCATTER["d"], SCATTER["n"]
+    graph = scatter_add_graph(egt, v, d, SCATTER["tile"])
+    g = (np.random.default_rng(1).normal(size=(n, d)) / np.sqrt(d)).astype(
+        np.float32)
+    for kind in SCATTER_EDGES:
+        tok = scatter_tokens(kind, n, v)
+        args = {"tok": tok, "g": g}
+        idx = tok.astype(np.int64)
+        keep = (idx >= 0) & (idx < v)
+        exact = np.zeros((v, d))
+        np.add.at(exact, idx[keep], g[keep].astype(np.float64))
+        got, want, _ = kernel_vs_plain(egt, graph, args, "demb")
+        if not keep.all():
+            want = exact
+        err = assert_same(f"scatter-add {kind}", got, want, GEN_SCATTER)
+        worst = max(worst, err)
+        print(f"kernel check mapreduce scatter-add n={n} v={v} d={d}, "
+              f"{kind}: two runs equal bit for bit; max |err| "
+              f"{err:.3e} against the "
+              f"{'plain lowering' if keep.all() else 'float64 sum'}, "
+              f"{float(np.abs(got - exact).max()):.3e} against the float64 "
+              f"sum")
+    return worst
+
+
 def time_generated_kernels(egt, gpu) -> dict:
     """Phase 9 timing: B6 at softmax 8192^2 and B5 at bench.py's scatter-
     add shape, each beside its plain version and one PyTorch call for the
@@ -1491,8 +1594,8 @@ def time_generated_kernels(egt, gpu) -> dict:
     prog = model.program
     tensors = {prog.inputs["inp"]: x,
                prog.targets["out"].output: torch.zeros_like(x)}
-    fns = {"kernel": lambda: chain.lower(tensors),
-           "plain": lambda: chain.plain(tensors, 0),
+    fns = {"kernel": lambda t=tensors: chain.lower(t),
+           "plain": lambda t=tensors: chain.plain(t, 0),
            "library": lambda: torch.softmax(x, -1)}
     got = fns["kernel"]()[prog.targets["out"].output]
     want = fns["plain"]()[prog.targets["out"].output]
@@ -1500,6 +1603,8 @@ def time_generated_kernels(egt, gpu) -> dict:
                       SOFTMAX_TOL)
     out["rowchain"] = timed(fns, chain.compiled().plan["bytes"])
     out["rowchain"]["err"] = err
+    rowchain_fns = {"B6 softmax 8192^2": fns["kernel"],
+                    "torch.softmax 8192^2": fns["library"]}
     print(f"rowchain softmax {n}x{n} f32: {out['rowchain']} on {gpu}")
 
     v, d, rows = SCATTER["v"], SCATTER["d"], SCATTER["n"]
@@ -1518,15 +1623,29 @@ def time_generated_kernels(egt, gpu) -> dict:
     tensors = {prog.inputs["tok"]: tok_t, prog.inputs["g"]: g_t,
                prog.targets["demb"].output: prev}
     tok_long = tok_t.long()
-    fns = {"kernel": lambda: mr.lower(tensors),
-           "plain": lambda: mr.plain(tensors, 0),
+    fns = {"kernel": lambda t=tensors: mr.lower(t),
+           "plain": lambda t=tensors: mr.plain(t, 0),
            "library": lambda: prev.index_add(0, tok_long, g_t)}
     err = assert_same("mapreduce scatter-add", fns["kernel"]().cpu(),
                       fns["plain"]().cpu(), GEN_SCATTER)
     out["mapreduce"] = timed(fns, mr.compiled().plan["bytes"])
     out["mapreduce"]["err"] = err
+    out["mapreduce"]["host_us"] = {name: host_us(fns[name])
+                                   for name in ("kernel", "library")}
     print(f"mapreduce scatter-add n={rows} v={v} d={d} f32: "
           f"{out['mapreduce']} on {gpu}")
+    # the kernel and index_add on each edge's indices, for the device
+    # times taken after the timed phases
+    profiled = {"scatter-add uniform": fns["kernel"],
+                "index_add uniform": fns["library"]}
+    for kind in SCATTER_EDGES[:2]:
+        skew = torch.from_numpy(scatter_tokens(kind, rows, v)).to(dev)
+        edge = {**tensors, prog.inputs["tok"]: skew}
+        profiled[f"scatter-add {kind}"] = lambda edge=edge: mr.lower(edge)
+        profiled[f"index_add {kind}"] = (
+            lambda skew=skew.long(): prev.index_add(0, skew, g_t))
+    out["mapreduce"]["profiled"] = profiled
+    out["rowchain"]["profiled"] = rowchain_fns
     mapreduce.launches = rowchain.launches = 0
     return out
 
@@ -1753,11 +1872,12 @@ def path_d(egt, gpu) -> dict:
 # --- paged serving: kernel B7 and the continuous batcher (phase 12) -------
 
 def paged_case(gen, dev, b, h, hkv, t, d, P, page, dtype, n_pages=None,
-               lens=None, q_dtype=torch.float32, seed=0):
+               lens=None, q_dtype=torch.float32, seed=0, scale=1.0):
     """Inputs of paged decode attention: a pool of random values in every
     page (garbage where nothing was written), a page table of distinct
     pages per row with -1 past each row's length, ``key_pos`` live below
-    the length and -1 after it, ``q_pos`` the last ``t`` positions.
+    the length and -1 after it, ``q_pos`` the last ``t`` positions; an
+    int8 pool's scales uniform in [0.5, 1.5) times ``scale``.
     Returns (q, pool, table, key_pos, q_pos) on ``dev``."""
     from exprgrad_torch.ops.paged import PagedKVPool
 
@@ -1767,8 +1887,8 @@ def paged_case(gen, dev, b, h, hkv, t, d, P, page, dtype, n_pages=None,
     if dtype == torch.int8:
         k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev,
                               dtype=torch.int8) for _ in range(2))
-        ks, vs = (torch.rand(shape[:3], generator=gen, device=dev) + 0.5
-                  for _ in range(2))
+        ks, vs = ((torch.rand(shape[:3], generator=gen, device=dev) + 0.5)
+                  * scale for _ in range(2))
         pool = PagedKVPool(k=k, v=v, k_scale=ks, v_scale=vs)
     else:
         pool = PagedKVPool(*(torch.randn(shape, generator=gen, device=dev)
@@ -1838,6 +1958,27 @@ def check_paged_kernel(gen, dev) -> float:
          (2, 8, 2, 3, 40, 5, 12, bf16), 20, {}),
         ("bf16 queries, int8 d 48", (3, 4, 2, 1, 48, 4, 16, i8), None,
          dict(q_dtype=bf16)),
+        # the splits' edges, at bench.py's shape (6 splits of 3 pages): live
+        # pages that end inside a split, rows whose later splits hold no
+        # resident page (129 and 1 slots), a window that ends inside a
+        # split, int8 pages across all six splits
+        ("bench.py shape, rows ending mid-split and splits with no "
+         "resident page", PAGED_BENCH_CASE, None,
+         dict(n_pages=PAGED_BENCH_PAGES, lens=PAGED_SPLIT_LENS)),
+        ("bench.py shape, window 500", PAGED_BENCH_CASE, 500,
+         dict(n_pages=PAGED_BENCH_PAGES, lens=PAGED_BENCH_LENS)),
+        # scales as ops.decode._quantize makes them (absmax / 127): keys of
+        # order one.  With scales near 1 the dequantized keys reach +-190,
+        # the scores +-200, and a softmax that sharp moves its output by
+        # 1e-2 when float32 rounding moves a score by 1e-4 (both versions
+        # sum the 128 products in other orders)
+        ("bench.py shape, int8 pages", PAGED_BENCH_CASE[:-1] + (i8,), None,
+         dict(n_pages=PAGED_BENCH_PAGES, lens=PAGED_SPLIT_LENS,
+              scale=1 / 127)),
+        ("a one-entry table (P = 1)", (4, 8, 2, 1, 128, 1, 64, bf16), None,
+         {}),
+        ("2048-slot rows at page 16", (4, 4, 2, 2, 64, 128, 16, bf16), None,
+         dict(n_pages=4 * 128 + 1, lens=(2048, 2048, 1999, 2040))),
     ]
     worst = 0.0
     for i, (name, shape, window, extra) in enumerate(cases):
@@ -1847,7 +1988,10 @@ def check_paged_kernel(gen, dev) -> float:
             key_pos[1] = -1          # row 1 sees no key: 0 on both
         got = pa.paged_decode_attention(q, pool, table, key_pos, q_pos,
                                         window=window)
+        again = pa.paged_decode_attention(q, pool, table, key_pos, q_pos,
+                                          window=window)
         torch.cuda.synchronize()
+        assert torch.equal(got, again), f"paged {name}: two runs differ"
         want = pa.paged_decode_attention_plain(q, pool, table, key_pos,
                                                q_pos, window=window)
         tol = F32_OUT if q.dtype == torch.float32 else BF16_OUT
@@ -1858,11 +2002,59 @@ def check_paged_kernel(gen, dev) -> float:
         if name.startswith("bf16 queries"):
             assert torch.all(got[1] == 0), "a row with no key is not 0"
         worst = max(worst, err)
-        print(f"kernel check paged {name}: max |err| {err:.3e} "
+        print(f"kernel check paged {name}: two runs equal bit for bit, "
+              f"max |err| {err:.3e} "
               f"(q {tuple(q.shape)} {str(q.dtype)[6:]}, pool "
               f"{tuple(pool.k.shape)} {str(pool.k.dtype)[6:]}, "
               f"{int((table >= 0).sum())} resident pages)")
+    # int8 pages at bench.py's shape with scales near 1 (keys up to +-190,
+    # scores up to +-200), the data the int8 case above leaves out: a
+    # softmax this sharp turns one float32 rounding of a score into 1e-4 to
+    # 1e-3 of output, so the kernel and the plain version are each held
+    # against the same formula in float64, beside that formula with each
+    # score rounded once to float32 (printed, not asserted: which float32
+    # order lands nearer varies with the data by ten times and more)
+    q, pool, table, key_pos, q_pos = paged_case(
+        gen, dev, *PAGED_BENCH_CASE[:-1], i8, seed=len(cases),
+        n_pages=PAGED_BENCH_PAGES, lens=PAGED_SPLIT_LENS)
+    got = pa.paged_decode_attention(q, pool, table, key_pos, q_pos)
+    want = pa.paged_decode_attention_plain(q, pool, table, key_pos, q_pos)
+    exact = paged_float64(q, pool, table, key_pos, q_pos)
+    once = paged_float64(q, pool, table, key_pos, q_pos, round_scores=True)
+    assert torch.isfinite(got).all()
+    print(f"kernel check paged bench.py shape, int8 pages with scales near "
+          f"1: max |out - float64 formula| kernel "
+          f"{(got.double() - exact).abs().max().item():.3e}, plain "
+          f"{(want.double() - exact).abs().max().item():.3e}, the formula "
+          f"with each score rounded once to float32 "
+          f"{(once - exact).abs().max().item():.3e}; max |kernel - plain| "
+          f"{(got - want).abs().max().item():.3e}")
     return worst
+
+
+def paged_float64(q, pool, table, key_pos, q_pos, round_scores=False):
+    """The plain version's formula (gather_view, dequantize, softmax of the
+    masked scores, P.V; 0 where a row sees no key) in float64; with
+    ``round_scores`` each scaled score is rounded once to float32."""
+    from exprgrad_torch.ops.paged import gather_view
+
+    view = gather_view(pool, table.clamp(min=0))
+    b, h, t, d = q.shape
+    hkv, n = view.k.shape[1], view.k.shape[2]
+    k, v = view.k.double(), view.v.double()
+    if view.k_scale is not None:
+        k = k * view.k_scale.double()[..., None]
+        v = v * view.v_scale.double()[..., None]
+    qg = q.double().reshape(b, hkv, h // hkv * t, d)
+    s = torch.einsum("bgqd,bgsd->bgqs", qg, k).reshape(b, h, t, n) * d ** -0.5
+    if round_scores:
+        s = s.float().double()
+    kp = key_pos.long()[:, None, None, :]
+    mask = (kp >= 0) & (kp <= q_pos.long()[:, None, :, None])
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+    p = torch.nan_to_num(p, nan=0.0)  # rows that see no key
+    out = torch.einsum("bgqs,bgsd->bgqd", p.reshape(b, hkv, -1, n), v)
+    return out.reshape(b, h, t, d)
 
 
 def time_paged_kernel(gen, dev, gpu, name, shape, lens, n_pages) -> dict:
@@ -1898,13 +2090,15 @@ def time_paged_kernel(gen, dev, gpu, name, shape, lens, n_pages) -> dict:
         runs[which].append(cuda_ms(fns[which], iters=50, warmup=5))
     res = {k: sum(v) / len(v) for k, v in runs.items()}
     res["runs"] = runs
+    res["host_us"] = {k: host_us(fns[k]) for k in ("kernel", "library")}
+    res["profiled"] = {"kernel": fns["kernel"], "library": library}
     res["bound"] = paged_bound(q, pool, table, key_pos, q_pos)
     res["err"] = (fns["kernel"]() - fns["plain"]()).abs().max().item()
     print(f"paged attention {name}: kernel {res['kernel']:.5f} ms, plain "
           f"{res['plain']:.5f} ms, gather_view + scaled_dot_product_attention"
           f" (two calls) {res['library']:.5f} ms, bound "
-          f"{res['bound'][0]:.5f} ms ({res['bound'][1]}); runs {runs} on "
-          f"{gpu}")
+          f"{res['bound'][0]:.5f} ms ({res['bound'][1]}); runs {runs}; "
+          f"host us per call {res['host_us']} on {gpu}")
     return res
 
 
@@ -2064,7 +2258,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.load()
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
-          f"{kernels.library_path()} (host of {gpu})")
+          f"{kernels.library_path()} (host of {gpu}); nvcc seconds by "
+          f"file {kernels.compile_seconds}")
     if kernels.build_log.strip():
         print(kernels.build_log.strip())
 
@@ -2291,6 +2486,7 @@ def main() -> int:
 
     # 9. the generated kernels against their plain versions ----------------
     gen_err = check_generated_kernels(egt, gpu)
+    gen_err["mapreduce"] = max(gen_err["mapreduce"], check_scatter_cases(egt))
     gen_times = time_generated_kernels(egt, gpu)
     t_phase = phase_done(f"9 (generated kernels; Triton compiled for "
                          f"{triton_build.compile_seconds:.1f} s)", t_phase)
@@ -2332,6 +2528,27 @@ def main() -> int:
     print(f"scaled_dot_product_attention backward [8,4,256,128] f32 causal "
           f"runs, device ms per call: {sdpa_bwd}; {sdpa_bwd_ms:.5f} ms in "
           f"all on {gpu}")
+    # B5, B6 and B7 by device time: every kernel one call launches (B5's
+    # keys, sort and searchsorted, and the segment walk;
+    # index_add's clone and kernel; B6 and torch.softmax; B7's splits and
+    # merge; the library route's gather and sdpa)
+    profiled = {f"B5 {name}": fn for name, fn in
+                gen_times["mapreduce"]["profiled"].items()}
+    profiled.update(gen_times["rowchain"]["profiled"])
+    for shape, res in paged_times.items():
+        profiled[f"B7 {shape}"] = res["profiled"]["kernel"]
+        profiled[f"B7 library {shape}"] = res["profiled"]["library"]
+    device_ms = {}
+    for name, fn in profiled.items():
+        per_kernel = device_kernels(fn)
+        device_ms[name] = sum(per_kernel.values())
+        print(f"device ms per call, {name}: {device_ms[name]:.5f} "
+              f"({ {k[:60]: round(v, 5) for k, v in per_kernel.items()} }) "
+              f"on {gpu}")
+    skew = (device_ms["B5 scatter-add all on one destination"]
+            / device_ms["B5 scatter-add uniform"])
+    print(f"B5 scatter-add: all indices on one destination takes {skew:.2f}x "
+          f"the uniform case's device time")
     print(f"the whole run {time.perf_counter() - t_start:.1f} s")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "exprgrad_tpu"))

@@ -25,8 +25,9 @@ is only permission to block that axis:
   does not divide extent ... (no mask support)") and the single gridded
   reduction ("more than one tiled reduction axis") do not decline here;
 * the one-hot/compare-reduce split of gathers and scatters has no
-  counterpart: a gather is a load from a computed address, a scatter an
-  atomic at one;
+  counterpart: a gather is a load from a computed address; a scatter
+  groups its positions by destination with a stable sort of their keys
+  and each program owns a destination's row (:meth:`_plan_segments`);
 * the decline of a tile on an axis a shifted read keeps whole (the
   overlapping windows of a stencil) comes from the program and stays.
 
@@ -668,9 +669,9 @@ class ScheduledMapReduce:
 
         A plain write owns its output positions: P is the write's axes, Q
         the reduced axes the value varies over; the others multiply an add
-        by their extent.  A scatter owns every position the value or its
-        target varies over and adds (or takes the max or min) at its
-        computed address with one atomic each."""
+        by their extent.  A scatter's P is every axis the value or its
+        target varies over, walked by destination as
+        :meth:`_plan_segments` plans it."""
         low = self.low
         kernel = self.kernel
         # a shifted (stencil) read keeps its axis whole: a tile on that
@@ -689,6 +690,7 @@ class ScheduledMapReduce:
             p |= vaxes & set(self.red_axes)
             self.p_axes = sorted(p)
             self.q_axes = []
+            self._plan_segments()
         else:
             self.p_axes = list(self.out_axes)
             self.q_axes = sorted(vaxes & set(self.red_axes))
@@ -697,6 +699,32 @@ class ScheduledMapReduce:
             if a not in self.p_axes and a not in self.q_axes:
                 self.phantom *= low.sizes[a]
         return True
+
+    def _plan_segments(self) -> None:
+        """The owner-computes plan of a scatter.  Its positions run over
+        the segment axes (those its target or value varies over, but the
+        direct write axes the target does not depend on); each position's
+        key is its destination row, the row-major flat index over the
+        keyed dims (the computed dims and the direct dims whose axis the
+        target depends on).  The columns are the other direct axes: every
+        program owns one key and a block of columns, walks the key's
+        positions and writes its output elements once.  Every size is
+        taken: the grouping needs memory for the positions and the rows
+        alone."""
+        low, sc = self.low, self.scatter
+        gaxes = set(sc["gaxes"])
+        out_shape = low.shapes[self.kernel.write.tensor]
+        keyed, cols = [], []
+        for d, index in enumerate(self.kernel.write.dims):
+            axis = None if d in sc["dims"] else low._pure_iter(index)
+            if axis is None or axis in gaxes:
+                keyed.append(d)
+            else:
+                cols.append(axis)
+        K, kstrides = flat_fold(keyed, out_shape)
+        sc.update(seg_axes=[a for a in self.p_axes if a not in cols],
+                  col_axes=sorted(cols), keyed=keyed, K=K,
+                  kstrides=kstrides)
 
     # ------------------------------------------------------------------
     def compiled(self):

@@ -19,9 +19,14 @@ per kernel, once per executor, from the plan of
   indices alike; a computed index outside ``[0, V)`` reads 0, as the TPU
   kernel's compare-select does, and never touches foreign memory;
 * dynamic bounds and ragged edges are masks to the identity;
-* a plain write stores ``prev (+|max|min) value`` into a fresh tensor; a
-  scatter adds (or takes the max or min) at its computed address with
-  one float32 atomic per position, into a float32 copy of ``prev``.
+* a plain write stores ``prev (+|max|min) value`` into a fresh tensor;
+* a scatter is owner-computes over destination segments
+  (:func:`emit_scatter`): a generated kernel writes each position's
+  destination row, a stable sort of those keys groups the positions by
+  it (:func:`group`), then each program owns one row and
+  a block of its columns, walks the row's positions in position order and
+  writes each element once.  No float atomics: every kernel gives the
+  same bits on every run.
 
 bfloat16 operands are loaded, computed in float32 and stored once.
 :func:`mapreduce_impl` launches the kernel for CUDA tensors and raises on
@@ -49,8 +54,6 @@ _TL_DTYPE = {torch.float32: "tl.float32", torch.bfloat16: "tl.bfloat16"}
 _COMBINE = {"add": "{a} + {b}", "max": "tl.maximum({a}, {b})",
             "min": "tl.minimum({a}, {b})"}
 _REDUCE = {"add": "tl.sum", "max": "tl.max", "min": "tl.min"}
-_ATOMIC = {"add": "tl.atomic_add", "max": "tl.atomic_max",
-           "min": "tl.atomic_min"}
 _UNARY = {Op.SIN: "libdevice.sin", Op.COS: "libdevice.cos",
           Op.EXP: "libdevice.exp", Op.LN: "libdevice.log",
           Op.LOG2: "libdevice.log2", Op.LOG10: "libdevice.log10",
@@ -540,6 +543,8 @@ def plan_blocks(n_p: int, n_q: int) -> tuple[int, int, int]:
 def emit_mapreduce(mr) -> tuple[str, list[int], dict]:
     """The Triton source of one classified map/reduce kernel:
     ``(source, operand tensor ids, launch plan)``."""
+    if mr.scatter is not None:
+        return emit_scatter(mr)
     low = mr.low
     kernel = mr.kernel
     write = kernel.write
@@ -550,7 +555,6 @@ def emit_mapreduce(mr) -> tuple[str, list[int], dict]:
     n_q = int(np.prod([sizes[a] for a in q_axes], dtype=np.int64))
     bp, bq, warps = plan_blocks(n_p, n_q if q_axes else 0)
     itype = index_type(sizes, low.shapes.values())
-    scatter = mr.scatter is not None
     ident = identity_lit(mode)
 
     em = Emitter(low.shapes, p_axes, q_axes, itype, " " * 4, bp, bq)
@@ -593,55 +597,20 @@ def emit_mapreduce(mr) -> tuple[str, list[int], dict]:
         em.line(f"acc = acc * {lit(float(mr.phantom))}")
 
     out_shape = low.shapes[write.tensor]
-    out_dt = _TL_DTYPE[low.dtype]
-    if scatter:
-        sc = mr.scatter
-        strides = contiguous_strides(out_shape)
-        flat = scope._flat(write.dims, sc)
-        terms = []
-        for d, index in enumerate(write.dims):
-            if d in sc["dims"]:
-                idx = scope._unravel(flat, sc, d, out_shape)
-            else:
-                idx = scope.index(index)
-            terms.append(scope._scaled(idx, strides[d]))
-        addr = scope._sum(terms)
-        ok = ["p_ok"]
-        if flat.const:
-            if not 0 <= flat.code < sc["V"]:
-                ok.append("False")
-        else:
-            ok.append(f"({flat.code} >= 0) & ({flat.code} < {sc['V']})")
-        if addr.const:
-            addr = Val(f"tl.zeros([{bp}], {itype}) + {addr.code}", "i",
-                       p_axes)
-        em.line(f"{_ATOMIC[mode]}(out_ptr + {addr.code}, acc, "
-                f"mask={' & '.join(ok)})")
-        args = "out_ptr"
-    else:
-        strides = contiguous_strides(
-            [int(np.prod(out_shape, dtype=np.int64))] if write.is_raw
-            else out_shape)
-        terms = []
-        for d, index in enumerate(write.dims):
-            axis = low._pure_iter(index)
-            if axis is None:
-                continue  # constant-0 dim of extent 1
-            terms.append(f"p{axis} * {strides[d]}" if strides[d] != 1
-                         else f"p{axis}")
-        if not terms:
-            terms = [f"tl.zeros([{bp}], {itype})"]
-        em.line(f"o = {' + '.join(terms)}")
-        if low.fresh_output:
-            em.line(f"tl.store(out_ptr + o, acc.to({out_dt}), mask=p_ok)")
-            args = "out_ptr"
-        else:
-            em.line("prev = tl.load(prev_ptr + o, mask=p_ok, other=0.0)"
-                    ".to(tl.float32)")
-            em.line(f"tl.store(out_ptr + o, "
-                    f"({_COMBINE[mode].format(a='prev', b='acc')})"
-                    f".to({out_dt}), mask=p_ok)")
-            args = "out_ptr, prev_ptr"
+    strides = contiguous_strides(
+        [int(np.prod(out_shape, dtype=np.int64))] if write.is_raw
+        else out_shape)
+    terms = []
+    for d, index in enumerate(write.dims):
+        axis = low._pure_iter(index)
+        if axis is None:
+            continue  # constant-0 dim of extent 1
+        terms.append(f"p{axis} * {strides[d]}" if strides[d] != 1
+                     else f"p{axis}")
+    if not terms:
+        terms = [f"tl.zeros([{bp}], {itype})"]
+    em.line(f"o = {' + '.join(terms)}")
+    args = _store(em, low, mode, "p_ok")
     args += "".join(f", x{k}_ptr" for k in range(len(em.args))) + ", epoch"
 
     nbytes = _bytes(low, kernel, low.fresh_output)
@@ -649,25 +618,281 @@ def emit_mapreduce(mr) -> tuple[str, list[int], dict]:
         f"each program owns {bp} of {n_p} write positions"
         + (f" and loops over {n_q} reduced positions {bq} at a time, "
            "accumulating in float32 registers" if q_axes else "")
-        + (f"; one float32 {mode} atomic per position at its computed "
-           "address" if scatter else "; every operand element is read "
-           "once and each output element written once")
+        + "; every operand element is read once and each output element "
+        "written once"
     )
-    source = (
+    source = _source(nbytes, design, [("egt_mapreduce", args, em.lines)])
+    plan = {"grid": (n_p + bp - 1) // bp, "num_warps": warps,
+            "block_p": bp, "block_q": bq, "bytes": nbytes}
+    return source, list(em.args), plan
+
+
+def _store(em: Emitter, low, mode: str, mask) -> str:
+    """Store ``acc`` (combined with ``prev`` unless the output is fresh)
+    at ``o``, rounded once, under ``mask`` (None: every lane); returns the
+    output arguments."""
+    out_dt = _TL_DTYPE[low.dtype]
+    masked = f", mask={mask}" if mask else ""
+    if low.fresh_output:
+        em.line(f"tl.store(out_ptr + o, acc.to({out_dt}){masked})")
+        return "out_ptr"
+    em.line(f"prev = tl.load(prev_ptr + o{masked}"
+            + (", other=0.0" if mask else "") + ").to(tl.float32)")
+    em.line(f"tl.store(out_ptr + o, "
+            f"({_COMBINE[mode].format(a='prev', b='acc')})"
+            f".to({out_dt}){masked})")
+    return "out_ptr, prev_ptr"
+
+
+def _source(nbytes: int, design: str, functions) -> str:
+    """A generated module: its header, then each ``(name, arguments,
+    body lines)`` as a ``@triton.jit`` function (each string as it is)."""
+    defs = "\n".join(
+        fn if isinstance(fn, str) else
+        ('@triton.jit(do_not_specialize=["epoch"])\n' if "epoch" in fn[1]
+         else "@triton.jit\n")
+        + f"def {fn[0]}({fn[1]}):\n" + "\n".join(fn[2]) + "\n"
+        for fn in functions)
+    return (
         "# Generated by exprgrad_torch.ops.mapreduce: kernel B5, the "
         "port of\n# exprgrad_tpu/backend/pallasgen.py:1804 "
         "PallasMapReduce.lower.\n"
         f"# Bound: bytes; {nbytes} bytes read and written, "
         f"{nbytes / 3.35e12 * 1e3:.6f} ms at 3.35 TB/s.\n"
         f"# Design: {design}.\n"
-        + HEADER + "\n\n"
-        '@triton.jit(do_not_specialize=["epoch"])\n'
-        f"def egt_mapreduce({args}):\n"
-        + "\n".join(em.lines) + "\n"
+        + HEADER + "\n\n" + defs
     )
-    plan = {"grid": (n_p + bp - 1) // bp, "num_warps": warps,
-            "block_p": bp, "block_q": bq, "bytes": nbytes}
-    return source, list(em.args), plan
+
+
+def plan_segments(n_pos: int, n_c: int, K: int) -> tuple[int, int, int]:
+    """(BLOCK_S, BLOCK_C, num_warps) of a scatter's reduction: up to 128
+    columns a program (more where the column blocks would pass the grid's
+    second axis, 65535), and the mean segment length rounded up to a power
+    of two positions at a time, at most 4096 elements a block (``n_c`` is
+    0 when the write has no column axes)."""
+    bc = min(pow2(n_c), 128) if n_c else 1
+    while n_c and -(-n_c // bc) > 65535:
+        bc *= 2
+    mean = -(-n_pos // max(K, 1))
+    bs = max(1, min(pow2(mean), 4096 // bc))
+    return bs, bc, max(1, min(4, bs * bc // 256))
+
+
+_TL_INT = {torch.int16: "tl.int16", torch.int32: "tl.int32",
+           torch.int64: "tl.int64"}
+
+
+def key_dtype(K: int) -> torch.dtype:
+    """The narrowest integer that holds a scatter's keys [0, K] and K + 1
+    (the radix sort then passes over half the bits of int32 keys)."""
+    if K + 1 <= torch.iinfo(torch.int16).max:
+        return torch.int16
+    return torch.int32 if K + 1 <= _INT32_LIMIT else torch.int64
+
+
+# a program walks at most this many blocks of a segment: a longer segment
+# is cut where the sorted positions cross a multiple of SPLIT_BLOCKS *
+# BLOCK_S, the pieces past the first are summed by programs of their own,
+# and the pieces are added in order (emit_scatter)
+SPLIT_BLOCKS = 16
+
+
+def emit_scatter(mr) -> tuple[str, list[int], dict]:
+    """The Triton source of one scatter: owner-computes over destination
+    segments.  ``egt_scatter_keys`` writes each position's destination
+    row (``K`` where the target is out of range, which drops it), and
+    :func:`group` sorts the keys, stably, and finds each row's segment of
+    the sorted positions.  Each program of ``egt_mapreduce`` then owns
+    one destination row and a block of its columns, walks the row's
+    positions in position order, evaluates the value there and writes
+    every owned element once.  The sorted positions are cut in chunks of
+    ``L``: a segment that crosses into chunk ``e`` has that piece summed
+    by program ``K + e`` of the same grid, and the last of the segment's
+    pieces to finish adds them in chunk order, so no program walks more
+    than ``L`` positions and no program waits.  Returns ``(source,
+    operand tensor ids, launch plan)``."""
+    low, kernel = mr.low, mr.kernel
+    write = kernel.write
+    mode = write.accumulate
+    sizes = low.sizes
+    sc = mr.scatter
+    seg, cols = sc["seg_axes"], sc["col_axes"]
+    n_pos = int(np.prod([sizes[a] for a in seg], dtype=np.int64))
+    n_c = int(np.prod([sizes[a] for a in cols], dtype=np.int64))
+    K = int(sc["K"])
+    itype = index_type(sizes, low.shapes.values())
+    bs, bc, warps = plan_segments(n_pos, n_c if cols else 0, K)
+    L = SPLIT_BLOCKS * bs
+    kb = min(pow2(n_pos), 1024)
+    kdt = key_dtype(K)
+    ident = identity_lit(mode)
+    out_shape = low.shapes[write.tensor]
+    strides = contiguous_strides(out_shape)
+    args: list[int] = []  # every function takes every operand, in one order
+
+    # the keys: the flat row over the keyed dims of each position's target
+    ek = Emitter(low.shapes, seg, [], itype, " " * 4, kb)
+    ek.args = args
+    program_ids(ek, kb, n_pos, itype)
+    iterators(ek, seg, sizes, "p", "p")
+    scope = Scope(ek, kernel, low, mr.setup_env, mr.epoch_regs,
+                  gathers=mr.gather_reads)
+    flat = scope._flat(write.dims, sc)
+    terms = []
+    for d in sc["keyed"]:
+        idx = (scope._unravel(flat, sc, d, out_shape) if d in sc["dims"]
+               else scope.index(write.dims[d]))
+        terms.append(scope._scaled(idx, sc["kstrides"][d]))
+    key = scope._sum(terms).text()
+    if flat.const:
+        key = key if 0 <= flat.code < sc["V"] else lit(K)
+    else:
+        key = (f"tl.where(({flat.code} >= 0) & ({flat.code} < {sc['V']}), "
+               f"{key}, {K})")
+    ek.line(f"key = (tl.zeros([{kb}], {itype}) + {key})"
+            f".to({_TL_INT[kdt]})")
+    ek.line("tl.store(key_ptr + p, key, mask=p_ok)")
+
+    two = bool(cols)
+    wide = ".to(tl.int64)" if itype == "tl.int64" else ""
+
+    def walk(bounds) -> Emitter:
+        """A program's columns, then ``bounds`` (which set ``lo`` and
+        ``hi``), then the walk of sorted positions [lo, hi) ``bs`` at a
+        time into ``bs`` float32 register chains (position lo + i feeds
+        chain i), summed in one fixed tree at the end."""
+        em = Emitter(low.shapes, seg, cols, itype, " " * 4, bs, bc)
+        em.args = args
+        if two:
+            em.line(f"c = tl.program_id(1){wide} * {bc} + "
+                    f"tl.arange(0, {bc}){wide}")
+            em.line(f"c_ok = c < {n_c}")
+            iterators(em, cols, sizes, "c", "q")
+            em.line("Q_ok = c_ok[None, :]")
+            for a in cols:
+                em.line(f"Q{a} = q{a}[None, :]")
+        for line in bounds:
+            em.line(line)
+        block = f"[{bs}, {bc}]" if two else f"[{bs}]"
+        em.line(f"acc = tl.full({block}, {ident}, tl.float32)")
+        em.line(f"for s0 in range(lo, hi, {bs}):")
+        em.indent = " " * 8
+        em.line(f"s = s0 + tl.arange(0, {bs})")
+        em.line("s_ok = s < hi")
+        em.line(f"p = tl.load(perm_ptr + s, mask=s_ok, other=0).to({itype})")
+        iterators(em, seg, sizes, "p", "p")
+        if two:
+            em.line("P_ok = s_ok[:, None]")
+            for a in seg:
+                em.line(f"P{a} = p{a}[:, None]")
+        else:
+            em.line("p_ok = s_ok")
+        rs = Scope(em, kernel, low, mr.setup_env, mr.epoch_regs,
+                   gathers=mr.gather_reads)
+        rs.run(kernel.setup)
+        value = rs.val(kernel.expr.res)
+        valid = (["P_ok", "Q_ok"] if two else ["p_ok"]) + rs.bounds_mask(
+            mr.dyn_bounds)
+        em.line(f"v = tl.where({' & '.join(valid)}, {value.f32()}, "
+                f"{ident})")
+        em.line(f"acc = {_COMBINE[mode].format(a='acc', b='v')}")
+        em.indent = " " * 4
+        reduced = f"{_REDUCE[mode]}(acc, axis=0)"
+        em.line(f"acc = {reduced}" if two
+                else f"acc = tl.zeros([1], tl.float32) + {reduced}")
+        return em
+
+    # one grid: program k < K owns row k and sums its segment's first
+    # piece; program K + e sums the piece of the segment that runs into
+    # sorted chunk e from an earlier chunk, if any.  A segment in one chunk
+    # is written by its owner; the pieces of a longer one go to scratch,
+    # and the last of them to arrive (an int32 count a segment, reset by
+    # that program) adds them in chunk order and writes the row
+    chunks = -(-n_pos // L)
+    ncb = -(-n_c // bc)
+    slot = f" * {n_c} + c" if two else " + tl.zeros([1], tl.int32)"
+    mask = ", mask=c_ok" if two else ""
+    er = walk([
+        f"pid = tl.program_id(0){wide}",
+        f"owner = pid < {K}",
+        f"lo_c = (pid - {K}) * {L}",
+        f"live = (pid >= {K}) & (lo_c < tl.load(seg_ptr + {K}))",
+        f"row = tl.where(owner, pid, tl.load(skey_ptr + lo_c, mask=live, "
+        f"other={K}))",
+        "start = tl.load(seg_ptr + row)",
+        f"stop = tl.load(seg_ptr + row + 1, mask=row < {K}, other=0)",
+        "live = owner | (live & (start < lo_c))",
+        "lo = tl.where(owner, start, lo_c)",
+        f"hi = tl.where(owner, tl.minimum(stop, (start // {L} + 1) * {L}), "
+        f"tl.where(live, tl.minimum(stop, lo_c + {L}), lo_c))"])
+    er.line(f"c0 = start // {L}")
+    er.line(f"c1 = (stop - 1) // {L}")
+    er.line("multi = (stop > start) & (c1 > c0)")
+    o_terms = [] if two else [f"tl.zeros([1], {itype})"]
+    for d in sc["keyed"]:
+        ks = sc["kstrides"][d]
+        code = "row" if ks == 1 else f"row // {ks}"
+        if d != sc["keyed"][0]:
+            code = f"({code}) % {int(out_shape[d])}"
+        o_terms.append(code if strides[d] == 1 else f"({code}) * {strides[d]}")
+    for d, index in enumerate(write.dims):
+        if d not in sc["keyed"]:
+            axis = low._pure_iter(index)
+            o_terms.append(f"q{axis}" if strides[d] == 1
+                           else f"q{axis} * {strides[d]}")
+
+    def write_row():
+        if mr.phantom != 1 and mode == "add":
+            er.line(f"acc = acc * {lit(float(mr.phantom))}")
+        er.line(f"o = {' + '.join(o_terms)}")
+        return _store(er, low, mode, "c_ok" if two else None)
+
+    er.line("if owner & ~multi:")
+    er.indent = " " * 8
+    out_args = write_row()
+    er.indent = " " * 4
+    er.line("if live & multi:")
+    er.line(f"    at = tl.where(owner, c0, pid - {K} + {chunks})")
+    er.line(f"    tl.store(part_ptr + at{slot}, acc{mask})")
+    er.line("    tl.debug_barrier()")
+    er.line(f"    n = tl.atomic_add(cnt_ptr + c0 * {ncb} + tl.program_id(1), 1)")
+    er.line("    if n == c1 - c0:")
+    er.line(f"        acc = tl.load(part_ptr + c0{slot}{mask}, "
+            "cache_modifier=\".cg\")")
+    er.line("        for e in range(c0 + 1, c1 + 1):")
+    er.line(f"            carried = tl.load(part_ptr + (e + {chunks}){slot}"
+            f"{mask}, cache_modifier=\".cg\")")
+    er.line(f"            acc = {_COMBINE[mode].format(a='acc', b='carried')}")
+    er.indent = " " * 12
+    write_row()
+    er.line(f"tl.store(cnt_ptr + c0 * {ncb} + tl.program_id(1), 0)")
+    er.indent = " " * 4
+    operands = "".join(f", x{k}_ptr" for k in range(len(args))) + ", epoch"
+
+    nbytes = _bytes(low, kernel, low.fresh_output)
+    design = (
+        f"owner-computes over destination segments: the keys kernel writes "
+        f"the destination row of each of {n_pos} positions, a stable "
+        f"sort of the keys groups them into {K} segments, then "
+        f"each program owns one row "
+        f"and {bc} of its {n_c} columns, walks the row's positions "
+        f"{bs} at a time in position order into {bs} float32 register "
+        "chains, sums them in a fixed tree and writes each owned output "
+        "element once (no float atomics); pieces of a segment past a "
+        f"multiple of {L} sorted positions are summed by programs of their "
+        "own and the last of a segment's pieces to finish adds them in "
+        "order"
+    )
+    source = _source(nbytes, design, [
+        ("egt_scatter_keys", "key_ptr" + operands, ek.lines),
+        ("egt_mapreduce", out_args + ", part_ptr, cnt_ptr, skey_ptr, "
+         "perm_ptr, seg_ptr" + operands, er.lines)])
+    plan = {"grid": (K + (chunks if chunks > 1 else 0), ncb),
+            "num_warps": warps, "block_s": bs, "block_c": bc,
+            "bytes": nbytes, "positions": n_pos, "K": K, "key_dtype": kdt,
+            "keys_grid": -(-n_pos // kb), "chunks": chunks,
+            "part": 2 * chunks * max(n_c, 1), "counts": chunks * ncb}
+    return source, list(args), plan
 
 
 def _bytes(low, kernel, fresh: bool) -> int:
@@ -693,6 +918,9 @@ class MapReduceKernel:
         self.fresh = mr.low.fresh_output
         self.dtype = mr.low.dtype
         self.plain = mr.plain
+        self.handles = {}  # function name -> loaded Triton kernel
+        self.rows = {}  # device -> a scatter's rows 0..K (group)
+        self.counts = {}  # device -> a scatter's piece counts (scatter)
 
 
 def mapreduce_plain(kern: MapReduceKernel, tensors: dict, epoch: int):
@@ -712,6 +940,48 @@ def _operands(kern, tensors, device) -> list[torch.Tensor]:
     return ops
 
 
+def group(kern: MapReduceKernel, ops, epoch: int, device) -> dict:
+    """A scatter's keys, launched on the card, and their grouping: the
+    keys sorted stably (``sorted``), the positions in that order
+    (``perm``) and the segment ``offsets`` [0, K] (``offsets[K]`` counts
+    the positions kept).  The grouping is ``torch.sort`` and
+    ``torch.searchsorted`` on the keys alone, no value moves: the
+    bookkeeping before the kernel, O(positions + rows) memory at every
+    size."""
+    plan = kern.plan
+    keys = torch.empty(plan["positions"], dtype=plan["key_dtype"],
+                       device=device)
+    triton_build.launch(triton_build.handle(kern, "egt_scatter_keys"),
+                        (plan["keys_grid"],), 4, keys, *ops, int(epoch))
+    skeys, perm = torch.sort(keys, stable=True)
+    rows = kern.rows.get(device)
+    if rows is None:  # the rows 0..K, made once a device
+        rows = kern.rows[device] = torch.arange(
+            plan["K"] + 1, dtype=keys.dtype, device=device)
+    offsets = torch.searchsorted(skeys, rows,
+                                 out_int32=keys.numel() <= _INT32_LIMIT)
+    return {"keys": keys, "sorted": skeys, "perm": perm, "offsets": offsets}
+
+
+def scatter(kern: MapReduceKernel, out, prevs, ops, epoch: int) -> None:
+    """Launch a scatter's kernels into ``out``: the keys and their
+    grouping, then the owners' walk with the pieces of long segments."""
+    plan = kern.plan
+    ws = group(kern, ops, epoch, out.device)
+    long = plan["chunks"] > 1  # else no segment crosses a chunk
+    part = torch.empty(plan["part"] if long else 1, dtype=torch.float32,
+                       device=out.device)
+    counts = kern.counts.get(out.device)
+    if counts is None:  # each segment's count of finished pieces, left 0
+        counts = kern.counts[out.device] = torch.zeros(
+            plan["counts"] if long else 1, dtype=torch.int32,
+            device=out.device)
+    triton_build.launch(triton_build.handle(kern, "egt_mapreduce"),
+                        plan["grid"], plan["num_warps"], out, *prevs, part,
+                        counts, ws["sorted"], ws["perm"], ws["offsets"],
+                        *ops, int(epoch))
+
+
 def mapreduce_impl(kern: MapReduceKernel, tensors: dict,
                    epoch: int) -> torch.Tensor:
     """The new value of the kernel's output tensor.  CUDA tensors launch
@@ -726,21 +996,15 @@ def mapreduce_impl(kern: MapReduceKernel, tensors: dict,
     if kern.dtype not in _TL_DTYPE or prev.dtype != kern.dtype:
         raise ValueError(f"the map/reduce kernel cannot store {prev.dtype}")
     ops = _operands(kern, tensors, prev.device)
-    fn = triton_build.load(kern.source, "egt_mapreduce")
-    grid = (kern.plan["grid"],)
-    warps = kern.plan["num_warps"]
+    plan = kern.plan
+    out = torch.empty_like(prev, memory_format=torch.contiguous_format)
+    prevs = () if kern.fresh else (prev.contiguous(),)
     if kern.scatter:
-        if kern.fresh:
-            out = torch.full(prev.shape, accumulation_identity(kern.mode),
-                             dtype=torch.float32, device=prev.device)
-        else:
-            out = prev.to(torch.float32, copy=True).contiguous()
-        triton_build.launch(fn, grid, warps, out, *ops, int(epoch))
-        out = out if prev.dtype == torch.float32 else out.to(prev.dtype)
+        scatter(kern, out, prevs, ops, epoch)
     else:
-        out = torch.empty_like(prev, memory_format=torch.contiguous_format)
-        prev = () if kern.fresh else (prev.contiguous(),)
-        triton_build.launch(fn, grid, warps, out, *prev, *ops, int(epoch))
+        triton_build.launch(triton_build.handle(kern, "egt_mapreduce"),
+                            (plan["grid"],), plan["num_warps"], out,
+                            *prevs, *ops, int(epoch))
     global launches
     launches += 1
     return out

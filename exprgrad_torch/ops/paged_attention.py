@@ -4,7 +4,11 @@ Counterpart of ``exprgrad_tpu/ops/paged_attention.py``.  The kernel,
 ``exprgrad_torch/csrc/paged_attention.cu``, attends the fresh query rows
 of each batch row against that row's KV pages in place: no dense copy of
 the resident cache is made, so it crosses device memory once per decode
-step instead of twice (gather, then read).
+step instead of twice (gather, then read).  It splits each row's page
+table into :func:`split_plan`'s contiguous ranges, one block each, and
+merges the splits' partial softmaxes in split order in a second kernel;
+the plan depends on the table's shape and the grid alone, so a decode
+dispatch reads nothing back from the card.
 
 :func:`paged_decode_attention` launches it for CUDA tensors and raises on
 anything it cannot take.  For CPU tensors — and only for them — it runs
@@ -21,6 +25,7 @@ Mosaic sublane rule).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -37,6 +42,41 @@ launches = 0
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_HEAD_DIM = 128
+# query rows one block of the kernel holds (csrc/paged_attention.cu
+# kMaxRows) and the blocks per SM the split plan aims for
+_MAX_ROWS = 8
+_WAVES = 2
+# slots a split holds at least: two 32-slot chunks for each of a block's
+# four warps.  The merge is a launch of its own: at path (e)'s decode step
+# (8 entries of 32 slots) one split took 0.0056 ms of device time and two
+# 0.0078 on an H100 80GB HBM3 at 700 W (scripts/probe_torch_kernels.py
+# --variants b7)
+_MIN_SLOTS = 8 * 32
+
+
+def rows_per_block(rows: int) -> int:
+    """The kernel's rows per block: the fewest of 1, 4 or 8 that hold the
+    group's ``rows`` query rows (8 when there are more)."""
+    return next((r for r in (1, 4) if rows <= r), _MAX_ROWS)
+
+
+def split_plan(P: int, page: int, blocks: int, sms: int) -> tuple[int, int]:
+    """``(n_split, pages per split)`` of a table of ``P`` entries of
+    ``page`` slots whose unsplit grid has ``blocks`` blocks: at least
+    enough splits for ``_WAVES`` blocks per SM where the table has the
+    entries, each of at least one page and of ``_MIN_SLOTS`` slots, and no
+    empty split.  Split ``z`` covers entries ``[z * per, min(P, (z + 1) *
+    per))``."""
+    P = max(int(P), 1)
+    want = max(1, -(-_WAVES * sms // max(int(blocks), 1)))
+    per = max(1, P // want, -(-_MIN_SLOTS // max(int(page), 1)))
+    per = min(per, P)
+    return -(-P // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, pool, page_table, key_pos, q_pos):
@@ -142,16 +182,27 @@ def paged_decode_attention(q: torch.Tensor, pool: PagedKVPool,
     vec = int((d * pool.k.element_size()) % 16 == 0
               and pool.k.data_ptr() % 16 == 0
               and pool.v.data_ptr() % 16 == 0)
+    rows = (h // hkv) * t
+    blocks = b * hkv * -(-rows // rows_per_block(rows))
+    n_split, per = split_plan(P, page, blocks, _sm_count(
+        q.device.index if q.device.index is not None
+        else torch.cuda.current_device()))
     out = torch.empty_like(q)
+    # each split's (acc[d], m, l) per query row, in float32
+    part = (torch.empty(n_split * b * hkv * rows * (d + 2),
+                        dtype=torch.float32, device=q.device)
+            if n_split > 1 else None)
     kernels.call(
         "egt_paged_decode", q.device,
         q.data_ptr(), pool.k.data_ptr(), pool.v.data_ptr(),
         pool.k_scale.data_ptr() if quant else None,
         pool.v_scale.data_ptr() if quant else None,
         tensors["page_table"].data_ptr(), tensors["key_pos"].data_ptr(),
-        tensors["q_pos"].data_ptr(), out.data_ptr(), b, h, hkv,
+        tensors["q_pos"].data_ptr(), out.data_ptr(),
+        part.data_ptr() if part is not None else None, b, h, hkv,
         pool.k.shape[0], t, d, page, P, float(sm_scale),
-        int(window or 0), vec, _Q_DTYPES[q.dtype], _KV_DTYPES[pool.k.dtype])
+        int(window or 0), vec, n_split, per, _Q_DTYPES[q.dtype],
+        _KV_DTYPES[pool.k.dtype])
     global launches
     launches += 1
     return out

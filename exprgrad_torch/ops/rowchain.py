@@ -153,6 +153,7 @@ class RowChainKernel:
                       for mi in chain.out_members]
         self.dtype = chain.members[0].low.dtype
         self.plain = chain.plain
+        self.handles = {}  # function name -> loaded Triton kernel
 
 
 def rowchain_plain(kern: RowChainKernel, tensors: dict, epoch: int) -> dict:
@@ -181,7 +182,7 @@ def rowchain_impl(kern: RowChainKernel, tensors: dict, epoch: int) -> dict:
             for p in prevs]
     pairs = [t for out, prev, fresh in zip(outs, prevs, kern.fresh)
              for t in ((out,) if fresh else (out, prev.contiguous()))]
-    fn = triton_build.load(kern.source, "egt_rowchain")
+    fn = triton_build.handle(kern, "egt_rowchain")
     triton_build.launch(fn, (kern.plan["grid"],), kern.plan["num_warps"],
                         *pairs, *ops)
     global launches

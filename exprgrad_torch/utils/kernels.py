@@ -22,6 +22,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -73,15 +75,16 @@ _SIGNATURES = {
                           _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _P],
     # a, b, c, m, n, k, transpose, in_dtype, out_dtype, program, stream
     "egt_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, EpiProgram, _P],
-    # q, k, v, k_scale, v_scale, table, key_pos, q_pos, out, b, h, hkv,
-    # n_pages, t, d, page, n_tbl, scale, window, vec, q_dtype, kv_dtype,
-    # stream
-    "egt_paged_decode": [_P] * 9 + [_I] * 8 + [ctypes.c_float]
-                        + [_I] * 4 + [_P],
+    # q, k, v, k_scale, v_scale, table, key_pos, q_pos, out, part, b, h,
+    # hkv, n_pages, t, d, page, n_tbl, scale, window, vec, n_split, pps,
+    # q_dtype, kv_dtype, stream
+    "egt_paged_decode": [_P] * 10 + [_I] * 8 + [ctypes.c_float]
+                        + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""  # nvcc's output (ptxas register/shared-memory report)
+compile_seconds: dict = {}  # source file -> seconds of its nvcc, last build
 
 
 def _sources() -> list[Path]:
@@ -119,6 +122,7 @@ def _build(path: Path) -> None:
     # never loads a half-written library
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         compiles = []
+        t0 = time.perf_counter()
         for src in _sources():
             if src.suffix != ".cu":
                 continue
@@ -130,10 +134,25 @@ def _build(path: Path) -> None:
         lib = os.path.join(tmp, path.name)
         link = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
                 *(obj for _, obj, _ in compiles)]
+        # each compile's output and the seconds from the start to its exit
+        # (they run together, so the build takes the longest of them)
+        done = {}
+
+        def finish(cmd, proc):
+            out, _ = proc.communicate()
+            done[cmd[-1]] = (out, time.perf_counter() - t0)
+
+        waits = [threading.Thread(target=finish, args=(cmd, proc))
+                 for cmd, _, proc in compiles]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
         logs, failed = [], None
         for cmd, _, proc in compiles:
-            out, _ = proc.communicate()
+            out, secs = done[cmd[-1]]
             logs.append(out)
+            compile_seconds[Path(cmd[-1]).name] = round(secs, 1)
             if proc.returncode != 0 and failed is None:
                 failed = (cmd, proc.returncode)
         if failed is None:

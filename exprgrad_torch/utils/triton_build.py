@@ -30,7 +30,7 @@ from .kernels import BUILD_DIR
 
 TRITON_DIR = BUILD_DIR / "triton"
 
-_loaded: dict[str, tuple] = {}  # sha256 -> (kernel function, path)
+_loaded: dict[tuple, tuple] = {}  # (sha256, name) -> (function, path)
 # seconds spent in first launches (Triton's compile) since import
 compile_seconds = 0.0
 
@@ -44,7 +44,7 @@ def source_path(source: str) -> Path:
 def load(source: str, name: str):
     """The ``@triton.jit`` function ``name`` of a generated source."""
     path = source_path(source)
-    got = _loaded.get(path.stem)
+    got = _loaded.get((path.stem, name))
     if got is None:
         TRITON_DIR.mkdir(parents=True, exist_ok=True)
         os.environ.setdefault("TRITON_CACHE_DIR", str(TRITON_DIR / "cache"))
@@ -59,8 +59,21 @@ def load(source: str, name: str):
             f"egt_triton_{path.stem[:16]}", path)
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
-        got = (getattr(module, name), path, [False])
-        _loaded[path.stem] = got
+        for fn_name, value in vars(module).items():  # every kernel of it
+            if fn_name.startswith("egt_"):
+                _loaded.setdefault((path.stem, fn_name),
+                                   (value, path, [False]))
+        got = _loaded[(path.stem, name)]
+    return got
+
+
+def handle(kern, name: str, source: str | None = None):
+    """:func:`load` of the function ``name`` of ``source`` (by default
+    ``kern.source``), kept in ``kern.handles`` so that a launch neither
+    hashes nor looks up a source again."""
+    got = kern.handles.get(name)
+    if got is None:
+        got = kern.handles[name] = load(source or kern.source, name)
     return got
 
 

@@ -1,10 +1,12 @@
-"""Probe the port's tensor-core kernels B1-B4 on one GPU.
+"""Probe the port's hand-written kernels on one GPU.
 
-    python3 scripts/probe_torch_kernels.py [--out FILE] [--skip-variants]
+    python3 scripts/probe_torch_kernels.py [--out FILE] [--parts LIST]
+        [--variants LIST | --skip-variants] [--root DIR]
 
-Three parts, random inputs from seed 0:
+Parts (``--parts``, default ``tensor,power,b5,b7``), random inputs from
+seed 0:
 
-1. times: flash forward (B2, exprgrad_torch/csrc/flash_fwd.cu) and the
+1. tensor: flash forward (B2, exprgrad_torch/csrc/flash_fwd.cu) and the
    backward's dq (B3) and dk/dv (B4) kernels (csrc/flash_bwd.cu) at the
    serving shape [8, 4, 256, 128] causal, float32 and bfloat16, beside
    scaled_dot_product_attention and its backward; the scheduled matmul
@@ -16,14 +18,31 @@ Three parts, random inputs from seed 0:
    kernels' names.
 2. power: two seconds of back-to-back B1 calls, then of torch.matmul,
    with nvidia-smi sampling the SM clock, power draw and temperature.
-3. variants (--variants fwd,bwd; none with --skip-variants):
+3. b5: the generated scatter (B5, exprgrad_torch/ops/mapreduce.py) at
+   bench.py's scatter-add (n=16384, v=2048, d=512, float32) through
+   ``mapreduce_impl``, uniform and with every index on one destination,
+   beside ``index_add``: host us per call, CUDA events, device ms of
+   every kernel a call launches; and B6's softmax 8192^2 host us per
+   call.  ``host`` (not in the default) gives only the two host figures,
+   through calls the port has had since it ran B5 and B6, so that
+   ``--root`` can point at an older checkout.
+4. b7: paged decode attention (B7, csrc/paged_attention.cu) at bench.py's
+   paged shape and at path (e)'s decode step, beside its library route
+   (gather_view, then scaled_dot_product_attention): as b5.
+5. variants (``--variants``, default fwd,bwd, any of fwd, bwd, b5, b7;
+   none with ``--skip-variants``):
    flash_fwd.cu rebuilt with other tile constants (kBlockQ, kSplit,
    kBlockK, kStages) and with parts cut out (no Q.K^T, no P.V, no load of
    the next tile; their outputs are wrong), and flash_bwd.cu rebuilt with
    parts cut out (no first products S and dP, no products at all, no
-   load of the next tile), each as its own library beside the port's,
-   and timed by torch.profiler at the serving shape, causal and not (the
-   backward's dq and dkv kernels apart).
+   load of the next tile), each as its own library beside the port's, and
+   timed by torch.profiler at the serving shape, causal and not (the
+   backward's dq and dkv kernels apart).  b5: each step of a scatter
+   alone (the keys kernel; the keys, then torch.sort and
+   torch.searchsorted; those two alone; the walk, pieces of long
+   segments included, without the grouping step) and the walk with its position loads cut
+   (contiguous positions, no gather through the permutation).  b7: one split (no merge), a split a page, the port's
+   split, and the scoring and P.V cut out (loads only).
 
 Summary lines name the card and its power limit; --out (default
 build/probe_torch_kernels.txt) gets them too.  Needs a CUDA device and
@@ -44,7 +63,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+if "--root" in sys.argv:  # another checkout's package and chip_smoke
+    sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--root") + 1])
+                           .resolve()))
+else:
+    sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (cuda_ms, device_kernels, gpu_line,  # noqa: E402
                         sdpa_backward)
@@ -257,12 +280,13 @@ def fwd_edit(consts, cuts):
     return edit
 
 
-def bwd_edit(cuts):
+def regex_edit(cuts):
+    """A source edit that applies each (pattern, replacement), each of
+    which must match."""
     def edit(text):
-        for cut in cuts:
-            for pattern, repl in BWD_CUTS[cut]:
-                text, n = re.subn(pattern, repl, text)
-                assert n >= 1, cut
+        for pattern, repl in cuts:
+            text, n = re.subn(pattern, repl, text)
+            assert n >= 1, pattern
         return text
     return edit
 
@@ -306,7 +330,8 @@ def bwd_variants(say, gen, dev, out_dir):
 
     entries = ("egt_flash_bwd_dq", "egt_flash_bwd_dkv")
     fns = build_variants(out_dir, "flash_bwd.cu", entries, {
-        name: bwd_edit(cuts) for name, cuts in BWD_VARIANTS.items()})
+        name: regex_edit([c for cut in cuts for c in BWD_CUTS[cut]])
+        for name, cuts in BWD_VARIANTS.items()})
     b, h, s, d = SERVING
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, g = (torch.randn(SERVING, generator=gen,
@@ -347,12 +372,326 @@ def bwd_variants(say, gen, dev, out_dir):
                 f"call (dq, dkv), two turns: {res}")
 
 
+def scatter_call(gen_dev):
+    """bench.py's scatter-add model on the card: (the B5 kernel object,
+    its tensors, the index_add call on them)."""
+    import numpy as np
+    import exprgrad_torch as egt
+    import exprgrad_torch.layers  # noqa: F401
+    from chip_smoke import SCATTER, executor_of, scatter_add_graph
+
+    v, d, n = SCATTER["v"], SCATTER["d"], SCATTER["n"]
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, v, n).astype(np.float32)
+    g = (rng.normal(size=(n, d)) / np.sqrt(d)).astype(np.float32)
+    model = egt.compile(scatter_add_graph(egt, v, d, SCATTER["tile"]),
+                        seed=0, schedule_mode="force", device="cuda")
+    model.call("demb", {"tok": tok, "g": g})
+    (low,) = executor_of(model)._lowerings.values()
+    mr = low.scheduled_mapreduce()
+    prog = model.program
+    tok_t = torch.from_numpy(tok).to(gen_dev)
+    g_t = torch.from_numpy(g).to(gen_dev)
+    prev = torch.zeros(v, d, device=gen_dev)
+    tensors = {prog.inputs["tok"]: tok_t, prog.inputs["g"]: g_t,
+               prog.targets["demb"].output: prev}
+    return mr, tensors, (lambda: prev.index_add(0, tok_t.long(), g_t)), \
+        (prog.inputs["tok"], tok_t, g_t, prev)
+
+
+def softmax_call(dev):
+    import exprgrad_torch as egt
+    import exprgrad_torch.layers  # noqa: F401
+    from chip_smoke import SOFTMAX_N, executor_of, softmax_chain
+
+    n = SOFTMAX_N
+    graph, args = softmax_chain(egt, {"y": 32}, rows=n, cols=n, scale=1.0)
+    model = egt.compile(graph, seed=0, schedule_mode="force", device="cuda")
+    model.call("out", args)
+    (chain,) = executor_of(model).row_fused.values()
+    x = torch.from_numpy(args["inp"]).to(dev)
+    prog = model.program
+    tensors = {prog.inputs["inp"]: x,
+               prog.targets["out"].output: torch.zeros_like(x)}
+    return lambda: chain.lower(tensors)
+
+
+def gather_call(dev):
+    """A B5 kernel that is no scatter (the classifier's gather family)."""
+    import exprgrad_torch as egt
+    from chip_smoke import MAPREDUCE_FAMILIES, executor_of
+
+    graph, args = MAPREDUCE_FAMILIES["gather"](egt)
+    model = egt.compile(graph, seed=0, schedule_mode="force", device="cuda")
+    model.call("out", args)
+    ex = executor_of(model)
+    (low,) = ex._lowerings.values()
+    mr = low.scheduled_mapreduce()
+    prog = model.program
+    out = prog.targets["out"].output
+    tensors = {prog.inputs[k]: torch.from_numpy(v).to(dev)
+               for k, v in args.items()}
+    tensors[out] = torch.zeros(ex.shapes[out], device=dev)
+    return lambda: mr.lower(tensors)
+
+
+def host(say, dev):
+    """Host us per call of B5's scatter-add, a B5 gather and B6's softmax
+    entry points (no synchronize inside the timed calls)."""
+    mr, tensors, _, _ = scatter_call(dev)
+    gather = gather_call(dev)
+    softmax = softmax_call(dev)
+    say(f"host us per call: B5 scatter-add "
+        f"{host_us(lambda: mr.lower(tensors)):.1f}, B5 gather "
+        f"{host_us(gather):.1f}, B6 softmax 8192^2 {host_us(softmax):.1f} "
+        f"(package at "
+        f"{Path(sys.modules['exprgrad_torch'].__file__).parents[1]})")
+
+
+def timed_line(say, label, fn, calls=50):
+    hs, ev = host_us(fn), cuda_ms(fn, iters=calls, warmup=5)
+    named = device_kernels(fn, calls=calls // 2)
+    say(f"{label}: device {sum(named.values()):.5f} ms "
+        f"({ {k[:60]: round(t, 5) for k, t in named.items()} }), host "
+        f"{hs:.1f} us per call, CUDA events {ev:.5f} ms")
+
+
+def b5(say, dev):
+    from chip_smoke import scatter_tokens
+
+    mr, tensors, index_add, (tok_id, tok_t, g_t, prev) = scatter_call(dev)
+    timed_line(say, "B5 scatter-add uniform", lambda: mr.lower(tensors))
+    timed_line(say, "index_add uniform", index_add)
+    skew = torch.from_numpy(scatter_tokens("all on one destination",
+                                           tok_t.numel(), prev.shape[0]))
+    skew = skew.to(dev)
+    edge = {**tensors, tok_id: skew}
+    timed_line(say, "B5 scatter-add all on one destination",
+               lambda: mr.lower(edge))
+    timed_line(say, "index_add all on one destination",
+               lambda: prev.index_add(0, skew.long(), g_t))
+    host(say, dev)
+
+
+def b7_cases(dev):
+    from chip_smoke import (PAGED_BENCH_CASE, PAGED_BENCH_LENS,
+                            PAGED_BENCH_PAGES, PAGED_SERVING_CASE,
+                            PAGED_SERVING_LENS, paged_case)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return {"bench.py paged shape": paged_case(
+                gen, dev, *PAGED_BENCH_CASE, lens=PAGED_BENCH_LENS,
+                n_pages=PAGED_BENCH_PAGES),
+            "path (e) decode step": paged_case(
+                gen, dev, *PAGED_SERVING_CASE, lens=PAGED_SERVING_LENS,
+                n_pages=33)}
+
+
+def b7(say, dev):
+    from exprgrad_torch.ops import paged_attention as pa
+    from exprgrad_torch.ops.paged import gather_view
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, (q, pool, table, key_pos, q_pos) in b7_cases(dev).items():
+        mask = ((key_pos[:, None, None, :] >= 0)
+                & (key_pos[:, None, None, :] <= q_pos[:, None, :, None]))
+        gqa = {"enable_gqa": True} if q.shape[1] != pool.k.shape[1] else {}
+
+        def library(q=q, pool=pool, table=table, mask=mask, gqa=gqa):
+            view = gather_view(pool, table.clamp(min=0))
+            return sdpa(q, view.k.to(q.dtype), view.v.to(q.dtype),
+                        attn_mask=mask, **gqa)
+
+        timed_line(say, f"B7 {name}", lambda q=q, pool=pool, table=table,
+                   key_pos=key_pos, q_pos=q_pos: pa.paged_decode_attention(
+                       q, pool, table, key_pos, q_pos))
+        timed_line(say, f"gather_view + sdpa {name}", library)
+
+
+def b5_variants(say, dev):
+    """Each step of B5's scatter alone, and the walk without its gather
+    through the permutation: device ms and host us per call."""
+    from exprgrad_torch.ops import mapreduce as om
+    from exprgrad_torch.utils import triton_build
+
+    mr, tensors, _, _ = scatter_call(dev)
+    kern = mr.compiled()
+    plan = kern.plan
+    ops = [tensors[t].contiguous() for t in kern.tids]
+    out = torch.empty_like(tensors[kern.out_tid])
+    ws = om.group(kern, ops, 0, dev)
+    part = torch.empty(max(plan["part"], 1), device=dev)
+    counts = torch.zeros(max(plan["counts"], 1), dtype=torch.int32,
+                         device=dev)
+
+    def fn(name, source=kern.source):
+        return triton_build.load(source, name)
+
+    def keys_kernel():
+        triton_build.launch(fn("egt_scatter_keys"), (plan["keys_grid"],), 4,
+                            ws["keys"], *ops, 0)
+
+    rows = torch.arange(plan["K"] + 1, dtype=ws["keys"].dtype, device=dev)
+
+    def sort_only():
+        skeys, _ = torch.sort(ws["keys"], stable=True)
+        torch.searchsorted(skeys, rows, out_int32=True)
+
+    contiguous = kern.source.replace(
+        "p = tl.load(perm_ptr + s, mask=s_ok, other=0).to(tl.int32)",
+        "p = s")
+    assert contiguous != kern.source
+
+    def walk(source=kern.source):
+        triton_build.launch(fn("egt_mapreduce", source), plan["grid"],
+                            plan["num_warps"], out, part, counts,
+                            ws["sorted"], ws["perm"], ws["offsets"], *ops,
+                            0)
+
+    res, hosts = {}, {}
+    for _ in range(2):  # two turns, in the same order
+        for name, call in (("whole call", lambda: mr.lower(tensors)),
+                           ("keys kernel", keys_kernel),
+                           ("grouping (keys, then torch.sort and "
+                            "torch.searchsorted)",
+                            lambda: om.group(kern, ops, 0, dev)),
+                           ("torch.sort and torch.searchsorted", sort_only),
+                           ("walk (no grouping step)", walk),
+                           ("walk, contiguous positions",
+                            lambda: walk(contiguous))):
+            named = device_kernels(call, calls=20)
+            res.setdefault(name, []).append(round(sum(named.values()), 5))
+            hosts.setdefault(name, []).append(round(host_us(call), 1))
+    say(f"B5 variants at bench.py's scatter-add, device ms per call, two "
+        f"turns: {res}")
+    say(f"B5 variants at bench.py's scatter-add, host us per call, two "
+        f"turns: {hosts}")
+
+
+B7_CUTS = {
+    "loads only": [(r"consume\(ring, kp, ksc, vsc\);",
+                    "acc[0][0] += (float)ring[lane] + "
+                    "(float)ring[2 * kChunk * rowb - 1 - lane];")],
+    # q.k in two levels, a partial per 16 bytes of K (16-byte rows only)
+    "two-level q.k": [
+        (r"(unpack16\(\*reinterpret_cast<const uint4\*>\(krow \+ u \* 16\), "
+         r"kf, TKV\(\)\);)", r"\1\n        float part[ROWS] = {};"),
+        (r"s\[rr\] = fmaf\(s_q\[rr \* kMaxD \+ u \* kV \+ x\], kc, "
+         r"s\[rr\]\);\n        \}\n",
+         "part[rr] = fmaf(s_q[rr * kMaxD + u * kV + x], kc, part[rr]);\n"
+         "        }\n        for (int rr = 0; rr < ROWS; ++rr) "
+         "s[rr] += part[rr];\n")],
+}
+
+
+def int8_distance(say, dev, fns):
+    """At bench.py's paged shape with int8 pages whose scales are near 1
+    (scores up to +-200): the distance of the plain version and of each
+    build's kernel from the same formula in float64, beside that of the
+    formula with each score rounded once to float32 (``one rounding``)."""
+    from chip_smoke import (PAGED_BENCH_CASE, PAGED_BENCH_PAGES,
+                            PAGED_SPLIT_LENS, paged_case, paged_float64)
+    from exprgrad_torch.ops import paged_attention as pa
+    from exprgrad_torch.utils import kernels
+
+    gen = torch.Generator(device=dev)
+    res = {}
+    for seed in range(4):
+        gen.manual_seed(seed)
+        q, pool, table, key_pos, q_pos = paged_case(
+            gen, dev, *PAGED_BENCH_CASE[:-1], torch.int8,
+            n_pages=PAGED_BENCH_PAGES, lens=PAGED_SPLIT_LENS)
+        exact = paged_float64(q, pool, table, key_pos, q_pos)
+        outs = {"one rounding": paged_float64(q, pool, table, key_pos, q_pos,
+                                              round_scores=True),
+                "plain": pa.paged_decode_attention_plain(
+                    q, pool, table, key_pos, q_pos)}
+        b, h, t, d = q.shape
+        hkv, page = pool.k.shape[1], pool.k.shape[2]
+        P = table.shape[1]
+        rows = h // hkv * t
+        n_split, per = pa.split_plan(
+            P, page, b * hkv * -(-rows // pa.rows_per_block(rows)),
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        part = torch.empty(n_split * b * hkv * rows * (d + 2), device=dev)
+        for name, entry in fns.items():
+            out = outs[name] = torch.empty_like(q)
+            kernels.check(entry["egt_paged_decode"](
+                q.data_ptr(), pool.k.data_ptr(), pool.v.data_ptr(),
+                pool.k_scale.data_ptr(), pool.v_scale.data_ptr(),
+                table.data_ptr(), key_pos.data_ptr(), q_pos.data_ptr(),
+                out.data_ptr(), part.data_ptr(), b, h, hkv,
+                pool.k.shape[0], t, d, page, P, d ** -0.5, 0, 1, n_split,
+                per, 0, 2, torch.cuda.current_stream().cuda_stream),
+                "variant")
+        for name, out in outs.items():
+            res.setdefault(name, []).append(
+                f"{(out.double() - exact).abs().max().item():.3e}")
+    say(f"B7 int8 pages with scales near 1 at bench.py's paged shape, max "
+        f"|out - float64 formula|, seeds 0-3: {res}")
+
+
+def b7_variants(say, dev, out_dir):
+    """B7 with one split (no merge) and the port's split, then rebuilt with
+    parts cut out, by device time."""
+    from exprgrad_torch.ops import paged_attention as pa
+    from exprgrad_torch.utils import kernels
+
+    edits = {"port": lambda text: text}
+    for name, cuts in B7_CUTS.items():
+        edits[name] = regex_edit(cuts)
+    fns = build_variants(out_dir, "paged_attention.cu", ("egt_paged_decode",),
+                         edits)
+    int8_distance(say, dev, {n: fns[n] for n in ("port", "two-level q.k")})
+    for case, (q, pool, table, key_pos, q_pos) in b7_cases(dev).items():
+        b, h, t, d = q.shape
+        hkv, page = pool.k.shape[1], pool.k.shape[2]
+        P = table.shape[1]
+        rows = h // hkv * t
+        blocks = b * hkv * -(-rows // pa.rows_per_block(rows))
+        plan = pa.split_plan(P, page, blocks,
+                             torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        out = torch.empty_like(q)
+        part = torch.empty(P * b * hkv * rows * (d + 2), device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        res = {}
+        for _ in range(2):
+            for name, entry in fns.items():
+                for split, (n_split, per) in (("one split", (1, P)),
+                                              ("a split a page", (P, 1)),
+                                              ("split", plan)):
+                    if name != "port" and split != "split":
+                        continue
+                    fn = entry["egt_paged_decode"]
+
+                    def call(fn=fn, n_split=n_split, per=per):
+                        kernels.check(fn(
+                            q.data_ptr(), pool.k.data_ptr(),
+                            pool.v.data_ptr(), None, None, table.data_ptr(),
+                            key_pos.data_ptr(), q_pos.data_ptr(),
+                            out.data_ptr(), part.data_ptr(), b, h, hkv,
+                            pool.k.shape[0], t, d, page, P, d ** -0.5, 0, 1,
+                            n_split, per, 0, 1, stream), "variant")
+
+                    named = device_kernels(call, calls=20)
+                    res.setdefault(f"{name}, {split} {n_split}", []).append(
+                        round(sum(named.values()), 5))
+        say(f"B7 variants at {case} (q {tuple(q.shape)}, bf16 pool "
+            f"{tuple(pool.k.shape)}), device ms per call, two turns: {res}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/probe_torch_kernels.txt")
+    ap.add_argument("--parts", default="tensor,power,b5,b7",
+                    help="any of tensor, power, b5, b7, host")
     ap.add_argument("--skip-variants", action="store_true")
     ap.add_argument("--variants", default="fwd,bwd",
-                    help="which kernels' variants to time: fwd, bwd or both")
+                    help="which kernels' variants to time: fwd, bwd, b5, b7")
+    ap.add_argument("--root", default=str(ROOT),
+                    help="the checkout whose exprgrad_torch and chip_smoke "
+                    "run (read before the imports)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_torch_kernels: needs a CUDA device", file=sys.stderr)
@@ -368,8 +707,17 @@ def main() -> int:
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
-        times(say, gen, dev)
-        power(say, gen, dev)
+        parts = set(args.parts.split(","))
+        if "tensor" in parts:
+            times(say, gen, dev)
+        if "power" in parts:
+            power(say, gen, dev)
+        if "b5" in parts:
+            b5(say, dev)
+        elif "host" in parts:
+            host(say, dev)
+        if "b7" in parts:
+            b7(say, dev)
         which = set() if args.skip_variants else set(
             args.variants.split(","))
         out_dir = ROOT / "build" / "exprgrad_torch" / "probe_variants"
@@ -377,6 +725,10 @@ def main() -> int:
             variants(say, gen, dev, out_dir)
         if "bwd" in which:
             bwd_variants(say, gen, dev, out_dir)
+        if "b5" in which:
+            b5_variants(say, dev)
+        if "b7" in which:
+            b7_variants(say, dev, out_dir)
     return 0
 
 

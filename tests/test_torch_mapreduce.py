@@ -454,18 +454,64 @@ def egt_mapreduce(out_ptr, x0_ptr, x1_ptr, epoch):
 
 SCATTER = '''\
 @triton.jit(do_not_specialize=["epoch"])
-def egt_mapreduce(out_ptr, x0_ptr, x1_ptr, epoch):
-    p = tl.program_id(0) * 1024 + tl.arange(0, 1024)
-    p_ok = p < 1152
-    p1 = p % 24
-    p0 = p // 24
-    t0 = p0 * 24 + p1
-    t1 = tl.load(x0_ptr + t0, mask=p_ok, other=0.0).to(tl.float32)
-    acc = t1
-    t2 = tl.load(x1_ptr + p0, mask=p_ok, other=0.0).to(tl.float32)
-    t3 = t2.to(tl.int32)
-    t4 = t3 * 24 + p1
-    tl.atomic_add(out_ptr + t4, acc, mask=p_ok & (t3 >= 0) & (t3 < 11))
+def egt_scatter_keys(key_ptr, x0_ptr, x1_ptr, epoch):
+    p = tl.program_id(0) * 64 + tl.arange(0, 64)
+    p_ok = p < 48
+    p0 = p
+    t0 = tl.load(x0_ptr + p0, mask=p_ok, other=0.0).to(tl.float32)
+    t1 = t0.to(tl.int32)
+    key = (tl.zeros([64], tl.int32) + tl.where((t1 >= 0) & (t1 < 11), t1, 11)).to(tl.int16)
+    tl.store(key_ptr + p, key, mask=p_ok)
+
+@triton.jit(do_not_specialize=["epoch"])
+def egt_mapreduce(out_ptr, part_ptr, cnt_ptr, skey_ptr, perm_ptr, seg_ptr, x0_ptr, x1_ptr, epoch):
+    c = tl.program_id(1) * 32 + tl.arange(0, 32)
+    c_ok = c < 24
+    q1 = c
+    Q_ok = c_ok[None, :]
+    Q1 = q1[None, :]
+    pid = tl.program_id(0)
+    owner = pid < 11
+    lo_c = (pid - 11) * 128
+    live = (pid >= 11) & (lo_c < tl.load(seg_ptr + 11))
+    row = tl.where(owner, pid, tl.load(skey_ptr + lo_c, mask=live, other=11))
+    start = tl.load(seg_ptr + row)
+    stop = tl.load(seg_ptr + row + 1, mask=row < 11, other=0)
+    live = owner | (live & (start < lo_c))
+    lo = tl.where(owner, start, lo_c)
+    hi = tl.where(owner, tl.minimum(stop, (start // 128 + 1) * 128), tl.where(live, tl.minimum(stop, lo_c + 128), lo_c))
+    acc = tl.full([8, 32], 0.0, tl.float32)
+    for s0 in range(lo, hi, 8):
+        s = s0 + tl.arange(0, 8)
+        s_ok = s < hi
+        p = tl.load(perm_ptr + s, mask=s_ok, other=0).to(tl.int32)
+        p0 = p
+        P_ok = s_ok[:, None]
+        P0 = p0[:, None]
+        t0 = P0 * 24 + Q1
+        t1 = tl.load(x1_ptr + t0, mask=P_ok & Q_ok, other=0.0).to(tl.float32)
+        v = tl.where(P_ok & Q_ok, t1, 0.0)
+        acc = acc + v
+    acc = tl.sum(acc, axis=0)
+    c0 = start // 128
+    c1 = (stop - 1) // 128
+    multi = (stop > start) & (c1 > c0)
+    if owner & ~multi:
+        o = (row) * 24 + q1
+        tl.store(out_ptr + o, acc.to(tl.float32), mask=c_ok)
+    if live & multi:
+        at = tl.where(owner, c0, pid - 11 + 1)
+        tl.store(part_ptr + at * 24 + c, acc, mask=c_ok)
+        tl.debug_barrier()
+        n = tl.atomic_add(cnt_ptr + c0 * 1 + tl.program_id(1), 1)
+        if n == c1 - c0:
+            acc = tl.load(part_ptr + c0 * 24 + c, mask=c_ok, cache_modifier=".cg")
+            for e in range(c0 + 1, c1 + 1):
+                carried = tl.load(part_ptr + (e + 1) * 24 + c, mask=c_ok, cache_modifier=".cg")
+                acc = acc + carried
+            o = (row) * 24 + q1
+            tl.store(out_ptr + o, acc.to(tl.float32), mask=c_ok)
+            tl.store(cnt_ptr + c0 * 1 + tl.program_id(1), 0)
 '''
 
 GOLDEN = {"stencil": (fam_stencil, STENCIL),
@@ -512,18 +558,35 @@ def test_reductions_loop_inside_one_program(family):
     assert mr.q_axes and not mr.scatter
 
 
-@pytest.mark.parametrize("family,atomic", [
-    ("scatter_add", "tl.atomic_add"), ("scatter_max", "tl.atomic_max"),
-    ("scatter_min", "tl.atomic_min"), ("pure_scatter", "tl.atomic_add")])
-def test_scatters_are_masked_float32_atomics(family, atomic):
-    """A scatter adds (or takes the max or min) with one float32 atomic
-    per position, masked to targets inside the tensor."""
+@pytest.mark.parametrize("family,reduce", [
+    ("scatter_add", "tl.sum"), ("scatter_max", "tl.max"),
+    ("scatter_min", "tl.min"), ("pure_scatter", "tl.sum")])
+def test_scatters_are_masked_float32_atomics(family, reduce):
+    """A scatter owns its output (the name is the atomic design's, which
+    this replaced): no float atomic in its source, only the int32 count
+    of a long segment's finished pieces (its grouping is a stable sort of
+    integer keys); the keys kernel drops a target outside the tensor (key
+    K); the reduction walks a segment with the mode's reduce and stores
+    each owned element once: its owner, or the last of its pieces."""
     mr = _kernel_of(MAPREDUCE_FAMILIES[family])
-    source = mr.compiled().source
-    (line,) = [ln.strip() for ln in source.splitlines()
-               if ln.strip().startswith("tl.atomic")]
-    assert line.startswith(atomic + "(out_ptr + ")
-    assert f"< {mr.scatter['V']})" in line and ">= 0)" in line
+    kern = mr.compiled()
+    source = kern.source
+    atomics = [ln.strip() for ln in source.splitlines() if "tl.atomic" in ln]
+    assert len(atomics) == 1
+    assert atomics[0].startswith("n = tl.atomic_add(cnt_ptr + c0 * ")
+    keys, body = source.split("def egt_mapreduce(")
+    (key,) = [ln.strip() for ln in keys.splitlines()
+              if ln.strip().startswith("key = ")]
+    sc = mr.scatter
+    assert f"< {sc['V']})" in key and ">= 0)" in key
+    assert key.endswith(f", {sc['K']})).to(tl.int16)")
+    assert f"{reduce}(acc, axis=0)" in body
+    stores = [ln.strip() for ln in body.splitlines()
+              if "tl.store(out_ptr" in ln]
+    assert len(stores) == 2 and stores[0] == stores[1]
+    assert "    if owner & ~multi:" in body and "if n == c1 - c0:" in body
+    chunks = kern.plan["chunks"]  # a program a row, one a later chunk
+    assert kern.plan["grid"][0] == sc["K"] + (chunks if chunks > 1 else 0)
 
 
 def test_positions_past_int32_index_in_int64():

@@ -328,3 +328,116 @@ def test_validation_errors_match_jax():
     meta = paged.PagedKVPool(k=pool.k.to("meta"), v=pool.v.to("meta"))
     with pytest.raises(ValueError, match="no paged-attention kernel"):
         f(q.to("meta"), meta, tbl.to("meta"), kp.to("meta"), qp.to("meta"))
+
+
+# -- B7's split plan and its split-then-merge --------------------------------
+
+@pytest.mark.parametrize("P,page,blocks,sms", [
+    (16, 128, 64, 132), (8, 32, 32, 132), (1, 64, 64, 132),
+    (64, 128, 8, 132), (5, 256, 1, 132), (7, 128, 300, 132),
+    (128, 16, 16, 132), (3, 128, 2, 8), (0, 128, 4, 132), (9, 1, 4, 132),
+    (100, 12, 8, 132)])
+def test_split_plan_covers_the_table_once(P, page, blocks, sms):
+    """Contiguous splits that cover every table entry exactly once, none
+    empty; each of at least one page and 256 slots (two 32-slot chunks for
+    each of a block's four warps) where the table holds them; and enough
+    splits for two blocks per SM where those rules leave the entries."""
+    n_split, per = paged_attention.split_plan(P, page, blocks, sms)
+    width = max(P, 1)
+    ranges = [(z * per, min(width, (z + 1) * per)) for z in range(n_split)]
+    covered = [e for lo, hi in ranges for e in range(lo, hi)]
+    assert covered == list(range(width))
+    assert all(hi > lo for lo, hi in ranges) and per >= 1
+    assert per * page >= 256 or per == width
+    if width // -(-256 // page) >= -(-2 * sms // blocks):
+        assert n_split * blocks >= 2 * sms
+
+
+def test_split_plan_at_the_paths_shapes():
+    """bench.py's paged shape (64 blocks, 16 entries of 128 slots) runs 6
+    splits of 3 pages (the last of 1); path (e)'s decode step (32 blocks,
+    8 entries of 32 slots, 256 in all) one split."""
+    assert paged_attention.split_plan(16, 128, 64, 132) == (6, 3)
+    assert paged_attention.split_plan(8, 32, 32, 132) == (1, 8)
+    assert [paged_attention.rows_per_block(r) for r in (1, 2, 3, 5, 8, 12)] \
+        == [1, 4, 4, 8, 8, 8]
+
+
+def _split_merge(q, pool, table, key_pos, q_pos, window, n_split, per):
+    """B7's arithmetic in plain PyTorch: each split's partial softmax
+    (m, l, acc) over its table entries, then the merge in split order that
+    skips splits with m = -inf; a row no split sees gives 0."""
+    b, h, t, d = q.shape
+    _, hkv, page, _ = pool.k.shape
+    group = h // hkv
+    view = paged.gather_view(pool, table.clamp(min=0))
+    k = view.k.float()
+    v = view.v.float()
+    if view.k_scale is not None:
+        k = k * view.k_scale[..., None]
+        v = v * view.v_scale[..., None]
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    allocated = (table >= 0).repeat_interleave(page, dim=1)
+    kp = key_pos.long()[:, None, :]
+    qp = q_pos.long()[:, :, None]
+    keep = (kp >= 0) & (kp <= qp) & allocated[:, None, :]
+    if window is not None:
+        keep = keep & (kp > qp - window)
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k) / d ** 0.5
+    s = s.masked_fill(~keep[:, None], -torch.inf)
+    parts = []
+    for z in range(n_split):
+        lo, hi = z * per * page, (z + 1) * per * page
+        sz = s[..., lo:hi]
+        m = sz.amax(-1, keepdim=True)
+        p = torch.where(torch.isneginf(m), torch.zeros_like(sz),
+                        torch.exp(sz - m))
+        parts.append((m, p.sum(-1, keepdim=True), p @ v[:, :, lo:hi]))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    num = torch.zeros_like(parts[0][2])
+    den = torch.zeros_like(parts[0][1])
+    for m, l, acc in parts:
+        f = torch.where(torch.isneginf(m), torch.zeros_like(m),
+                        torch.exp(m - mx))
+        num, den = num + f * acc, den + f * l
+    out = torch.where(den > 0, num / den.clamp(min=1e-30),
+                      torch.zeros_like(num))
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("b,h,hkv,t,d,P,page,dtype,window", SEVEN,
+                         ids=["mha", "gqa", "mqa", "t3", "window", "int8",
+                              "bf16_window"])
+@pytest.mark.parametrize("splits", ["plan", "one", "every page"])
+def test_split_then_merge_matches_jax_kernel(b, h, hkv, t, d, P, page, dtype,
+                                             window, splits):
+    """The split-then-merge at the plan's split, at one split and at one
+    split per page, within TOL of the JAX Pallas kernel (interpret mode)
+    on the rows that see a key; rows that see none give 0."""
+    rng = np.random.default_rng(hash((b, h, t, d, P, page)) % 2**31)
+    jp, tp, table, key_pos, q_pos = _random_case(
+        rng, b, hkv, t, d, P, page, 4 * P, dtype)
+    q = rng.normal(size=(b, h, t, d)).astype(np.float32)
+    key_pos[-1, :] = -1 if b > 1 else key_pos[-1, :]  # a row with no key
+    want = np.asarray(jax_paged_attention(
+        jnp.asarray(q), jp, jnp.asarray(table), jnp.asarray(key_pos),
+        jnp.asarray(q_pos), window=window), np.float32)
+    rows = (h // hkv) * t
+    blocks = b * hkv * -(-rows // paged_attention.rows_per_block(rows))
+    n_split, per = {"plan": paged_attention.split_plan(P, page, blocks,
+                                                       132),
+                    "one": (1, P), "every page": (P, 1)}[splits]
+    got = _split_merge(torch.as_tensor(q), tp, torch.as_tensor(table),
+                       torch.as_tensor(key_pos), torch.as_tensor(q_pos),
+                       window, n_split, per)
+    live = paged_attention._live_rows(torch.as_tensor(key_pos),
+                                      torch.as_tensor(q_pos), window).numpy()
+    assert live.any()
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 1, 3)[live],
+                               want.transpose(0, 2, 1, 3)[live], **TOL)
+    assert torch.all(got.transpose(1, 2)[torch.as_tensor(~live)] == 0)
+    plain = paged_attention.paged_decode_attention(
+        torch.as_tensor(q), tp, torch.as_tensor(table),
+        torch.as_tensor(key_pos), torch.as_tensor(q_pos), window=window)
+    torch.testing.assert_close(got, plain, **TOL)
