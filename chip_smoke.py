@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve,
-train, run scheduled contractions, map/reduce kernels and row chains, and
-serve a continuous batch over a paged KV pool.
+train, run scheduled contractions, map/reduce kernels and row chains,
+serve a continuous batch over a paged KV pool, and train the reference
+examples' models.
 
     python3 chip_smoke.py
 
@@ -83,7 +84,25 @@ Phases (any failed check raises and the script exits non-zero):
    launches once per block per decode dispatch, with "gather" never;
    the pool preempts and every page comes back; with a float32 cache
    the greedy streams of flash, gather and solo generate agree but at
-   near-ties of the solo logits; the bfloat16 drives are timed.
+   near-ties of the solo logits; the bfloat16 drives are timed;
+13. path (f), the north-star workloads: xor_mlp and xor_from_scratch
+   (1000 steps of the examples' SGD) and derivative, at the examples'
+   sizes; fashion_mnist_cnn (precision "highest") at bench.py's epoch
+   (8192 samples, batch 256, fit(scan_batches=True)), whose fit must
+   lower 5 or more kernels to cuDNN convolutions and none to a scatter,
+   and at the example's epoch (4096 synthetic samples, batch 32) through
+   Batches and fit_epochs(prefetch=2), whose checkpoint a
+   CheckpointManager restores on the CPU to predict the same; each
+   against the CPU port, as phase 5 holds training; the epochs' seconds
+   and samples/s;
+14. path (g): flash_transformer at the serving widths with 4 experts,
+   top 2: predict on [8, 256] and two adam steps on phase 5's data
+   against the CPU port, the flash kernels launching 2 a predict and 2
+   each a step; the time of a step;
+15. path (h): examples/rnn_lm.py's recurrent LM (its BPE tokenizer and
+   text, windows of 24): 10 adam steps of each cell (lstm, gru, tanh)
+   against the CPU port, each parameter within 10% of its update; the
+   time of a step.
 
 B1-B4 compute float32 on the tensor cores as split TF32 and are held
 to the same tolerances as the float32 kernels before them
@@ -227,6 +246,25 @@ PAGED_BENCH_PAGES = 8 * 16 + 1
 # 1500, 700, 1800 slots) and whose later splits hold no resident page (129
 # and 1 slots)
 PAGED_SPLIT_LENS = (2048, 1000, 1500, 700, 2000, 129, 1, 1800)
+
+# Phases 13-15, the reference examples' models.  Path (f): the xor
+# examples' SGD (rate 0.1, seed 10, examples/xor.py) cut from 5000 steps to
+# XOR_STEPS; bench.py's fashion-MNIST epoch (bench.py:1227-1245: 8192
+# samples of N(0, 1) from seed 0, batch 256) and the example's
+# (examples/fashion_mnist.py:41-53: 4096 synthetic samples, batch 32).
+XOR_STEPS = 1000
+MNIST_BENCH = dict(n=8192, batch=256)
+MNIST_EXAMPLE = dict(n=4096, batch=32, prefetch=2)
+# path (g): the serving widths with 4 experts, top 2
+# (tests/test_moe_layer.py:143)
+MOE = dict(SERVING, moe_experts=4, moe_k=2)
+MOE_STEPS = 2
+# path (h): examples/rnn_lm.py (its text, BPE to 300, LSTM dim 24 hidden
+# 48, eta 0.02, windows of 24 every 4 tokens), 10 steps of each cell
+RNN_TEXT = ("the quick brown fox jumps over the lazy dog. "
+            "the quick brown fox naps under the lazy sun. ") * 4
+RNN = dict(dim=24, hidden=48, eta=0.02)
+RNN_SEQ, RNN_STEPS = 24, 10
 
 
 def gpu_line() -> str:
@@ -2228,6 +2266,310 @@ def path_e(egt, gpu) -> dict:
             "same_bf16": same}
 
 
+# --- the reference examples' models (phases 13-15) ------------------------
+
+def mnist_synthetic(egt, rng, n):
+    """examples/fashion_mnist.py:44-50's synthetic set: N(0, 0.1) noise
+    with a bright 10x10 square at the label's offset; one-hot labels."""
+    labels = rng.integers(0, 10, n)
+    x = rng.normal(0, 0.1, (n, 28, 28)).astype(np.float32)
+    for i, label in enumerate(labels):
+        x[i, label:label + 10, label:label + 10] += 1.0
+    return x, egt.one_hot(labels, 10)
+
+
+def derivative_graph(egt):
+    """examples/derivative.py's program: y = x^2 and its gradient."""
+    x = egt.input("x")
+    it = egt.iters("it")
+    y = egt.Fun("y")
+    y[it] = x[it] * x[it]
+    return y.target("y").backwards().grad(x).target("grad_x")
+
+
+def trained_alike(name, card, cpu, start, batch, loss_atol=0.0) -> float:
+    """Assert the card's model and the CPU port's, after the same steps
+    from ``start``, agree as the serving train check holds them: the loss
+    on ``batch`` (TRAIN_LOSS, plus ``loss_atol``) and the parameters
+    within TRAIN_UPDATE_RTOL of the update in L2 norm.  Returns the
+    update error."""
+    loss = float(card.call("loss", batch)[0])
+    cpu_loss = float(cpu.call("loss", batch)[0])
+    rel, worst = update_err(card.params, cpu.params, start)
+    print(f"{name}: loss {loss:.6f} vs CPU {cpu_loss:.6f}; parameters vs "
+          f"CPU: |diff| / |update| {rel:.3e}, max |diff| {worst:.3e}")
+    np.testing.assert_allclose(loss, cpu_loss, rtol=TRAIN_LOSS["rtol"],
+                               atol=loss_atol)
+    assert rel <= TRAIN_UPDATE_RTOL, (name, rel)
+    return rel
+
+
+def path_f(egt, gpu) -> dict:
+    """Phase 13: the north-star workloads.  xor and xor_from_scratch
+    (XOR_STEPS steps of the examples' SGD) and derivative at their
+    examples' sizes; fashion_mnist_cnn at bench.py's epoch (scan_batches)
+    and at the example's epoch (Batches + fit_epochs with prefetch), then
+    a CheckpointManager round trip from the card to the CPU.  Each against
+    the CPU port."""
+    import shutil
+
+    from exprgrad_torch.io import Batches, CheckpointManager, Prefetcher, \
+        fit_epochs
+    from exprgrad_torch.models import fashion_mnist_cnn
+    from exprgrad_torch.utils import kernels
+
+    out = {}
+    xor = {"x": np.array([[0, 0], [0, 1], [1, 0], [1, 1]], np.float32),
+           "y": np.array([[0], [1], [1], [0]], np.float32)}
+    for name in ("xor_mlp", "xor_from_scratch"):
+        graph = getattr(egt.models, name)(rate=0.1)
+        card = egt.compile(graph, seed=10, device="cuda")
+        cpu = egt.compile(graph, seed=10, device="cpu")
+        np.testing.assert_allclose(card.call("predict", xor),
+                                   cpu.call("predict", xor), **PREDICT)
+        start = {t: v.clone() for t, v in cpu.params.items()}
+        loss0 = float(card.call("loss", xor)[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(XOR_STEPS):
+            card.apply("train", xor)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for _ in range(XOR_STEPS):
+            cpu.apply("train", xor)
+        trained_alike(f"path (f) {name} after {XOR_STEPS} steps", card, cpu,
+                      start, xor)
+        loss = float(card.call("loss", xor)[0])
+        assert loss < loss0, (name, loss0, loss)
+        print(f"path (f) {name}: loss {loss0:.4f} -> {loss:.4f}, "
+              f"{secs / XOR_STEPS * 1e3:.3f} ms a step on {gpu}")
+        out[name] = secs
+
+    xs = np.linspace(-2, 2, 9).astype(np.float32)
+    card = egt.compile(derivative_graph(egt), device="cuda")
+    cpu = egt.compile(derivative_graph(egt), device="cpu")
+    for target, want in (("y", xs * xs), ("grad_x", 2 * xs)):
+        got = card.call(target, {"x": xs})
+        np.testing.assert_allclose(got, cpu.call(target, {"x": xs}),
+                                   **PREDICT)
+        np.testing.assert_allclose(got, want, **PREDICT)
+    print("path (f) derivative: y and grad_x match the CPU port and 2x")
+
+    # bench.py's epoch: 8192 samples of N(0, 1), batch 256, one scan
+    rng = np.random.default_rng(0)
+    n, batch = MNIST_BENCH["n"], MNIST_BENCH["batch"]
+    data = {"x": rng.normal(size=(n, 28, 28)).astype(np.float32),
+            "y": egt.one_hot(rng.integers(0, 10, n), 10)}
+    first = {k: v[:batch] for k, v in data.items()}
+    card = egt.compile(fashion_mnist_cnn(), seed=0, device="cuda")
+    cpu = egt.compile(fashion_mnist_cnn(), seed=0, device="cpu")
+    probs = card.call("predict", {"x": first["x"]})
+    err = float(np.abs(probs - cpu.call("predict", {"x": first["x"]})).max())
+    np.testing.assert_allclose(probs, cpu.call("predict", {"x": first["x"]}),
+                               **PREDICT)
+    start = {t: v.clone() for t, v in cpu.params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card.fit("fit", data, batch_size=batch, scan_batches=True,
+             log_status=False)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    stats = card.lowering_stats("fit")
+    print(f"path (f) fashion_mnist_cnn fit lowering {stats}; predict "
+          f"[{batch},28,28] vs the CPU port: max |err| {err:.3e}")
+    assert stats.get("conv", 0) >= 5, stats
+    assert "general-scatter" not in stats, stats
+    cpu.fit("fit", data, batch_size=batch, scan_batches=True,
+            log_status=False)
+    trained_alike("path (f) bench.py epoch", card, cpu, start, first)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card.fit("fit", data, batch_size=batch, scan_batches=True,
+             log_status=False)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    print(f"path (f) bench.py epoch ({n} samples, batch {batch}, "
+          f"scan_batches, precision highest): {warm:.3f} s warm "
+          f"({n / warm:.1f} samples/s), {cold:.3f} s cold, on {gpu}")
+    out["bench_epoch_s"] = warm
+
+    # the example's epoch through Batches + fit_epochs, then a checkpoint
+    rng = np.random.default_rng(0)
+    n, batch = MNIST_EXAMPLE["n"], MNIST_EXAMPLE["batch"]
+    train_x, train_y = mnist_synthetic(egt, rng, n)
+    test_x, test_y = mnist_synthetic(egt, rng, 512)
+    test = {"x": test_x, "y": test_y}
+    card = egt.compile(fashion_mnist_cnn(eta=0.01), seed=0, device="cuda")
+    cpu = egt.compile(fashion_mnist_cnn(eta=0.01), seed=0, device="cpu")
+    placed = next(iter(Prefetcher(Batches({"x": train_x}, batch), depth=1,
+                                  dtype=np.float32, placement=card.device)))
+    assert card._to_device(placed["x"]) is placed["x"], "a copy at apply"
+    start = {t: v.clone() for t, v in cpu.params.items()}
+    loss0 = float(card.call("loss", test)[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_epochs(card, "fit", Batches({"x": train_x, "y": train_y}, batch,
+                                    seed=0),
+               epochs=1, prefetch=MNIST_EXAMPLE["prefetch"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fit_epochs(cpu, "fit", Batches({"x": train_x, "y": train_y}, batch,
+                                   seed=0),
+               epochs=1, prefetch=MNIST_EXAMPLE["prefetch"])
+    # the epoch drives the loss down by orders of magnitude (the set is
+    # separable): its last digits are the adam entries whose sign flipped,
+    # so the loss is held to TRAIN_LOSS's 1e-3 of the loss it started at
+    trained_alike("path (f) example epoch", card, cpu, start, test,
+                  loss_atol=TRAIN_LOSS["rtol"] * loss0)
+    accuracy = egt.classification_accuracy(card, {"x": test_x}, test_y)
+    print(f"path (f) example epoch ({n} samples, batch {batch}, Batches + "
+          f"fit_epochs(prefetch={MNIST_EXAMPLE['prefetch']})): {secs:.3f} s "
+          f"({n / secs:.1f} samples/s, first call included); test loss "
+          f"{loss0:.4f} -> {float(card.call('loss', test)[0]):.6f}, "
+          f"accuracy {accuracy:.4f}, on {gpu}")
+    out["example_epoch_s"] = secs
+
+    directory = kernels.BUILD_DIR / "chip_smoke_checkpoints"
+    shutil.rmtree(directory, ignore_errors=True)
+    manager = CheckpointManager(str(directory), keep=1)
+    manager.save(card)
+    restored = manager.restore(device="cpu")
+    shutil.rmtree(directory)
+    assert restored.device.type == "cpu" and restored.epoch == card.epoch
+    got = restored.call("predict", {"x": test_x})
+    want = card.call("predict", {"x": test_x})
+    ckpt_err = float(np.abs(got - want).max())
+    np.testing.assert_allclose(got, want, **PREDICT)
+    print(f"path (f) CheckpointManager: step {card.epoch} from the card "
+          f"restored on the CPU predicts the same, max |err| {ckpt_err:.3e}")
+    return out
+
+
+def path_g(egt, attention, gpu) -> dict:
+    """Phase 14: flash_transformer with 4 experts (top 2) at the serving
+    widths: predict on [8, 256] and two adam train steps on the "+1
+    cycle" data, against the CPU port, with the flash kernels' launches."""
+    from exprgrad_torch.models import flash_transformer
+
+    graph = flash_transformer(**MOE)
+    card = egt.compile(graph, seed=0, device="cuda")
+    cpu = egt.compile(graph, seed=0, device="cpu")
+    blocks = MOE["blocks"]
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, MOE["vocab"], (BATCH, SEQ)).astype(np.float32)
+    attention.launches = attention.dq_launches = attention.dkv_launches = 0
+    probs = card.call("predict", {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = {"forward": attention.launches, "dq": 0, "dkv": 0}
+    stats = card.lowering_stats("predict")
+    assert launches["forward"] == blocks, launches
+    assert stats.get("attention-impl:flash") == blocks, stats
+    assert stats.get("extern:moe") == blocks, stats
+    cpu_probs = cpu.call("predict", {"tokens": tokens})
+    err = float(np.abs(probs - cpu_probs).max())
+    np.testing.assert_allclose(probs, cpu_probs, **PREDICT)
+    print(f"path (g) predict [{BATCH},{SEQ}]: flash forward launches "
+          f"{launches['forward']}, lowering {stats}; vs the CPU port max "
+          f"|err| {err:.3e}")
+
+    data = lm_data(np.random.default_rng(0), MOE["vocab"], BATCH, SEQ)
+    start = {t: v.clone() for t, v in cpu.params.items()}
+    attention.launches = attention.dq_launches = attention.dkv_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MOE_STEPS):
+        card.epoch += 1
+        card.apply("train", data)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3 / MOE_STEPS
+    train = {"forward": attention.launches, "dq": attention.dq_launches,
+             "dkv": attention.dkv_launches}
+    stats = card.lowering_stats("train")
+    print(f"path (g) {MOE_STEPS} train steps: flash launches {train}, "
+          f"lowering {stats}")
+    assert train == {k: blocks * MOE_STEPS for k in train}, train
+    assert stats.get("attention-grad-impl:flash") == blocks, stats
+    assert stats.get("extern:moe_grad") == 6 * blocks, stats
+    for _ in range(MOE_STEPS):
+        cpu.epoch += 1
+        cpu.apply("train", data)
+    trained_alike(f"path (g) {MOE_STEPS} train steps", card, cpu, start, data)
+    for k in launches:
+        launches[k] += train[k]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        card.epoch += 1
+        card.apply("train", data)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    print(f"path (g) train step [{BATCH},{SEQ}] with {MOE['moe_experts']} "
+          f"experts, top {MOE['moe_k']}: {step_ms:.2f} ms (mean of "
+          f"{TIMED_STEPS} warm steps; the first {MOE_STEPS} took "
+          f"{first_ms:.2f} ms each) on {gpu}")
+    return {"launches": launches, "step_ms": step_ms}
+
+
+def path_h(egt, gpu) -> dict:
+    """Phase 15: examples/rnn_lm.py's recurrent LM (its BPE tokenizer on
+    its text, windows of RNN_SEQ): RNN_STEPS adam steps for each cell,
+    against the CPU port, every parameter within TRAIN_UPDATE_RTOL of its
+    own update in L2 norm."""
+    from exprgrad_torch.io import BPETokenizer
+    from exprgrad_torch.models import tiny_recurrent_lm
+
+    tok = BPETokenizer.train(RNN_TEXT, vocab_size=300)
+    ids = np.asarray(tok.encode(RNN_TEXT), np.int64)
+    assert tok.decode(ids) == RNN_TEXT
+    vocab = tok.vocab_size
+    starts = np.arange(0, len(ids) - RNN_SEQ - 1, 4)
+    args = {"tokens": np.stack([ids[s:s + RNN_SEQ] for s in starts]).astype(
+        np.float32),
+            "labels": np.eye(vocab, dtype=np.float32)[
+                np.stack([ids[s + 1:s + RNN_SEQ + 1] for s in starts])]}
+    out = {}
+    for cell, op in (("lstm", "lstm"), ("gru", "gru"), ("rnn", "rnn_tanh")):
+        graph = tiny_recurrent_lm(vocab=vocab, cell=cell, **RNN)
+        card = egt.compile(graph, seed=0, device="cuda")
+        cpu = egt.compile(graph, seed=0, device="cpu")
+        start = {t: v.clone() for t, v in cpu.params.items()}
+        loss0 = float(card.call("loss", args)[0])
+        times = []
+        for _ in range(RNN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card.epoch += 1
+            card.apply("train", args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        for _ in range(RNN_STEPS):
+            cpu.epoch += 1
+            cpu.apply("train", args)
+        stats = card.lowering_stats("train")
+        assert stats.get(f"extern:{op}") == 1, stats
+        assert stats.get(f"extern:{op}_grad") == 4, stats
+        trained_alike(f"path (h) {cell} after {RNN_STEPS} steps", card, cpu,
+                      start, args)
+        worst = 0.0
+        for tid in start:
+            rel, _ = update_err({tid: card.params[tid]},
+                                {tid: cpu.params[tid]}, start)
+            worst = max(worst, rel)
+            assert rel <= TRAIN_UPDATE_RTOL, (
+                cell, card.program.tensors[tid].name, rel)
+        loss = float(card.call("loss", args)[0])
+        assert loss < loss0, (cell, loss0, loss)
+        warm_ms = float(np.mean(times[1:])) * 1e3
+        print(f"path (h) {cell} [{len(starts)},{RNN_SEQ}], vocab {vocab}: "
+              f"loss {loss0:.4f} -> {loss:.4f} in {RNN_STEPS} steps; worst "
+              f"parameter |diff| / |update| vs CPU {worst:.3e}; "
+              f"{warm_ms:.2f} ms a step warm ({times[0] * 1e3:.1f} ms the "
+              f"first) on {gpu}")
+        out[cell] = warm_ms
+    return out
+
+
 def phase_done(name, since) -> float:
     """Print a phase's seconds; returns the time it ended."""
     now = time.perf_counter()
@@ -2516,7 +2858,26 @@ def main() -> int:
             "129x8x128x128", PAGED_BENCH_CASE, PAGED_BENCH_LENS,
             PAGED_BENCH_PAGES)}
     path_e_run = path_e(egt, gpu)
-    phase_done("12 (paged attention, path (e))", t_phase)
+    t_phase = phase_done("12 (paged attention, path (e))", t_phase)
+
+    # 13.-15. the reference examples' models, each path with the
+    # counters at 0 just before it ------------------------------------
+    path_f(egt, gpu)
+    t_phase = phase_done("13 (path (f): xor, derivative, fashion-MNIST)",
+                         t_phase)
+    path_g_run = path_g(egt, attention, gpu)
+    t_phase = phase_done("14 (path (g): flash_transformer with experts)",
+                         t_phase)
+    path_h(egt, gpu)
+    phase_done("15 (path (h): the recurrent LM)", t_phase)
+    flash_launches = {"forward": launches + path_g_run["launches"]["forward"],
+                      "dq": train_launches["dq"]
+                      + path_g_run["launches"]["dq"],
+                      "dkv": train_launches["dkv"]
+                      + path_g_run["launches"]["dkv"]}
+    print(f"flash kernel launches: serving predict {launches} and train "
+          f"{train_launches}, path (g) {path_g_run['launches']}; in all "
+          f"{flash_launches}")
     q, k, v = cases[0][1]
     print(f"scaled_dot_product_attention [8,4,256,128] f32 causal runs "
           f"{kernel_names(lambda: sdpa(q, k, v, is_causal=True))}")
@@ -2565,15 +2926,16 @@ def main() -> int:
     print(gpu)
     print(json.dumps({"kernels": [
         row("flash_attention_forward", "exprgrad_torch/csrc/flash_fwd.cu",
-            "exprgrad_tpu/ops/attention.py:293", launches, slice_err,
+            "exprgrad_tpu/ops/attention.py:293", flash_launches["forward"],
+            slice_err,
             kernel_ms, plain_ms, sdpa_ms, att_bounds["forward"]),
         row("flash_attention_backward_dq", "exprgrad_torch/csrc/flash_bwd.cu",
-            "exprgrad_tpu/ops/attention.py:375", train_launches["dq"],
+            "exprgrad_tpu/ops/attention.py:375", flash_launches["dq"],
             bwd_err[0], bwd_times["dq"], bwd_times["plain"], sdpa_bwd_ms,
             att_bounds["dq"]),
         row("flash_attention_backward_dkv",
             "exprgrad_torch/csrc/flash_bwd.cu",
-            "exprgrad_tpu/ops/attention.py:444", train_launches["dkv"],
+            "exprgrad_tpu/ops/attention.py:444", flash_launches["dkv"],
             bwd_err[1], bwd_times["dkv"], bwd_times["plain"], sdpa_bwd_ms,
             att_bounds["dkv"]),
         row("scheduled_matmul", "exprgrad_torch/csrc/matmul.cu",

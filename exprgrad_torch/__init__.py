@@ -17,8 +17,8 @@ Quick start::
     model.fit("train", {"tokens": tokens, "labels": labels}, batch_size=8)
     probs = model.call("predict", {"tokens": tokens})
 
-Checkpoints: ``exprgrad_torch.io``; the training driver:
-``exprgrad_torch.train``.
+Checkpoints, checkpoint rotation and dataset iteration:
+``exprgrad_torch.io``; the multi-epoch training loop: :func:`train`.
 """
 
 from .errors import (
@@ -80,16 +80,29 @@ from .fun import (
 from . import models
 from .model import Model, compile, from_state
 from .registry import register_extern
-from .tensor import Tensor
+from .train import classification_accuracy, evaluate, train
+from .tensor import (
+    Tensor,
+    concat_first,
+    one_hot,
+    remap,
+    select_random_samples,
+    select_samples,
+    shuffle_xy,
+    squares,
+    view_first,
+)
 
 __all__ = [
     "Boolean", "Index", "Scalar", "Fun", "Model", "Tensor", "array", "cache",
-    "compile", "cond", "cos", "debug_index", "debug_scalar", "epoch", "exp",
+    "classification_accuracy", "compile", "concat_first", "cond", "cos",
+    "debug_index", "debug_scalar", "epoch", "evaluate", "exp",
     "extern", "extern_grads", "from_state", "grad", "input", "input_",
     "irange", "iters", "layer", "ln", "log", "log10", "log2", "make_opt",
-    "maximum", "minimum", "models", "param", "pow_", "rand",
-    "register_extern", "select", "sin", "sq", "sqrt", "to_index",
-    "to_program", "to_scalar", "wrap",
+    "maximum", "minimum", "models", "one_hot", "param", "pow_", "rand",
+    "register_extern", "remap", "select", "select_random_samples",
+    "select_samples", "shuffle_xy", "sin", "sq", "sqrt", "squares",
+    "to_index", "to_program", "to_scalar", "train", "view_first", "wrap",
     "ExprgradError", "GradientError", "GeneratorError", "KernelTypeError",
     "ModelRuntimeError", "ParserError", "RematWarning", "ScheduleWarning",
     "ShapeError", "StageError", "ValidationError",

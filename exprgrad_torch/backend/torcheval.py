@@ -8,6 +8,12 @@ pattern:
 * **contraction** — the expression is a product of tensor reads and every
   access index is a plain loop iterator: ``torch.einsum``.  This covers
   matmul/dense forward and the derived backward kernels.
+* **convolution** — a product of two reads whose indices are affine sums
+  of loop iterators (a conv's forward, filter gradient or image
+  gradient): one ``torch.nn.functional.conv1d/2d/3d``
+  (:mod:`~exprgrad_torch.backend.convmatch`, stat ``conv``).  A match
+  over more than 3 spatial dims declines with a ``ScheduleWarning`` and
+  a ``schedule-fallback`` stat naming the reason.
 * **direct reads/writes** — accesses whose indices are distinct
   full-range iterators become permutes/reshapes; reduction axes become
   ``sum``/``amax``/``amin``.
@@ -52,6 +58,7 @@ from ..ir import Kernel, LinearIndex, Op, Program
 from ..passes.shapes import resolve_loop_bounds
 
 from ..registry import ExternContext, get_extern
+from .convmatch import ConvMatch
 from .mapreduce import ScheduledMapReduce
 from .policy import SchedulePolicy
 from .scheduled import ScheduledMatmul, is_scheduled
@@ -173,6 +180,7 @@ class KernelLowering:
         self.fresh_output = False
         self._matmul: Optional[ScheduledMatmul] = None
         self._mapreduce: Optional[ScheduledMapReduce] = None
+        self._conv: Optional[ConvMatch] = None
 
     # ------------------------------------------------------------------
     def _const(self, value):
@@ -920,6 +928,12 @@ class KernelLowering:
             self._mapreduce = ScheduledMapReduce(self, self.kernel)
         return self._mapreduce
 
+    def conv_match(self) -> ConvMatch:
+        """The convolution classification of this kernel (made once)."""
+        if self._conv is None:
+            self._conv = ConvMatch(self, self.kernel)
+        return self._conv
+
     def _general_only(self) -> bool:
         """add-accumulation with static bounds is required by the einsum
         matcher and the matmul kernel; dynamic bounds need the general
@@ -982,16 +996,26 @@ class KernelLowering:
                                  or "transposed" in sm.why)):
                         why = sm.why
                     fallback_reason = f"unsupported kernel shape ({why})"
+        conv_decline = None
         if result is None and not general_only:
             result = self._try_contraction(tensors)
+        if result is None and not general_only:
+            match = self.conv_match()
+            if match.ok:
+                path = "conv"
+                result = tensors[self.kernel.write.tensor] + match.lower(
+                    tensors)
+            else:
+                conv_decline = match.why
         if result is None:
             self.sub_path = "unknown"
             result = self._general(tensors)
             path = f"general-{self.sub_path}"
         if stats is not None:
             stats[path] = stats.get(path, 0) + 1
-            if fallback_reason is not None:
-                self.policy.fallback(stats, self._kernel_desc(),
-                                     f"{fallback_reason}; lowered via {path}")
+            for reason in (fallback_reason, conv_decline):
+                if reason is not None:
+                    self.policy.fallback(stats, self._kernel_desc(),
+                                         f"{reason}; lowered via {path}")
         tensors[self.kernel.write.tensor] = result
         self.env = {}  # the executor keeps this lowering; free the run's grids

@@ -28,25 +28,7 @@ from .fun import Fun, to_program
 from .irprint import fmt_program
 from .passes import compile_program, infer_shapes
 from .utils.buckets import bucket_for, normalize_buckets
-
-_MASK64 = (1 << 64) - 1
-
-
-def shuffle_indices(count: int, seed: int) -> np.ndarray:
-    """A permutation of ``range(count)``: Fisher-Yates driven by
-    SplitMix64, the order the JAX package's native shuffle gives for the
-    same seed (``native/egtpu_native.cpp``)."""
-    out = np.arange(count, dtype=np.int64)
-    state = (seed + 0x9E3779B97F4A7C15) & _MASK64
-    for i in range(count - 1, 0, -1):
-        state = (state + 0x9E3779B97F4A7C15) & _MASK64
-        z = state
-        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-        z ^= z >> 31
-        j = z % (i + 1)
-        out[i], out[j] = out[j], out[i]
-    return out
+from .utils.native import shuffle_indices
 
 
 def resolve_device(device) -> torch.device:
@@ -186,6 +168,42 @@ class Model:
             return result[output] if output is not None else None
 
         return fn
+
+    def summary(self) -> str:
+        """Human-readable parameter/cache table with totals, plus the
+        per-target kernel counts: the quick sanity view of a compiled
+        model, in the JAX package's text.  Reads only shapes, so nothing
+        is copied from the device.  The JAX package's branch for
+        ``quantize_weights`` codes is absent: quantized weights are not
+        ported (ROADMAP.md A7)."""
+
+        def table(items):
+            lines, total = [], 0
+            for tid, value in items.items():
+                shape = tuple(value.shape)
+                n = int(np.prod(shape))
+                total += n
+                lines.append(
+                    f"  t{tid:<4} "
+                    f"{self.program.tensors[tid].name or '<unnamed>':<18} "
+                    f"{str(list(shape)):<18} {n:>10,}"
+                )
+            return lines, total
+
+        lines, total = table(self.params)
+        cache_lines, cache_total = table(self.caches)
+        out = [f"Model: {len(self.params)} parameters "
+               f"({total:,} elements), {len(self.caches)} caches "
+               f"({cache_total:,} elements), epoch {self.epoch}"]
+        out.append("parameters:")
+        out.extend(lines)
+        if cache_lines:
+            out.append("caches:")
+            out.extend(cache_lines)
+        out.append("targets:")
+        for name, target in self.program.targets.items():
+            out.append(f"  {name:<12} {len(target.kernels)} kernels")
+        return "\n".join(out)
 
     def ema_params(self) -> dict[int, torch.Tensor]:
         """Debiased EMA shadow parameters (train with

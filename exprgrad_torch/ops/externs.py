@@ -1,4 +1,7 @@
-"""Built-in extern ops of the port: fused attention (forward + backward).
+"""Built-in extern ops of the port: fused attention (forward + backward),
+and on import of this module the MoE (``ops/moe.py``) and recurrent
+(``ops/recurrent.py``) ops, so that ``registry.get_extern`` finds every
+built-in on its one lazy import.
 
 Counterpart of ``exprgrad_tpu/ops/externs.py``.  ``attention`` and
 ``attention_grad`` carry two implementations behind their ``impl``
@@ -83,3 +86,6 @@ def _attention_grad(args, attrs, ctx):
 
 register_extern("attention", 2, _attention)
 register_extern("attention_grad", 3, _attention_grad)
+
+from . import moe as _moe  # noqa: E402,F401  (registers moe/moe_grad)
+from . import recurrent as _recurrent  # noqa: E402,F401  (lstm/gru/rnn)

@@ -4,7 +4,7 @@ The reference ships its own small CPU tensor library aimed at dataset
 preprocessing (exprgrad/tensors.nim).  Here host tensors are numpy arrays;
 ``Tensor`` provides the same constructors/utilities on top (new, rand,
 linspace, one_hot, remap, view_first, select_random_samples, ...).  Device
-tensors are jax Arrays managed by the model runtime.
+tensors are torch tensors managed by the model runtime.
 """
 
 from __future__ import annotations

@@ -93,6 +93,7 @@ def train(
     scan_batches: bool = False,
     log: Optional[Callable[[str], None]] = None,
     checkpoint=None,
+    checkpoint_every: int = 1,
     mesh=None,
     **fit_kw,
 ) -> list[dict]:
@@ -106,15 +107,12 @@ def train(
     best-epoch parameters/optimizer state back on the model.  Other
     keywords go to ``Model.fit``.
 
-    ``checkpoint`` (an ``io.CheckpointManager``) and ``mesh`` (sharded
-    training) are not ported yet and raise; save checkpoints with
-    :func:`exprgrad_torch.io.save_model` between calls.
+    ``checkpoint`` (an ``io.CheckpointManager``) saves the model every
+    ``checkpoint_every`` epochs and once more at the end (rotating,
+    resumable: restart training after ``checkpoint.restore()`` and the
+    epoch counter continues where the checkpoint left off).  ``mesh``
+    (sharded training) is not ported yet and raises.
     """
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "train(checkpoint=...) is not ported to exprgrad_torch yet "
-            "(ROADMAP.md A4); save with exprgrad_torch.io.save_model"
-        )
     if mesh is not None:
         raise NotImplementedError(
             "train(mesh=...) is not ported to exprgrad_torch yet "
@@ -135,7 +133,7 @@ def train(
     best = float("inf")
     best_state = None
     stale = 0
-    for _ in range(epochs):
+    for epoch in range(epochs):
         train_metric = model.fit(
             target_name, args, batch_size=batch_size, log_status=False,
             shuffle=shuffle, scan_batches=scan_batches, monitor=monitor,
@@ -161,8 +159,13 @@ def train(
         if log is not None:
             log(", ".join(f"{k}={v:.5g}" if isinstance(v, float) else
                           f"{k}={v}" for k, v in entry.items()))
+        if checkpoint is not None and (epoch + 1) % checkpoint_every == 0:
+            checkpoint.save(model)
         if patience is not None and stale >= patience:
             break
+    if checkpoint is not None:
+        checkpoint.save(model)
+        checkpoint.wait()
     if restore_best and best_state is not None:
         params, caches, epoch_at = best_state
         model.params.update(params)

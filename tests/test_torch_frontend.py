@@ -31,6 +31,19 @@ def _patchify(models, pkg):
     return models.patchify(pkg.input("images"), 12, 4).target("patches")
 
 
+def _render(models, pkg):
+    """Inverse rendering's training graph (tests/test_render.py)."""
+    from importlib import import_module
+
+    render = import_module(models.__name__ + ".render")
+    layers = import_module(pkg.__name__ + ".layers")
+    scene = render.two_sphere_scene(trainable_colors=True)
+    return (render.render(scene, 8, 8).target("render")
+            .pipe(layers.mse, pkg.input("target")).target("loss")
+            .backprop(pkg.make_opt(layers.gradient_descent, rate=0.02))
+            .target("train"))
+
+
 # name -> graph(models module, package); small widths
 BUILDERS = {
     "conv_autoencoder": lambda m, p: m.conv_autoencoder(size=12),
@@ -41,6 +54,7 @@ BUILDERS = {
     "mnist_gan": lambda m, p: m.mnist_gan(latent=8, image_size=16),
     "mobile_cnn": lambda m, p: m.mobile_cnn(),
     "patchify": _patchify,
+    "render": _render,
     "tiny_diffusion": lambda m, p: m.tiny_diffusion(hidden=16),
     "tiny_mixer": lambda m, p: m.tiny_mixer(),
     "tiny_recurrent_lm": lambda m, p: m.tiny_recurrent_lm(cell="gru"),
@@ -57,8 +71,11 @@ BUILDERS = {
 
 
 def test_every_exported_builder_is_covered():
-    exported = set(port_models.__all__) - {"ContinuousBatcher",
-                                           "FlashLMServer"}
+    # the serving runtime and the sampling/batch helpers build no graph
+    exported = set(port_models.__all__) - {
+        "ContinuousBatcher", "FlashLMServer", "ddpm_sample", "ddpm_schedule",
+        "diffusion_train_batch", "greedy_decode", "vae_sample",
+        "vae_train_batch"}
     assert exported <= set(BUILDERS)
     assert set(jax_models.__all__) >= exported
 

@@ -99,7 +99,7 @@ TRAIN_SCRIPT = textwrap.dedent("""
     sys.modules["exprgrad_tpu"] = None
     import numpy as np
     import exprgrad_torch as egt
-    from exprgrad_torch import io, make_opt, train
+    from exprgrad_torch import io, make_opt
     from exprgrad_torch.layers import adam, with_ema
     from exprgrad_torch.models import flash_transformer
 
@@ -116,14 +116,39 @@ TRAIN_SCRIPT = textwrap.dedent("""
     assert model.lowering_stats("train")["attention-grad-impl:flash"] == 1
     model.fit("train", data, batch_size=2, log_status=False,
               scan_batches=True)
-    history = train.train(model, "train", data, epochs=2, batch_size=2,
-                          validation=data, patience=1)
+    history = egt.train(model, "train", data, epochs=2, batch_size=2,
+                        validation=data, patience=1)
     assert history and model.ema_params()
     path = os.path.join(tempfile.mkdtemp(), "model.egt")
     io.save_model(model, path)
     loaded = io.load_model(path, device="cpu")
     assert np.allclose(loaded.call("predict", {"tokens": data["tokens"]}),
                        model.call("predict", {"tokens": data["tokens"]}))
+
+    # a CNN fit step on the conv path, an MoE and an LSTM train step
+    from exprgrad_torch.models import fashion_mnist_cnn, tiny_recurrent_lm
+    cnn = egt.compile(fashion_mnist_cnn(), seed=0, device="cpu")
+    images = rng.normal(size=(4, 28, 28)).astype(np.float32)
+    cnn.fit("fit", {"x": images, "y": np.eye(10, dtype=np.float32)[:4]},
+            batch_size=4, log_status=False)
+    assert cnn.lowering_stats("fit")["conv"] == 5
+    for graph, op in ((flash_transformer(vocab=8, dim=16, heads=2,
+                                         blocks=1, max_seq=16,
+                                         moe_experts=4), "moe"),
+                      (tiny_recurrent_lm(vocab=8, cell="lstm"), "lstm")):
+        lm = egt.compile(graph, seed=0, device="cpu")
+        lm.fit("train", data, batch_size=2, log_status=False)
+        assert lm.lowering_stats("train")[f"extern:{op}_grad"] >= 1
+    # fit_epochs, then a CheckpointManager round trip
+    batches = io.Batches({"x": images, "y": np.eye(10, dtype=np.float32)[
+        :4]}, 2, seed=1)
+    io.fit_epochs(cnn, "fit", batches, epochs=1, prefetch=2)
+    manager = io.CheckpointManager(tempfile.mkdtemp(), keep=1)
+    manager.save(cnn)
+    back = manager.restore(device="cpu")
+    assert back.epoch == cnn.epoch == 2 and manager.steps() == [2]
+    assert np.array_equal(back.call("predict", {"x": images}),
+                          cnn.call("predict", {"x": images}))
     mods = sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "exprgrad_tpu")
                   and sys.modules[m] is not None)
