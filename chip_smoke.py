@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve,
 train, run scheduled contractions, map/reduce kernels and row chains,
-serve a continuous batch over a paged KV pool, and train the reference
-examples' models.
+serve a continuous batch over a paged KV pool, train the reference
+examples' models, and serve the decoder's other modes (int8 weights,
+ragged prompts, scoring, beam, speculative and lookup decoding and the
+batcher's speculative rounds).
 
     python3 chip_smoke.py
 
@@ -102,7 +104,32 @@ Phases (any failed check raises and the script exits non-zero):
 15. path (h): examples/rnn_lm.py's recurrent LM (its BPE tokenizer and
    text, windows of 24): 10 adam steps of each cell (lstm, gru, tanh)
    against the CPU port, each parameter within 10% of its update; the
-   time of a step.
+   time of a step;
+16. hold B7 against its plain version at the shapes a speculative verify
+   round gives it (spec_k + 1 query rows a slot: the serving model's 4
+   heads at t = 5, GQA 8/2 at t = 5, whose 10 rows take two row blocks,
+   MQA 8/1 at t = 9, 72 rows; float32, bfloat16 and int8 pools, with and
+   without a window; key_pos live up to the fed position plus spec_k) and
+   time it at the serving model's verify shape; then path (i) on phase
+   5's trained serving model: Model.quantize_weights (predict within 5%
+   relative L2 of full precision, B2 launching twice; train refuses);
+   FlashLMServer(weight_dtype=int8) (int8 codes within scale/2, prefill
+   logits within 5%, its weight bytes); generate(lengths=) over 8 prompts
+   of 48-128 tokens (each row its solo stream but at near-ties; stop_seq
+   freezes rows; prompt buckets give the unbucketed tokens); score
+   against predict's NLL (rtol 1e-4); generate_beam (best first, each
+   score its teacher-forced log-probability within 1e-3, the top beam at
+   least greedy's); generate_speculative with a draft of a quarter of the
+   width (untrained: every round rewinds; after 30 steps on phase 5's
+   data) and with the target as its own draft (at most ceil(63/4)
+   rounds), sampled twice for the same tokens; generate_lookup on a
+   window of the +1 cycle (fewer rounds than tokens); and path (e)'s
+   batcher and mix with draft= (spec_k 4) and lookup=True, flash and
+   gather: B7 launches blocks x verify dispatches with "flash" and never
+   with "gather", the pool preempts and every page comes back, float32
+   greedy streams equal solo generate but at near-ties; the bfloat16
+   drives timed beside the plain drive (tokens/s, acceptance), and the
+   host's wait at each round's read back by cProfile.
 
 B1-B4 compute float32 on the tensor cores as split TF32 and are held
 to the same tolerances as the float32 kernels before them
@@ -111,7 +138,8 @@ are reckoned at split TF32, 3 x operations over 495 TFLOP/s.  Each path
 runs with the kernels' launch counters set to 0 just before it and read
 just after.  After the timed phases torch.profiler gives the device
 time of every kernel a B5 scatter-add, a B6 softmax and a B7 call
-launch, beside index_add's, torch.softmax's and the library route's.
+(bench.py's shape, the decode step, the verify round) launch, beside
+index_add's, torch.softmax's and the library route's.
 It needs a CUDA device and the rest of the repository; without either
 it fails.  The line before the
 last is the JSON list of kernels (time, bound, plain and library times);
@@ -265,6 +293,37 @@ RNN_TEXT = ("the quick brown fox jumps over the lazy dog. "
             "the quick brown fox naps under the lazy sun. ") * 4
 RNN = dict(dim=24, hidden=48, eta=0.02)
 RNN_SEQ, RNN_STEPS = 24, 10
+
+# Phase 16, path (i): the decoder server's other modes on phase 5's
+# trained serving model.  The draft: the serving widths cut to a quarter
+# (dim 128, 2 heads, hidden 512, one block) with a seed of its own, once
+# untrained (it disagrees: every round rewinds) and once after
+# DRAFT_STEPS adam steps on phase 5's data (it agrees often).
+DRAFT = dict(vocab=2048, dim=128, heads=2, hidden=512, blocks=1,
+             max_seq=256)
+DRAFT_SEED, DRAFT_STEPS = 1, 30
+SPEC_K, SPEC_NEW, LOOKUP_K = 4, 64, 8
+# 8 prompts of 48-128 tokens right-padded to 128, 32 new tokens; beam
+# search of 4 beams for 16 tokens after 8 prompts of 128; prompt buckets
+RAGGED = dict(n=8, lens=(48, 129), width=128, new=32)
+BEAM = dict(prompt=128, beams=4, new=16)
+PROMPT_BUCKETS = [64, 128, 256]
+# int8 weights against full precision: relative L2 of predict and of the
+# prefill logits (the JAX package's bound, tests/test_serve.py:714-719);
+# score against the NLL from predict; a beam's score against its
+# teacher-forced log-probability
+QUANT_REL = 0.05
+SCORE_RTOL = 1e-4
+BEAM_ATOL = 1e-3
+# B7 at a verify round's shape: spec_k + 1 query rows a slot over path
+# (e)'s tables (8 slots, 8 pages of 32, d 128): the serving model's 4 heads
+# (t = 5, 5 rows a kv head), GQA 8/2 (10 rows: two row blocks) and MQA 8/1
+# at lookup's k = 8 (t = 9, 72 rows); each at float32, bfloat16 and int8
+# pools, with and without a window
+VERIFY_SHAPES = ((4, 4, SPEC_K + 1), (8, 2, SPEC_K + 1), (8, 1, LOOKUP_K + 1))
+VERIFY_WINDOW = 40
+PAGED_VERIFY_CASE = (8, 4, 4, SPEC_K + 1, 128, 8, 32, torch.bfloat16)
+PAGED_VERIFY_LENS = tuple(n + SPEC_K for n in PAGED_SERVING_LENS)
 
 
 def gpu_line() -> str:
@@ -2155,18 +2214,21 @@ def staggered_mix(vocab):
     return prompts, budgets
 
 
-def drive_mix(server, kind, prompts, budgets):
+def drive_mix(server, kind, prompts, budgets, hook=None, **extra):
     """Serve the mix through ``ContinuousBatcher(server, attention=kind,
-    **BATCHER)``: half the requests up front, then one more before each
-    ``step()``.  Returns (streams in submission order, the batcher, the
-    seconds from its construction to the last token, synchronized, the
-    number of ``step()`` calls)."""
+    **BATCHER, **extra)``: half the requests up front, then one more before
+    each ``step()``; ``hook(batcher)`` runs right after its construction.
+    Returns (streams in submission order, the batcher, the seconds from
+    its construction to the last token, synchronized, the number of
+    ``step()`` calls)."""
     from exprgrad_torch.models import ContinuousBatcher
 
     n = len(prompts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    b = ContinuousBatcher(server, attention=kind, **BATCHER)
+    b = ContinuousBatcher(server, attention=kind, **BATCHER, **extra)
+    if hook is not None:
+        hook(b)
     rids = [b.submit(p, m) for p, m in zip(prompts[:n // 2],
                                           budgets[:n // 2])]
     out, steps = {}, 0
@@ -2570,6 +2632,435 @@ def path_h(egt, gpu) -> dict:
     return out
 
 
+# --- the decoder server's other modes (phase 16) --------------------------
+
+def check_verify_kernel(gen, dev) -> float:
+    """Phase 16 (a): B7 against its plain version at the shapes a verify
+    round gives it (``VERIFY_SHAPES``): ``key_pos`` live up to each slot's
+    fed position plus ``spec_k`` and ``q_pos`` the ``spec_k + 1`` positions
+    from it, as the batcher's ``_cursor_key_pos(..., extra=spec_k)`` makes
+    them; float32, bfloat16 and int8 pools (scales as the cache quantizes,
+    absmax / 127), with and without a window; every case twice for the
+    same bits.  Returns the largest |kernel - plain|."""
+    from exprgrad_torch.models.batcher import _cursor_key_pos
+    from exprgrad_torch.ops import paged_attention as pa
+
+    worst, seed = 0.0, 100
+    for h, hkv, t in VERIFY_SHAPES:
+        k = t - 1
+        rows = h // hkv * t
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            for window in (None, VERIFY_WINDOW):
+                seed += 1
+                pos = np.random.default_rng(seed).integers(48, 256 - k, 8)
+                q, pool, table, _, _ = paged_case(
+                    gen, dev, 8, h, hkv, t, 128, 8, 32, dtype, n_pages=65,
+                    lens=pos + t, seed=seed, scale=1 / 127)
+                fed = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+                key_pos = _cursor_key_pos(256, fed, extra=k)
+                q_pos = fed[:, None] + torch.arange(t, dtype=torch.int32,
+                                                    device=dev)[None]
+                got = pa.paged_decode_attention(q, pool, table, key_pos,
+                                                q_pos, window=window)
+                again = pa.paged_decode_attention(q, pool, table, key_pos,
+                                                  q_pos, window=window)
+                torch.cuda.synchronize()
+                name = (f"verify h{h}/hkv{hkv} t={t} ({rows} rows a kv head, "
+                        f"{-(-rows // pa.rows_per_block(rows))} row blocks), "
+                        f"{str(dtype)[6:]} pool, window {window}")
+                assert torch.equal(got, again), f"{name}: two runs differ"
+                want = pa.paged_decode_attention_plain(
+                    q, pool, table, key_pos, q_pos, window=window)
+                assert torch.isfinite(got).all(), name
+                torch.testing.assert_close(got, want, **F32_OUT,
+                                           msg=lambda m: f"{name}: {m}")
+                err = (got - want).abs().max().item()
+                worst = max(worst, err)
+                print(f"kernel check paged {name}: two runs equal bit for "
+                      f"bit, max |err| {err:.3e}")
+    return worst
+
+
+def parted(server, prompt, want, got, what):
+    """Where the greedy stream ``got`` first parts from ``want`` (the solo
+    stream of ``prompt``), with the solo run's top-2 logit margin there,
+    which must be within NEAR_TIE; None when they are equal."""
+    differ = np.flatnonzero(np.asarray(want) != np.asarray(got))
+    if not differ.size:
+        return None
+    j = int(differ[0])
+    seq = np.concatenate([np.asarray(prompt, np.float32),
+                          np.asarray(want[:j], np.float32)])
+    logits, _ = server.prefill(seq[None], server.init_caches(1))
+    top = torch.topk(logits[0, -1].float(), 2).values
+    margin = float(top[0] - top[1])
+    print(f"path (i) {what}: parts from solo at token {j} ({got[j]} vs "
+          f"{want[j]}); solo top-2 logit margin {margin:.3e}")
+    assert margin <= NEAR_TIE, (what, j, margin)
+    return j, margin
+
+
+def _ids(x) -> np.ndarray:
+    return x.cpu().numpy().astype(np.int64)
+
+
+def readback_split(fn):
+    """(wall seconds, seconds blocked in ``Tensor.cpu`` reads, their
+    count) of one call of ``fn`` under cProfile: the blocked time is the
+    host waiting for the card at the rounds' one read back each."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    wait, calls = 0.0, 0
+    for (_, _, name), row in pstats.Stats(prof).stats.items():
+        if name.startswith("<method 'cpu' of"):
+            calls, wait = calls + row[1], wait + row[3]
+    return wall, wait, calls
+
+
+def beam_check(server, prompts, beams, n_new):
+    """``generate_beam`` on ``prompts``: asserts the beams come back best
+    first and each score equals its sequence's teacher-forced
+    log-probability within BEAM_ATOL.  Returns (that largest difference,
+    the top beam's score minus the greedy sequence's log-probability, per
+    prompt)."""
+    seqs, scores = server.generate_beam(prompts, n_new=n_new, beams=beams)
+    seqs, scores = _ids(seqs), scores.cpu().numpy()
+    assert np.all(np.diff(scores, axis=1) <= 1e-6), scores
+    greedy = _ids(server.generate(prompts, n_new=n_new))
+
+    def forced(prompt_rows, cont):
+        full_seq = np.concatenate([prompt_rows, cont.astype(np.float32)], 1)
+        logits, _ = server.prefill(full_seq, server.init_caches(len(cont)))
+        logp = torch.log_softmax(logits.float(), -1).cpu().numpy()
+        t = prompt_rows.shape[1]
+        return sum(logp[np.arange(len(cont)), t - 1 + i, cont[:, i]]
+                   for i in range(cont.shape[1]))
+
+    lp = forced(np.repeat(prompts, beams, 0), seqs.reshape(-1, n_new))
+    err = float(np.abs(lp - scores.reshape(-1)).max())
+    assert err <= BEAM_ATOL, err
+    return err, scores[:, 0] - forced(prompts, greedy)
+
+
+def train_draft(egt, data):
+    """The draft, untrained and after DRAFT_STEPS adam steps on ``data``
+    (the setup of path (i): its kernel launches count nowhere)."""
+    from exprgrad_torch.models import flash_transformer
+
+    graph = flash_transformer(**DRAFT)
+    untrained = egt.compile(graph, seed=DRAFT_SEED, device="cuda")
+    trained = egt.compile(graph, seed=DRAFT_SEED, device="cuda")
+    first = {name: value[:BATCH] for name, value in data.items()}
+    loss0 = float(trained.call("loss", first)[0])
+    for _ in range(DRAFT_STEPS):
+        trained.epoch += 1
+        trained.apply("train", first)
+    loss = float(trained.call("loss", first)[0])
+    print(f"path (i) draft {DRAFT}: {DRAFT_STEPS} adam steps on phase 5's "
+          f"data, loss {loss0:.4f} -> {loss:.4f}")
+    return untrained, trained
+
+
+def path_i(egt, model, drafts, gpu) -> dict:
+    """Phase 16 (b): path (i), the decoder server's other modes on phase
+    5's trained serving model: weight quantization, int8 weights, ragged
+    prompts with stop sequences and buckets, scoring, beam search,
+    speculative and prompt-lookup decoding, and the continuous batcher's
+    draft and lookup rounds (path (e)'s batcher and mix), flash and
+    gather."""
+    from exprgrad_torch import ModelRuntimeError
+    from exprgrad_torch.models import FlashLMServer, flash_transformer
+    from exprgrad_torch.ops import (attention, mapreduce, matmul,
+                                    paged_attention, rowchain)
+    from exprgrad_torch.quant import QuantW, dequantize
+
+    vocab, blocks = SERVING["vocab"], SERVING["blocks"]
+    counters = (attention, matmul, mapreduce, rowchain, paged_attention)
+    for c in counters:
+        c.launches = 0
+    rng = np.random.default_rng(16)
+    tokens = rng.integers(0, vocab, (BATCH, SEQ)).astype(np.float32)
+    srv32 = FlashLMServer(model, cache_dtype=torch.float32)
+    draft0 = FlashLMServer(drafts[0], cache_dtype=torch.float32)
+    draft = FlashLMServer(drafts[1], cache_dtype=torch.float32)
+    out = {}
+
+    # 1. Model.quantize_weights on a copy of the model: predict runs B2
+    # over the dequantized weights; training refuses
+    full = model.call("predict", {"tokens": tokens})
+    qmodel = egt.from_state(
+        flash_transformer(**SERVING),
+        {t: v.cpu().numpy() for t, v in model.params.items()},
+        {t: v.cpu().numpy() for t, v in model.caches.items()}, model.epoch,
+        device="cuda")
+    done = qmodel.quantize_weights()
+    before = attention.launches
+    quant = qmodel.call("predict", {"tokens": tokens})
+    torch.cuda.synchronize()
+    q_launches = attention.launches - before
+    rel = float(np.linalg.norm(quant - full) / np.linalg.norm(full))
+    b2 = attention.launches            # the full and quantized predicts
+    assert q_launches == blocks and b2 == 2 * blocks, (q_launches, b2)
+    assert sum(c.launches for c in counters[1:]) == 0
+    assert rel < QUANT_REL, rel
+    labels = np.zeros((BATCH, SEQ, vocab), np.float32)
+    try:
+        qmodel.apply("train", {"tokens": tokens, "labels": labels})
+    except ModelRuntimeError as exc:
+        assert "inference-only" in str(exc), exc
+    else:
+        raise AssertionError("a quantized model trained")
+    print(f"path (i) quantize_weights: {sorted(done.items())}; predict "
+          f"[{BATCH},{SEQ}] relative L2 from full precision {rel:.3e}, B2 "
+          f"launches {q_launches}; train refuses")
+
+    # 2. FlashLMServer(weight_dtype=int8): codes, the scale/2 bound, the
+    # prefill logits and the weight bytes
+    q8 = FlashLMServer(model, cache_dtype=torch.float32,
+                       weight_dtype=torch.int8)
+    pairs = [(wf, wq) for bf, bq in zip(srv32.blocks, q8.blocks)
+             for wf, wq in zip(bf, bq) if isinstance(wq, QuantW)]
+    pairs.append((srv32.w_head, q8.w_head))
+    for wf, wq in pairs:
+        assert wq.codes.dtype == torch.int8
+        assert wq.codes.device == wf.device
+        assert bool(((wf - dequantize(wq)).abs()
+                     <= wq.scale * 0.5 + 1e-7).all())
+    lf, _ = srv32.prefill(tokens, srv32.init_caches(BATCH))
+    lq, _ = q8.prefill(tokens, q8.init_caches(BATCH))
+    rel8 = float(torch.linalg.norm(lq - lf) / torch.linalg.norm(lf))
+    assert rel8 < QUANT_REL, rel8
+    out["weight_bytes"] = (srv32.weight_bytes(), q8.weight_bytes())
+    print(f"path (i) int8 server: {len(pairs)} matrices int8 within "
+          f"scale/2; prefill logits relative L2 {rel8:.3e}; weight bytes "
+          f"{q8.weight_bytes()} against {srv32.weight_bytes()} at full "
+          f"precision ({q8.weight_bytes() / srv32.weight_bytes():.4f})")
+
+    # 3. ragged prompts: each row the solo stream of its prompt but at
+    # near-ties; a stop sequence freezes rows; buckets as unbucketed
+    lens = rng.integers(*RAGGED["lens"], RAGGED["n"])
+    padded = np.zeros((RAGGED["n"], RAGGED["width"]), np.float32)
+    for i, n in enumerate(lens):
+        padded[i, :n] = tokens[i, :n]
+    new = RAGGED["new"]
+    ragged = _ids(srv32.generate(padded, n_new=new, lengths=lens))
+    for i, n in enumerate(lens):
+        solo = _ids(srv32.generate(padded[i:i + 1, :n], n_new=new))[0]
+        parted(srv32, padded[i, :n], solo, ragged[i], f"ragged row {i}")
+    seq = [int(ragged[0, 2]), int(ragged[0, 3])]
+    stopped = _ids(srv32.generate(padded, n_new=new, lengths=lens,
+                                  stop_seq=seq))
+    frozen = 0
+    for free, got in zip(ragged, stopped):
+        hit = next((j for j in range(1, new)
+                    if list(free[j - 1:j + 1]) == seq), None)
+        if hit is None:
+            assert np.array_equal(got, free)
+            continue
+        frozen += 1
+        assert np.array_equal(got[:hit + 1], free[:hit + 1])
+        assert np.all(got[hit:] == seq[-1])
+    assert frozen >= 1
+    # a width of 100 pads to the 128 bucket
+    short = 100
+    bucketed = FlashLMServer(model, cache_dtype=torch.float32)
+    bucketed.set_prompt_buckets(PROMPT_BUCKETS)
+    narrow, narrow_lens = padded[:, :short], np.minimum(lens, short)
+    plain = _ids(srv32.generate(narrow, n_new=new, lengths=narrow_lens))
+    bucket = _ids(bucketed.generate(narrow, n_new=new, lengths=narrow_lens))
+    for i in range(RAGGED["n"]):
+        parted(srv32, narrow[i, :narrow_lens[i]], plain[i], bucket[i],
+               f"bucketed row {i}")
+    print(f"path (i) ragged generate: {RAGGED['n']} prompts of "
+          f"{sorted(int(x) for x in lens)} tokens padded to "
+          f"{RAGGED['width']}, {new} new; stop_seq {seq} froze {frozen} "
+          f"rows; width {short} bucketed to "
+          f"{bucketed._prompt_bucket(short)}")
+
+    # 4. score against the NLL from predict
+    nll = srv32.score(tokens).cpu().numpy()
+    ids = tokens.astype(np.int64)
+    want = -np.mean(np.log(np.take_along_axis(
+        full[:, :-1], ids[:, 1:, None], axis=-1)[..., 0]), axis=1)
+    np.testing.assert_allclose(nll, want, rtol=SCORE_RTOL, atol=0)
+    print(f"path (i) score [{BATCH},{SEQ}]: {np.round(nll, 4).tolist()}, "
+          f"max relative difference from predict's NLL "
+          f"{float(np.max(np.abs(nll - want) / np.abs(want))):.3e}")
+
+    # 5. beam search: best first, each beam's score its teacher-forced
+    # log-probability, and one beam is greedy decoding.  With 4 beams the
+    # top beam need not reach the greedy sequence's log-probability: when
+    # four prefixes beat greedy's at some step it is pruned, and the JAX
+    # package's beam search does the same (tests/test_torch_decoding.py);
+    # the differences are printed
+    beams, bnew = BEAM["beams"], BEAM["new"]
+    for kind, prompts in (
+            ("random prompts", tokens[:, :BEAM["prompt"]]),
+            ("+1-cycle prompts", lm_data(rng, vocab, BATCH, BEAM["prompt"])[
+                "tokens"])):
+        beam_err, gap = beam_check(srv32, prompts, beams, bnew)
+        one, _ = srv32.generate_beam(prompts, n_new=bnew, beams=1)
+        greedy = _ids(srv32.generate(prompts, n_new=bnew))
+        for i, (g, b) in enumerate(zip(greedy, _ids(one)[:, 0])):
+            parted(srv32, prompts[i], g, b, f"one beam, {kind} row {i}")
+        print(f"path (i) beam search, {kind}: {BATCH} prompts x {beams} "
+              f"beams x {bnew}: scores vs teacher forcing max |diff| "
+              f"{beam_err:.3e}; one beam is greedy; top beam minus greedy "
+              f"log-prob {np.round(gap, 4).tolist()} "
+              f"({int(np.sum(gap < -BEAM_ATOL))} below)")
+        out.setdefault("beam_gaps", []).append(gap)
+
+    # 6. speculative decoding, greedy: the disagreeing (untrained) draft
+    # rewinds every round; the trained one is timed; the target as its
+    # own draft accepts everything; sampled twice from one seed
+    prompt = tokens[:1, :128]
+    solo = _ids(srv32.generate(prompt, n_new=SPEC_NEW))[0]
+    spec = {}
+    for name, d in (("untrained draft", draft0), ("trained draft", draft),
+                    ("self draft", srv32)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, steps = srv32.generate_speculative(d, prompt, n_new=SPEC_NEW,
+                                                k=SPEC_K)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        parted(srv32, prompt[0], solo, _ids(got)[0], f"speculative, {name}")
+        spec[name] = (steps, secs)
+        print(f"path (i) generate_speculative k={SPEC_K}, {name}: "
+              f"{SPEC_NEW} tokens in {steps} rounds, {secs:.3f} s")
+    assert spec["untrained draft"][0] > math.ceil((SPEC_NEW - 1) / SPEC_K)
+    assert spec["self draft"][0] <= math.ceil((SPEC_NEW - 1) / SPEC_K)
+    a, _ = srv32.generate_speculative(draft, prompt, n_new=SPEC_NEW,
+                                      k=SPEC_K, temperature=1.0, seed=5)
+    b, _ = srv32.generate_speculative(draft, prompt, n_new=SPEC_NEW,
+                                      k=SPEC_K, temperature=1.0, seed=5)
+    assert torch.equal(a, b), "sampled speculation is not repeatable"
+    assert bool(((a >= 0) & (a < vocab)).all())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv32.generate(prompt, n_new=SPEC_NEW)
+    torch.cuda.synchronize()
+    out["solo_s"] = time.perf_counter() - t0
+    wall, wait, calls = readback_split(lambda: srv32.generate_speculative(
+        draft, prompt, n_new=SPEC_NEW, k=SPEC_K))
+    rounds = spec["trained draft"][0]
+    out["spec"] = dict(rounds=spec, wall=wall, wait=wait, reads=calls)
+    print(f"path (i) speculative rounds (trained draft, cProfile on): "
+          f"{rounds} rounds in {wall * 1e3:.1f} ms, {wall / rounds * 1e3:.2f}"
+          f" ms a round, of which {wait / rounds * 1e3:.3f} ms blocked in "
+          f"{calls} reads back; plain generate of {SPEC_NEW} tokens "
+          f"{out['solo_s']:.3f} s on {gpu}")
+
+    # 7. prompt lookup: a window of the +1 cycle whose continuation the
+    # prompt already holds (64..127 then 0..63)
+    cyc = np.concatenate([np.arange(64, 128), np.arange(0, 64)]) % vocab
+    cyc = cyc[None].astype(np.float32)
+    csolo = _ids(srv32.generate(cyc, n_new=SPEC_NEW))[0]
+    look, lsteps = srv32.generate_lookup(cyc, n_new=SPEC_NEW, k=LOOKUP_K)
+    parted(srv32, cyc[0], csolo, _ids(look)[0], "lookup")
+    assert lsteps < SPEC_NEW - 1, lsteps
+    print(f"path (i) generate_lookup k={LOOKUP_K}: {SPEC_NEW} tokens in "
+          f"{lsteps} rounds (first solo tokens {csolo[:8].tolist()})")
+
+    # 8. the batcher's draft and lookup rounds under path (e)'s mix
+    assert sum(c.launches for c in counters) == b2, "a kernel launched"
+    mix_prompts, budgets = staggered_mix(vocab)
+    n = len(mix_prompts)
+
+    def drive(server, kind, check=True, **extra):
+        for c in counters:
+            c.launches = 0
+        slot_rounds = []
+
+        def hook(b):
+            verify = b._verify
+
+            def counted(*args):
+                slot_rounds.append(int(b.active.sum()))
+                return verify(*args)
+
+            b._verify = counted
+
+        streams, b, secs, _ = drive_mix(server, kind, mix_prompts, budgets,
+                                        hook=hook, **extra)
+        launches = paged_attention.launches
+        stats = b.stats
+        if check:
+            want = blocks * stats["dispatches"] if kind == "flash" else 0
+            assert launches == want, (kind, extra, launches, stats)
+            assert sum(c.launches for c in counters[:-1]) == 0
+            assert stats["preemptions"] > 0, stats
+            assert stats["free_pages"] == stats["pool_pages"], stats
+            for s, m in zip(streams, budgets):
+                assert s.shape == (m,) and np.all((s >= 0) & (s < vocab))
+        rounds = sum(slot_rounds)
+        accept = ((stats["spec_emitted"] - rounds) / (SPEC_K * rounds)
+                  if rounds else None)
+        return dict(streams=streams, secs=secs, launches=launches,
+                    stats=stats, accept=accept, slot_rounds=rounds,
+                    tokens=sum(len(s) for s in streams))
+
+    msolo = [_ids(srv32.generate(p[None], n_new=m))[0]
+             for p, m in zip(mix_prompts, budgets)]
+    b7 = verify = 0     # B7 launches: all, and in verify rounds
+    modes = {"draft": dict(draft=draft, spec_k=SPEC_K),
+             "lookup": dict(lookup=True, spec_k=SPEC_K)}
+    for mode, extra in modes.items():
+        for kind in ("flash", "gather"):
+            run = drive(srv32, kind, **extra)
+            b7 += run["launches"]
+            verify += run["launches"]
+            for i, (got, want) in enumerate(zip(run["streams"], msolo)):
+                parted(srv32, mix_prompts[i], want, got,
+                       f"batcher {mode} {kind} request {i}")
+            print(f"path (i) batcher {mode} {kind} (float32 cache): stats "
+                  f"{run['stats']}; B7 launches {run['launches']}; "
+                  f"acceptance {run['accept']:.4f} over "
+                  f"{run['slot_rounds']} slot rounds")
+
+    # 9. the bfloat16 drives, timed beside path (e)'s plain drive; the
+    # target as its own draft accepts every proposal: the most a round
+    # can emit
+    srv16 = FlashLMServer(model)
+    timed = {}
+    for mode, extra in (("plain", {}), *modes.items(),
+                        ("self draft", dict(draft=srv16, spec_k=SPEC_K))):
+        extra = dict(extra)
+        if mode == "draft":
+            extra["draft"] = FlashLMServer(drafts[1])
+        drive(srv16, "flash", check=False, **extra)          # warm
+        run = drive(srv16, "flash", **extra)
+        b7 += run["launches"]
+        verify += run["launches"] if extra else 0
+        timed[mode] = run
+        d = run["stats"]["dispatches"]
+        acc = ("" if run["accept"] is None
+               else f", acceptance {run['accept']:.4f}")
+        print(f"path (i) timed {mode} flash drive (bf16 cache): "
+              f"{run['tokens']} tokens in {run['secs']:.3f} s: "
+              f"{run['tokens'] / run['secs']:.1f} tokens/s, {d} dispatches, "
+              f"{run['secs'] / d * 1e3:.2f} ms a dispatch{acc}; stats "
+              f"{run['stats']} on {gpu}")
+    wall, wait, calls = readback_split(lambda: drive(
+        srv16, "flash", check=False, draft=FlashLMServer(drafts[1]),
+        spec_k=SPEC_K))
+    print(f"path (i) draft flash drive under cProfile: {wall:.3f} s, "
+          f"{wait:.3f} s blocked in {calls} reads back "
+          f"({wait / max(calls, 1) * 1e3:.3f} ms a read) on {gpu}")
+    out.update(timed=timed, b7=b7, b7_verify=verify, b2=b2,
+               drive_split=(wall, wait, calls))
+    return out
+
+
 def phase_done(name, since) -> float:
     """Print a phase's seconds; returns the time it ended."""
     now = time.perf_counter()
@@ -2869,8 +3360,21 @@ def main() -> int:
     t_phase = phase_done("14 (path (g): flash_transformer with experts)",
                          t_phase)
     path_h(egt, gpu)
-    phase_done("15 (path (h): the recurrent LM)", t_phase)
-    flash_launches = {"forward": launches + path_g_run["launches"]["forward"],
+    t_phase = phase_done("15 (path (h): the recurrent LM)", t_phase)
+
+    # 16. B7 at a verify round's shapes and its time there, then path (i)
+    # on phase 5's trained model with the counters at 0 ----------------
+    verify_err = check_verify_kernel(gen, dev)
+    paged_times["verify"] = time_paged_kernel(
+        gen, dev, gpu, f"verify round [8,4,{SPEC_K + 1},128] (spec_k "
+        f"{SPEC_K}), bf16 pool 65x4x32x128", PAGED_VERIFY_CASE,
+        PAGED_VERIFY_LENS, 65)
+    drafts = train_draft(egt, data)
+    path_i_run = path_i(egt, model, drafts, gpu)
+    phase_done("16 (B7 at the verify shapes, path (i): the server's other "
+               "modes and the speculative batcher)", t_phase)
+    flash_launches = {"forward": launches + path_g_run["launches"]["forward"]
+                      + path_i_run["b2"],
                       "dq": train_launches["dq"]
                       + path_g_run["launches"]["dq"],
                       "dkv": train_launches["dkv"]
@@ -2956,11 +3460,25 @@ def main() -> int:
             gen_times["rowchain"]["kernel"], gen_times["rowchain"]["plain"],
             gen_times["rowchain"]["library"], gen_times["rowchain"]["bound"],
             route="triton"),
-        row("paged_decode_attention", "exprgrad_torch/csrc/paged_attention.cu",
-            "exprgrad_tpu/ops/paged_attention.py:78", path_e_run["launches"],
-            max(paged_err, paged_times["bench"]["err"]),
-            paged_times["bench"]["kernel"], paged_times["bench"]["plain"],
-            paged_times["bench"]["library"], paged_times["bench"]["bound"]),
+        dict(row("paged_decode_attention",
+                 "exprgrad_torch/csrc/paged_attention.cu",
+                 "exprgrad_tpu/ops/paged_attention.py:78",
+                 path_e_run["launches"] + path_i_run["b7"],
+                 max(paged_err, verify_err, paged_times["bench"]["err"],
+                     paged_times["verify"]["err"]),
+                 paged_times["bench"]["kernel"],
+                 paged_times["bench"]["plain"],
+                 paged_times["bench"]["library"],
+                 paged_times["bench"]["bound"]),
+             verify={"shape": list(PAGED_VERIFY_CASE[:7]),
+                     "launches": path_i_run["b7_verify"],
+                     "ms": paged_times["verify"]["kernel"],
+                     "plain_ms": paged_times["verify"]["plain"],
+                     "bound_ms": paged_times["verify"]["bound"][0],
+                     "bound_by": paged_times["verify"]["bound"][1],
+                     "library_ms": paged_times["verify"]["library"],
+                     "device_ms": device_ms["B7 verify"],
+                     "library_device_ms": device_ms["B7 library verify"]}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

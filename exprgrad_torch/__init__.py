@@ -79,6 +79,7 @@ from .fun import (
 
 from . import models
 from .model import Model, compile, from_state
+from .quant import QuantW, dequantize, quantize_weight
 from .registry import register_extern
 from .train import classification_accuracy, evaluate, train
 from .tensor import (
@@ -105,5 +106,6 @@ __all__ = [
     "to_index", "to_program", "to_scalar", "train", "view_first", "wrap",
     "ExprgradError", "GradientError", "GeneratorError", "KernelTypeError",
     "ModelRuntimeError", "ParserError", "RematWarning", "ScheduleWarning",
-    "ShapeError", "StageError", "ValidationError",
+    "ShapeError", "StageError", "ValidationError", "QuantW", "dequantize",
+    "quantize_weight",
 ]

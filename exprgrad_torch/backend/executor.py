@@ -36,6 +36,7 @@ import torch
 from .. import ir
 from ..interp import accumulation_identity, extreme_accumulated_results
 from ..ir import Program
+from ..quant import QuantW, dequantize
 
 from .policy import SchedulePolicy
 from .rowchain import plan_rowchain_fusions
@@ -159,7 +160,13 @@ class TorchExecutor:
         """Run the target on device tensors; returns {tid: tensor} for the
         output and every updated parameter/cache."""
         program = self.program
-        tensors = dict(tensors)
+        # weight-quantized parameters (Model.quantize_weights) enter as
+        # QuantW codes and scales and are dequantized here, into this run
+        # only: the model keeps the codes
+        tensors = {
+            tid: dequantize(v, self.dtype) if isinstance(v, QuantW) else v
+            for tid, v in tensors.items()
+        }
         for tid in sorted(self.target.tensors):
             if (program.tensors[tid].kind != ir.TensorKind.RESULT
                     or tid in self._fused_away):

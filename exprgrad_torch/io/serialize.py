@@ -529,8 +529,15 @@ def export_params_npz(model, path: str) -> None:
     """Every parameter and cache as a named array in a ``.npz``, under
     the JAX package's names: ``"<name>#<tensor id>"``, caches prefixed
     ``"cache:"``."""
+    from ..quant import QuantW
+
     arrays = {}
     for tid, val in model.params.items():
+        if isinstance(val, QuantW):
+            raise ModelRuntimeError(
+                "cannot export quantized weights to npz; export the "
+                "full-precision model before quantize_weights()"
+            )
         name = model.program.tensors[tid].name or "param"
         arrays[f"{name}#{tid}"] = val.cpu().numpy()
     for tid, val in model.caches.items():
@@ -571,6 +578,13 @@ def import_params_npz(model, path: str) -> None:
 def save_model(model, path: str) -> None:
     """Checkpoint = source program + params + caches + epoch + the host
     random stream, closed by a CRC32 trailer of the payload."""
+    from ..quant import QuantW
+
+    if any(isinstance(v, QuantW) for v in model.params.values()):
+        raise ModelRuntimeError(
+            "cannot checkpoint a weight-quantized model (checkpoints "
+            "store full precision); save first, then quantize_weights()"
+        )
     with open(path, "wb") as f:
         f.write(MAGIC)
         cs = _CrcStream(f)

@@ -88,6 +88,7 @@ class Model:
         self.batch_buckets = None  # see set_batch_buckets
         self._bucket_track_memo: dict = {}
         self._mutates_memo: dict = {}
+        self._quantized_tids: set = set()  # see quantize_weights
         self.params: dict[int, torch.Tensor] = {}
         self.caches: dict[int, torch.Tensor] = {}
         if not init_params:
@@ -173,13 +174,14 @@ class Model:
         """Human-readable parameter/cache table with totals, plus the
         per-target kernel counts: the quick sanity view of a compiled
         model, in the JAX package's text.  Reads only shapes, so nothing
-        is copied from the device.  The JAX package's branch for
-        ``quantize_weights`` codes is absent: quantized weights are not
-        ported (ROADMAP.md A7)."""
+        is copied from the device."""
+        from .quant import QuantW
 
         def table(items):
             lines, total = [], 0
             for tid, value in items.items():
+                if isinstance(value, QuantW):  # quantize_weights codes
+                    value = value.codes
                 shape = tuple(value.shape)
                 n = int(np.prod(shape))
                 total += n
@@ -249,7 +251,13 @@ class Model:
 
     def astype(self, dtype: str) -> "Model":
         """A new model with the same program, state and epoch cast to
-        ``dtype`` ("float32" or "float64"), on the same device."""
+        ``dtype`` ("float32" or "float64"), on the same device.  A
+        weight-quantized model refuses: cast first, then quantize."""
+        if self._quantized_tids:
+            raise ModelRuntimeError(
+                "cannot astype a weight-quantized model; cast first, "
+                "then quantize_weights()"
+            )
         nd = np.dtype(dtype)
         src = self.source.copy()
         src.scalar_type = ir.ScalarType(nd.name)
@@ -281,6 +289,22 @@ class Model:
             out.append((self.program.inputs[name], list(np.shape(value))))
         return out
 
+    def _check_quantized(self, target_name: str, executor) -> None:
+        """Refuse to run a target that would update weight-quantized
+        parameters (quantize_weights is inference-only); shared by every
+        execution path (call/apply, fit's batch loop, the scan epoch)."""
+        if not self._quantized_tids:
+            return
+        hit = self._quantized_tids.intersection(executor.donated_tids)
+        if hit:
+            hit_names = sorted(self.program.tensors[t].name for t in hit)
+            raise ModelRuntimeError(
+                f"target {target_name!r} updates quantized "
+                f"parameter(s) {hit_names}; weight quantization is "
+                "inference-only — reload the full-precision "
+                "checkpoint to train"
+            )
+
     def _run(self, target_name: str, args: dict, shapes) -> Optional[np.ndarray]:
         target = self.program.targets[target_name]
         tensors = {
@@ -293,6 +317,7 @@ class Model:
         self._call_count += 1
         seed = int(self._rng.integers(0, 2**31 - 1))
         executor = self._executor(target_name, shapes)
+        self._check_quantized(target_name, executor)
         with matmul_precision(self.precision):
             result = executor.run(tensors, shapes, self.epoch, seed)
 
@@ -532,6 +557,7 @@ class Model:
                   order) -> None:
         dtype = np.dtype(self.program.scalar_type.value)
         executor = self._executor(target_name, shapes)
+        self._check_quantized(target_name, executor)
         batches: dict[int, np.ndarray] = {}
         usable = batch_count * batch_size
         for name, value in args.items():
@@ -553,6 +579,58 @@ class Model:
             if tid in result:
                 self.caches[tid] = result[tid]
 
+    def quantize_weights(
+        self,
+        target_name: str = "predict",
+        dtype="int8",
+        names: Optional[set] = None,
+        min_size: int = 256,
+    ) -> dict[str, tuple]:
+        """Weight-only int8 quantization (W8A16) for inference serving.
+
+        Each eligible parameter is replaced in place by int8 codes and
+        per-output-channel float32 scales (:class:`~exprgrad_torch.quant.
+        QuantW`, on the model's device); the executor dequantizes them at
+        the entry of every run, so the codes are what the model keeps (a
+        quarter of the float32 bytes).  Which axes get scales is inferred
+        from the kernel IR of ``target_name``
+        (:func:`~exprgrad_torch.quant.infer_quant_axes`).  Parameters read
+        raw, through computed indices (embeddings), by externs or only
+        elementwise (biases, norm gammas) stay at full precision, as does
+        anything smaller than ``min_size`` elements or not in ``names``
+        (when given).
+
+        Inference only: a target that updates a quantized parameter
+        ("train") raises, and so does :meth:`astype`.  Checkpoint before
+        quantizing.  Returns ``{param_name: contraction_axes}`` of what
+        was quantized."""
+        from .quant import (QuantW, check_weight_dtype, infer_quant_axes,
+                            quantize_weight)
+
+        check_weight_dtype(dtype)
+        if target_name not in self.program.targets:
+            raise ModelRuntimeError(
+                f"no target {target_name!r} to infer quantization axes "
+                f"from (targets: {sorted(self.program.targets)})"
+            )
+        done: dict[str, tuple] = {}
+        for tid in self.program.params:
+            tdef = self.program.tensors[tid]
+            if names is not None and tdef.name not in names:
+                continue
+            value = self.params[tid]
+            if isinstance(value, QuantW):
+                continue
+            if value.numel() < min_size:
+                continue
+            axes = infer_quant_axes(self.program, tid, target_name)
+            if axes is None:
+                continue
+            self.params[tid] = quantize_weight(value, axes)
+            self._quantized_tids.add(tid)
+            done[tdef.name] = axes
+        return done
+
     # --- JAX-only features, not ported yet -----------------------------
     def _not_ported(self, what: str):
         raise NotImplementedError(
@@ -568,9 +646,6 @@ class Model:
 
     def profile(self, *args, **kwargs):
         self._not_ported("profile")
-
-    def quantize_weights(self, *args, **kwargs):
-        self._not_ported("quantize_weights")
 
     def autotune(self, *args, **kwargs):
         self._not_ported("autotune")

@@ -20,6 +20,13 @@ moment one frees up, so the card decodes a full batch every step:
   step attends either a gathered dense view (``attention="gather"``) or
   the pages in place through kernel B7 (``attention="flash"``,
   ``ops.paged_attention``);
+* ``draft=`` (a small draft server) or ``lookup=True`` (prompt-lookup
+  proposals matched on the host) make each dispatch a speculative round:
+  ``spec_k`` proposals a slot, verified by the target in one
+  ``spec_k + 1``-wide step (through kernel B7 with ``attention="flash"``),
+  each slot advancing by its own accepted count.  Rejected K/V are never
+  rewound: they are masked by position and overwritten by the next
+  round's writes, as in the JAX package;
 * all scheduling state (queues, per-slot lengths, budgets, page tables)
   is host numpy; the device only sees dense batched work.
 
@@ -29,8 +36,7 @@ place.  Greedy streams equal serving each prompt alone with
 ``server.generate``, up to float reassociation at near-ties; sampled
 rows draw from a ``torch.Generator`` seeded with ``seed``.
 
-Not ported yet (ROADMAP A13): ``decode_chunk > 1``, ``pipeline``,
-``draft=`` (speculative rounds), ``lookup=`` (prompt-lookup rounds) and
+Not ported yet (ROADMAP A13): ``decode_chunk > 1``, ``pipeline`` and
 ``Seq2SeqBatcher``; they raise ``NotImplementedError``.
 """
 
@@ -49,6 +55,7 @@ from ..ops.paged import (gather_rows, gather_view, init_pool, write_prefill,
                          write_prefill_at, write_token)
 from ..utils.buckets import bucket_for, normalize_buckets
 from ._sample import check_top_p, make_row_picker
+from ._spec import lookup_propose
 
 
 class _Request:
@@ -115,6 +122,17 @@ def _scratch_caches(pools, page_table_row, pre_len: int, extra: int):
             v_scale=None if vps is None else torch.cat([vps, ones], dim=2),
         ))
     return minis
+
+
+def _greedy_accept(logits, props, pick_k: int):
+    """Greedy verify: the target's argmax over the ``pick_k + 1`` verified
+    positions, and how many leading proposals it agrees with (the
+    cumulative product of positional matches) — one definition behind the
+    draft round's greedy branch and the lookup round."""
+    greedy = torch.argmax(logits, dim=-1)
+    match = props.long() == greedy[:, :pick_k]
+    accept = torch.cumprod(match.long(), dim=1).sum(dim=1)
+    return greedy, accept
 
 
 def _cursor_key_pos(n: int, pos: torch.Tensor, extra: int = 0):
@@ -213,7 +231,9 @@ class ContinuousBatcher:
         decode_chunk: int = 1,
         prefill_chunk: Optional[int] = None,
         draft=None,
+        spec_k: int = 4,
         lookup: bool = False,
+        lookup_ngram: int = 2,
         stream_tokens: bool = False,
         attention: str = "gather",
         pipeline: int = 0,
@@ -229,16 +249,60 @@ class ContinuousBatcher:
                 "attention='flash' is the paged-attention kernel; it "
                 "requires ContinuousBatcher(paged=True)")
         self.attention = attention
+        if draft is not None:
+            # speculative batching: greedy (exact streams) or temperature
+            # sampling (the rejection scheme, the solo distributions)
+            if top_k is not None or top_p is not None:
+                raise ModelRuntimeError(
+                    "speculative batching supports greedy or plain "
+                    "temperature sampling; top_k/top_p filters are not "
+                    "part of the rejection scheme")
+            if decode_chunk != 1:
+                raise ModelRuntimeError(
+                    "draft= and decode_chunk are mutually exclusive "
+                    "(the spec round already amortizes dispatches)")
+            if draft.vocab != server.vocab:
+                raise ModelRuntimeError(
+                    f"draft vocab {draft.vocab} != target vocab "
+                    f"{server.vocab}")
+        if spec_k < 1:  # stored unconditionally: validate unconditionally
+            raise ModelRuntimeError(f"spec_k must be >= 1 (got {spec_k})")
+        if lookup:
+            # prompt-lookup speculation (no draft): per-slot proposals
+            # from an ngram match over the slot's prompt and emitted
+            # history, which the host holds for stop detection anyway;
+            # exact greedy, so sampling settings are refused
+            if draft is not None:
+                raise ModelRuntimeError(
+                    "lookup=True and draft= are mutually exclusive "
+                    "(lookup IS the draft-free speculation variant)")
+            if temperature != 0.0 or top_k is not None or top_p is not None:
+                raise ModelRuntimeError(
+                    "lookup speculation is exact-greedy only; it has no "
+                    "proposal distribution for the rejection scheme "
+                    "(use draft= for sampled speculation)")
+            if decode_chunk != 1:
+                raise ModelRuntimeError(
+                    "lookup=True and decode_chunk are mutually exclusive "
+                    "(the verify round already amortizes dispatches)")
+            if lookup_ngram < 1:
+                raise ModelRuntimeError(
+                    f"lookup_ngram must be >= 1 (got {lookup_ngram})")
+        self.draft = draft
+        self.lookup = bool(lookup)
+        self.lookup_ngram = int(lookup_ngram)
+        self._spec = draft is not None or self.lookup
+        self.spec_k = int(spec_k)
         if decode_chunk < 1:
             raise ModelRuntimeError(
                 f"decode_chunk must be >= 1 (got {decode_chunk})")
         if pipeline < 0:
             raise ModelRuntimeError(
                 f"pipeline must be >= 0 (got {pipeline})")
-        if draft is not None:
-            raise _not_ported("speculative batching (draft=)")
-        if lookup:
-            raise _not_ported("prompt-lookup batching (lookup=True)")
+        if pipeline and self._spec:
+            raise ModelRuntimeError(
+                "pipeline= and speculation are mutually exclusive (the spec "
+                "round's acceptance is data-dependent per dispatch)")
         if decode_chunk > 1:
             raise _not_ported("multi-step decode (decode_chunk > 1)")
         if pipeline:
@@ -262,6 +326,12 @@ class ContinuousBatcher:
             raise ModelRuntimeError(
                 f"capacity {self.capacity} exceeds the model's max_seq "
                 f"{server.max_seq} position embeddings"
+            )
+        if draft is not None and self.capacity > draft.max_seq:
+            # the spec round feeds the draft the same positions
+            raise ModelRuntimeError(
+                f"capacity {self.capacity} exceeds the DRAFT model's "
+                f"max_seq {draft.max_seq}"
             )
         self.temperature = temperature
         self.top_k = top_k
@@ -327,25 +397,47 @@ class ContinuousBatcher:
         self._metrics: deque = deque(maxlen=4096)
         self.stream_tokens = bool(stream_tokens)
         self._stream: list[tuple] = []
+        if self.draft is not None:
+            # the draft's K/V are always a dense per-slot cache (a small
+            # model), its per-row cursors mirroring the target's positions
+            self.draft_caches = self.draft.init_caches(self.slots,
+                                                       self.capacity)
+        if self._spec:
+            self._spec_emitted = 0
+            self._spec_rounds = 0
 
     # -- device work ---------------------------------------------------
     def _dev(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
-    def _admit(self, prompt, length: int, slot: int, temp, tk, tp):
-        """Prefill a [1, width] padded prompt on a scratch cache, pick the
-        first token, and write the K/V region into the slot's rows."""
-        srv = self.server
+    def _prefill_scratch(self, srv, prompt, length: int):
+        """Prefill a [1, width] padded prompt of ``length`` true tokens on
+        a batch-1 scratch cache of ``srv``: (logits, scratch caches)."""
         width = prompt.shape[1]
         mini = srv.init_caches(1, width)
         lens = self._dev([length], torch.int32)
         pos_ids, key_pos = srv._ragged_positions(lens, width, width)
         x = srv._embed_at(self._dev(prompt), pos_ids)
-        logits, mini = srv._step(x, mini, 0, key_pos=key_pos, q_pos=pos_ids)
+        return srv._step(x, mini, 0, key_pos=key_pos, q_pos=pos_ids)
+
+    def _admit(self, prompt, length: int, slot: int, temp, tk, tp):
+        """Prefill a [1, width] padded prompt on a scratch cache, pick the
+        first token, and write the K/V region into the slot's rows."""
+        logits, mini = self._prefill_scratch(self.server, prompt, length)
         first = _pick_first(self._row_pick, logits, length, self._gen, temp,
                             tk, tp)
         _write_slot_rows(self.caches, mini, slot)
         return first
+
+    def _admit_draft(self, slot) -> None:
+        """Prefill the draft's dense cache row for a just-activated slot
+        (no token is picked: the target's admission did)."""
+        req = self._req[slot]
+        width = self._bucket(req.tokens.size)
+        prompt = np.zeros((1, width), np.float32)
+        prompt[0, :req.tokens.size] = req.tokens
+        _, mini = self._prefill_scratch(self.draft, prompt, req.tokens.size)
+        _write_slot_rows(self.draft_caches, mini, slot)
 
     def _decode(self):
         """One decode step for every slot: feed each slot's pending token
@@ -376,6 +468,112 @@ class ContinuousBatcher:
             cache_io=io)
         return self._row_pick(logits[:, -1], self._gen, self.req_temp,
                               self.req_topk, self.req_topp)
+
+    def _verify(self, tok, pos, props, wpid, woff):
+        """The target's ``spec_k + 1``-wide step over each slot's pending
+        token and its proposals, at positions ``pos .. pos + spec_k``:
+        dense caches write at per-row cursors, paged pools at the
+        host-chosen (page, offset) coordinates and attend through the
+        gathered view or kernel B7.  Returns logits [slots, k + 1, V]."""
+        srv, k = self.server, self.spec_k
+        seq = torch.cat([tok[:, None], props.to(tok.dtype)], dim=1)
+        qp = pos[:, None] + torch.arange(k + 1, dtype=pos.dtype,
+                                         device=pos.device)[None, :]
+        x = srv._embed_at(seq, qp)
+        if self.paged:
+            virtual = self.pages_per_slot * self.page_size
+            io = _make_paged_io(self.attention, self._dev(self.page_table),
+                                self._dev(wpid), self._dev(woff))
+            logits, self.caches = srv._step(
+                x, self.caches, 0, key_pos=_cursor_key_pos(virtual, pos, k),
+                q_pos=qp, cache_io=io)
+        else:
+            logits, self.caches = srv._step(
+                x, self.caches, 0,
+                key_pos=_cursor_key_pos(self.capacity, pos, k), q_pos=qp,
+                row_starts=pos)
+        return logits
+
+    def _spec_round(self, wpid, woff):
+        """One speculative round for the whole slot batch: the draft
+        proposes ``spec_k`` tokens a row (greedy, or sampled at the
+        batcher's temperature), the target verifies them in one step,
+        and each row's acceptance comes back: greedy matching, or the
+        rejection scheme whose output distribution is plain target
+        sampling.  Returns (tokens [slots, k + 1], accepted [slots]): a
+        row emits its first ``accepted + 1`` tokens.  The draft runs one
+        more write-only step, so its cache has no hole when every
+        proposal is accepted."""
+        draft, k = self.draft, self.spec_k
+        temp = float(self.temperature)
+        sampled = temp > 0.0
+        tok = self._dev(self.last)
+        pos = self._dev(self.pos)
+        dt, dpos, outs, qs = tok, pos, [], []
+        for _ in range(k + 1):
+            x = draft._embed_at(dt[:, None], dpos[:, None])
+            logits, self.draft_caches = draft._step(
+                x, self.draft_caches, 0,
+                key_pos=_cursor_key_pos(self.capacity, dpos),
+                q_pos=dpos[:, None], row_starts=dpos)
+            row = logits[:, -1].float()
+            if sampled:
+                q = torch.softmax(row / temp, dim=-1)
+                nxt = torch.multinomial(q, 1, generator=self._gen)[:, 0]
+                qs.append(q)
+            else:
+                nxt = torch.argmax(row, dim=-1)
+            outs.append(nxt)
+            dt, dpos = nxt.to(tok.dtype), dpos + 1
+        props = torch.stack(outs[:k], dim=1)                  # [b, k]
+        logits = self._verify(tok, pos, props, wpid, woff)
+        if not sampled:
+            return _greedy_accept(logits, props, k)
+        # the rejection scheme per row (_spec.py's math): accept proposal
+        # i while u_i < p(d_i) / q(d_i); the first rejection draws the
+        # correction from normalize(relu(p - q)); full acceptance draws
+        # the bonus from position k's target distribution
+        qs = torch.stack(qs[:k], dim=1)                       # [b, k, V]
+        rows = torch.arange(props.shape[0], device=props.device)
+        cols = torch.arange(k, device=props.device)[None, :]
+        p = torch.softmax(logits.float() / temp, dim=-1)      # [b, k+1, V]
+        ratio = (p[rows[:, None], cols, props]
+                 / qs[rows[:, None], cols, props].clamp(min=1e-30))
+        acc = torch.rand(ratio.shape, generator=self._gen,
+                         device=ratio.device) < ratio
+        a = torch.cumprod(acc.long(), dim=1).sum(dim=1)       # 0..k
+        rej = a.clamp(max=k - 1)
+        resid = (p[rows, rej] - qs[rows, rej]).clamp(min=0.0)
+        rs = resid.sum(dim=1, keepdim=True)
+        resid = torch.where(rs > 1e-30, resid / rs, p[rows, rej])
+        corr = torch.multinomial(resid, 1, generator=self._gen)[:, 0]
+        bonus = torch.multinomial(p[:, k], 1, generator=self._gen)[:, 0]
+        emit = torch.cat([props, torch.zeros_like(props[:, :1])], dim=1)
+        emit[rows, a] = torch.where(a == k, bonus, corr)
+        return emit, a
+
+    def _lookup_props(self, slot) -> np.ndarray:
+        """Prompt-lookup proposals for one slot from the history the
+        scheduler already holds (prompt and emitted tokens); an inactive
+        slot proposes zeros."""
+        req = self._req[slot]
+        if req is None or not self.active[slot]:
+            return np.zeros(self.spec_k, np.int64)
+        # a preemption folds out[:absorbed] into the continuation prompt
+        # (req.tokens): only the unabsorbed tail is appended here
+        hist = np.concatenate([req.tokens.astype(np.int64),
+                               np.asarray(req.out[req.absorbed:], np.int64)])
+        return lookup_propose(hist, self.spec_k, self.lookup_ngram)
+
+    def _lookup_round(self, wpid, woff):
+        """One draft-free verify round: the host's lookup proposals ride
+        in as data, the target verifies them, greedy acceptance comes
+        back (``_spec_round``'s contract)."""
+        props = self._dev(np.stack([self._lookup_props(s)
+                                    for s in range(self.slots)]))
+        logits = self._verify(self._dev(self.last), self._dev(self.pos),
+                              props, wpid, woff)
+        return _greedy_accept(logits, props, self.spec_k)
 
     def _register_prefix_pages(self, prompt, page_ids) -> None:
         """Prefill the prefix (batch-1, full width) and pin its K/V into
@@ -510,10 +708,10 @@ class ContinuousBatcher:
         self._preempts += 1
         return True
 
-    def _ensure_page(self, slot) -> None:
-        """Allocate pages until ``slot`` owns the page its next write
-        lands in; preempt others if the pool is dry."""
-        page_idx = int(self.pos[slot]) // self.page_size
+    def _ensure_pages_upto(self, slot, upto: int) -> None:
+        """Allocate pages until ``slot`` owns the page that position
+        ``upto`` lands in; preempt others if the pool is dry."""
+        page_idx = int(upto) // self.page_size
         self._alloc_pages(slot, page_idx + 1 - len(self.slot_pages[slot]))
 
     def _alloc_pages(self, slot, n: int) -> None:
@@ -536,18 +734,23 @@ class ContinuousBatcher:
 
     def _own_pages_needed(self, tokens: np.ndarray, remaining: int) -> int:
         """Worst-case pages a request must allocate itself: its full
-        footprint minus the pages the registered prefixes cover.  Window
-        models evict pages behind the attention band, also between
+        footprint (a speculative round's ``spec_k`` rows past the fed
+        position count) minus the pages the registered prefixes cover.
+        Window models evict pages behind the attention band, also between
         prefill chunks, so their worst-case simultaneous residency is the
-        band plus the largest write run between evictions."""
+        band plus the largest write run between evictions: an admission
+        chunk or a dispatch."""
         need = tokens.size + remaining - 1
+        if self._spec:
+            need += self.spec_k
         _, pages = self._match_prefix(tokens)
         shared = len(pages) if pages else 0
         full = self._pages_for(need) - shared
         window = self.server.window
         if window is None:
             return full
-        burst = max(1, self._admit_chunk() or 0)   # one token a dispatch
+        burst = max(self.spec_k if self._spec else 1,
+                    self._admit_chunk() or 0)
         steady = self._pages_for(int(window) + burst + 1) + 2
         return min(full, steady)
 
@@ -643,7 +846,16 @@ class ContinuousBatcher:
         ``stop_seq`` (a list of token ids) finishes this request once its
         emitted tail equals the sequence; it composes with the
         batcher-level ``stop_token``.  ``temperature``/``top_k``/``top_p``
-        override the batcher-level sampling settings for this request."""
+        override the batcher-level sampling settings for this request (not
+        in speculative mode, whose rejection scheme is built for the
+        batcher-level temperature; lookup is exact greedy)."""
+        if (self._spec
+                and (temperature is not None or top_k is not None
+                     or top_p is not None)):
+            raise ModelRuntimeError(
+                "per-request sampling overrides are not available in "
+                "speculative mode (the rejection scheme is built for "
+                "the batcher-level temperature; lookup is exact-greedy)")
         check_top_p(top_p)
         tokens = np.asarray(prompt, np.float32).reshape(-1)
         if tokens.size < 1:
@@ -651,10 +863,15 @@ class ContinuousBatcher:
         if max_new < 1:
             raise ModelRuntimeError(f"max_new must be >= 1 (got {max_new})")
         need = tokens.size + max_new - 1
+        margin = ""
+        if self._spec:
+            # a verify round writes spec_k rows beyond the fed position
+            need += self.spec_k
+            margin = f" + spec_k {self.spec_k}"
         if need > self.capacity:
             raise ModelRuntimeError(
-                f"prompt_len + max_new - 1 = {need} exceeds cache capacity "
-                f"{self.capacity}"
+                f"prompt_len + max_new - 1{margin} = {need} exceeds cache "
+                f"capacity {self.capacity}"
             )
         if need > self.server.max_seq:
             raise ModelRuntimeError(
@@ -736,6 +953,8 @@ class ContinuousBatcher:
         first = int(first)
         self.last[slot] = float(first)
         self._evict_window_pages(slot)
+        if self.draft is not None:
+            self._admit_draft(slot)
         if self._emit(slot, first):
             return self._finish(slot)
         return None
@@ -851,6 +1070,8 @@ class ContinuousBatcher:
                 self.active[slot] = True
                 self.pos[slot] = req.tokens.size
                 self.last[slot] = float(first)
+                if self.draft is not None:
+                    self._admit_draft(slot)
                 if self._emit(slot, first):
                     finished.append(self._finish(slot))
 
@@ -874,14 +1095,21 @@ class ContinuousBatcher:
                 if done is not None:
                     finished.append(done)
 
-        # 2) one decode step for the whole slot batch
+        # 2) a speculative round: the draft (or the host's lookup match)
+        # proposes, the target verifies, each slot advances by its own
+        # accepted count plus one
+        if self.active.any() and self._spec:
+            self._spec_step(finished)
+            return finished
+
+        # 2') one decode step for the whole slot batch
         if self.active.any():
             self._steps += 1
             self._dispatches += 1
             if self.paged:
                 for slot in range(self.slots):
                     if self.active[slot]:
-                        self._ensure_page(slot)
+                        self._ensure_pages_upto(slot, int(self.pos[slot]))
                 wpid = np.zeros(self.slots, np.int32)  # 0 = trash page
                 woff = np.zeros(self.slots, np.int32)
                 for slot in range(self.slots):
@@ -898,6 +1126,37 @@ class ContinuousBatcher:
                 if self.active[slot]:
                     self._apply_tokens(slot, nxt[slot:slot + 1], finished)
         return finished
+
+    def _spec_step(self, finished) -> None:
+        """Dispatch one speculative round and apply each active slot's
+        accepted tokens (one read back of the round's tokens and counts)."""
+        k = self.spec_k
+        wpid = np.zeros((self.slots, k + 1), np.int32)  # 0 = trash page
+        woff = np.zeros((self.slots, k + 1), np.int32)
+        if self.paged:
+            for slot in range(self.slots):
+                if self.active[slot]:  # may preempt other slots
+                    self._ensure_pages_upto(slot, int(self.pos[slot]) + k)
+            for slot in range(self.slots):
+                if self.active[slot]:
+                    p = int(self.pos[slot]) + np.arange(k + 1)
+                    wpid[slot] = [self.slot_pages[slot][i]
+                                  for i in p // self.page_size]
+                    woff[slot] = p % self.page_size
+        self._dispatches += 1
+        self._spec_rounds += 1
+        if self.draft is not None:
+            emit, accept = self._spec_round(wpid, woff)
+        else:
+            emit, accept = self._lookup_round(wpid, woff)
+        host = torch.cat([emit, accept[:, None]], dim=1).cpu().numpy()
+        for slot in range(self.slots):
+            if not self.active[slot]:
+                continue
+            take = int(host[slot, k + 1]) + 1
+            self._steps += take
+            self._spec_emitted += self._apply_tokens(
+                slot, host[slot, :take], finished)
 
     def run(self) -> dict:
         """Drive ``step()`` until every queued and active request is done;
@@ -959,6 +1218,9 @@ class ContinuousBatcher:
             "active": int(self.active.sum()),
             "queued": len(self.queue),
         }
+        if self._spec:
+            out["spec_rounds"] = self._spec_rounds
+            out["spec_emitted"] = self._spec_emitted
         if self.paged:
             out["free_pages"] = len(self.free_pages)
             out["pool_pages"] = self.pool_pages

@@ -79,14 +79,41 @@ def _solo(server, prompts, max_new):
             for p, mn in zip(prompts, max_new)]
 
 
+@functools.lru_cache(maxsize=None)
+def _drafts(seed=5):
+    """A draft model (same widths, another seed, three steps on its own
+    data, so it often disagrees with the target) in both packages."""
+    kw = dict(vocab=VOCAB, dim=16, heads=2, max_seq=64)
+    ref = eg.compile(jax_transformer(**kw), backend="jax", seed=seed)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, VOCAB, (4, 16)).astype(np.float32)
+    labels = eg.one_hot(rng.integers(0, VOCAB, 64), VOCAB).reshape(
+        4, 16, VOCAB)
+    for _ in range(3):
+        ref.epoch += 1
+        ref.apply("train", {"tokens": toks, "labels": labels})
+    port = egt.from_state(flash_transformer(**kw), ref.params, ref.caches,
+                          ref.epoch, ref._rng.bit_generator.state,
+                          device="cpu")
+    return JaxServer(ref), FlashLMServer(port)
+
+
 def _run_both(model, cache, batcher_kw, prompts, max_new, prefix=None):
     """Serve the prompts through both batchers; returns (JAX streams,
     port streams, JAX stats, port stats, port batcher), streams in
-    submission order."""
+    submission order.  ``draft="draft"`` in ``batcher_kw`` stands for
+    each package's draft server (:func:`_drafts`), ``draft="self"`` for
+    its target server."""
     jsrv, tsrv = _servers(*model, cache)
     out = []
-    for cls, srv in ((JaxBatcher, jsrv), (ContinuousBatcher, tsrv)):
-        b = cls(srv, slots=2, capacity=64, **batcher_kw)
+    for i, (cls, srv) in enumerate(((JaxBatcher, jsrv),
+                                    (ContinuousBatcher, tsrv))):
+        kw = dict(batcher_kw)
+        if kw.get("draft") == "draft":
+            kw["draft"] = _drafts()[i]
+        elif kw.get("draft") == "self":
+            kw["draft"] = srv
+        b = cls(srv, slots=2, capacity=64, **kw)
         if prefix is not None:
             assert b.register_prefix(prefix) == (
                 prefix.size // b.page_size * b.page_size)
@@ -131,6 +158,34 @@ CASES = [
     ("prefill_chunk", PLAIN, None,
      dict(paged=True, page_size=4, prefill_chunk=8), (37, 6, 23),
      (5, 9, 7), 19, None),
+    # speculative rounds (draft=) and prompt-lookup rounds (lookup=True):
+    # spec_k + 1 query rows a slot per verify dispatch
+    ("draft_dense", PLAIN, None, dict(draft="draft", spec_k=3),
+     (5, 9, 3, 12), (8, 5, 10, 6), 27, "spec_rounds"),
+    ("draft_paged_gather", PLAIN, None,
+     dict(draft="draft", spec_k=3, paged=True, page_size=8),
+     (5, 9, 3, 12), (8, 5, 10, 6), 27, "spec_rounds"),
+    ("draft_paged_flash", PLAIN, "float32",
+     dict(draft="draft", spec_k=4, paged=True, page_size=8,
+          attention="flash"), (5, 9, 3, 12), (8, 5, 10, 6), 28,
+     "spec_rounds"),
+    ("draft_int8_window_rope_flash", WINDOW_ROPE, "int8",
+     dict(draft="draft", spec_k=2, paged=True, page_size=8,
+          attention="flash"), (11, 6), (5, 7), 22, "spec_rounds"),
+    ("draft_preemption_flash", PLAIN, "float32",
+     dict(draft="draft", spec_k=4, paged=True, page_size=8, pool_pages=4,
+          attention="flash"), (9, 8), (8, 8), 10, "preemptions"),
+    ("draft_window_eviction", WINDOW, None,
+     dict(draft="draft", spec_k=3, paged=True, page_size=4), (20, 6),
+     (30, 40), 31, "window_evicted"),
+    ("lookup_dense", PLAIN, None, dict(lookup=True, spec_k=3),
+     (5, 9, 3, 12), (8, 5, 10, 6), 57, "spec_rounds"),
+    ("lookup_paged_gather", PLAIN, None,
+     dict(lookup=True, spec_k=3, paged=True, page_size=8),
+     (5, 9, 3, 12), (8, 5, 10, 6), 57, "spec_rounds"),
+    ("lookup_paged_flash_preemption", PLAIN, "float32",
+     dict(lookup=True, spec_k=4, paged=True, page_size=8, pool_pages=4,
+          attention="flash"), (9, 8, 6), (8, 8, 10), 59, "preemptions"),
 ]
 
 
@@ -360,13 +415,10 @@ def test_step_with_positions_matches_jax(model):
     np.testing.assert_allclose(got2.numpy(), np.asarray(want2), **STEP_TOL)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(draft="draft"), dict(lookup=True), dict(decode_chunk=2),
-    dict(pipeline=1)], ids=["draft", "lookup", "decode_chunk", "pipeline"])
+@pytest.mark.parametrize("kw", [dict(decode_chunk=2), dict(pipeline=1)],
+                         ids=["decode_chunk", "pipeline"])
 def test_unported_options_raise(kw):
     _, tsrv = _servers()
-    if kw.get("draft"):
-        kw = dict(draft=tsrv)
     with pytest.raises(NotImplementedError, match="A13"):
         ContinuousBatcher(tsrv, slots=2, capacity=64, **kw)
 
@@ -423,3 +475,179 @@ def test_request_metrics():
     assert r["prompt_tokens"] in (9, 8)
     assert sum(r["preemptions"] for r in m) == b.stats["preemptions"] > 0
     assert b.request_metrics(reset=True) and not b.request_metrics()
+
+
+def test_self_draft_accepts_everything_and_counts_rounds():
+    """The target as its own draft: every proposal is accepted, so each
+    round emits spec_k + 1 tokens: 8 tokens after admission per request
+    at 3 a round, both requests at once, is 3 rounds (the JAX package's
+    count; it also shows the draft's write-only step leaves no hole)."""
+    prompts = _prompts(28, (6, 9))
+    jax_streams, streams, jax_stats, stats, _ = _run_both(
+        PLAIN, None, dict(draft="self", spec_k=2), prompts, [9, 9])
+    solo = _solo(_servers()[1], prompts, [9, 9])
+    for got, want, alone in zip(streams, jax_streams, solo):
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, alone)
+    assert stats == jax_stats
+    assert stats["spec_rounds"] == 3 and stats["spec_emitted"] == 16
+
+
+@pytest.mark.parametrize("mode", ["draft", "lookup"])
+def test_speculative_with_prefix_and_stops_matches_jax(mode):
+    """A registered prefix, a stop token and a stop sequence finishing
+    rows in the middle of a round, through kernel B7's plain version."""
+    rng = np.random.default_rng(29)
+    system = rng.integers(0, VOCAB, 16).astype(np.float32)
+    prompts = [np.concatenate([system, p]) for p in _prompts(30, (6, 4))]
+    ref = _solo(_servers()[1], prompts, [12, 12])
+    stop = int(ref[0][3])
+    stop_seq = [int(t) for t in ref[1][4:6]]
+    jsrv, tsrv = _servers()
+    kw = (dict(draft="draft") if mode == "draft" else dict(lookup=True))
+    got = []
+    for i, (cls, srv) in enumerate(((JaxBatcher, jsrv),
+                                    (ContinuousBatcher, tsrv))):
+        if mode == "draft":
+            kw["draft"] = _drafts()[i]
+        b = cls(srv, slots=2, capacity=64, spec_k=4, paged=True,
+                page_size=8, attention="flash", stop_token=stop, **kw)
+        b.register_prefix(system)
+        rids = [b.submit(prompts[0], 12), b.submit(prompts[1], 12,
+                                                   stop_seq=stop_seq)]
+        done = b.run()
+        got.append(([done[r] for r in rids], b.stats))
+    (want, want_stats), (streams, stats) = got
+    for a, b_, r in zip(streams, want, ref):
+        np.testing.assert_array_equal(a, b_)
+        np.testing.assert_array_equal(a, r[:len(a)])
+        assert len(a) < 12
+    assert stats == want_stats and stats["prefix_hits"] == 2
+    assert stats["free_pages"] == stats["pool_pages"] - 2
+
+
+def test_sampled_speculative_rounds_hold_the_target_distribution():
+    """Sampled rounds implement the rejection scheme: over 250 seeds the
+    first two tokens' joint matches the target's p(t1) p(t2 | t1) (an
+    untrained target and draft, so the correction draw fires often),
+    within 0.09 (tests/test_serve.py's bound).  A seed gives the same
+    tokens twice."""
+    vocab = 6
+    model = egt.compile(flash_transformer(vocab=vocab, dim=16, heads=2,
+                                          max_seq=32), seed=0, device="cpu")
+    target = FlashLMServer(model)
+    draft = FlashLMServer(egt.compile(
+        flash_transformer(vocab=vocab, dim=8, heads=2, max_seq=32), seed=3,
+        device="cpu"))
+    prompt = np.asarray([1, 2, 3, 4], np.float32)
+    p1 = model.call("predict", {"tokens": prompt[None]})[0, -1].astype(
+        np.float64)
+    p1 /= p1.sum()
+    joint = np.zeros((vocab, vocab))
+    for t1 in range(vocab):
+        ext = np.concatenate([prompt, [t1]])[None].astype(np.float32)
+        p2 = model.call("predict", {"tokens": ext})[0, -1].astype(np.float64)
+        joint[t1] = p1[t1] * p2 / p2.sum()
+
+    def run(seed, n=2):
+        b = ContinuousBatcher(target, slots=1, capacity=32, draft=draft,
+                              spec_k=2, temperature=1.0, seed=seed)
+        rid = b.submit(prompt, n)
+        return b.run()[rid]
+
+    n = 250
+    emp = np.zeros((vocab, vocab))
+    for s in range(n):
+        emp[tuple(run(s))] += 1
+    emp /= n
+    assert np.abs(emp - joint).max() < 0.09, np.abs(emp - joint).max()
+    np.testing.assert_array_equal(run(7, 6), run(7, 6))
+
+
+def test_lookup_accepts_on_periodic_continuation_like_jax():
+    """An untrained model's greedy output falls into short cycles, the
+    regime lookup serves: the JAX package's pinned run (30 tokens after
+    admission in at most 20 rounds), with equal streams and stats."""
+    kw = dict(vocab=32, dim=16, heads=2, max_seq=96)
+    ref = eg.compile(jax_transformer(**kw), backend="jax", seed=0)
+    port = egt.compile(flash_transformer(**kw), seed=0, device="cpu")
+    prompts = [np.random.default_rng(58).integers(0, 32, n).astype(
+        np.float32) for n in (8, 5)]
+    got = []
+    for cls, srv in ((JaxBatcher, JaxServer(ref)),
+                     (ContinuousBatcher, FlashLMServer(port))):
+        b = cls(srv, slots=2, capacity=96, lookup=True, spec_k=4)
+        rids = [b.submit(p, 16) for p in prompts]
+        done = b.run()
+        got.append(([done[r] for r in rids], b.stats))
+    (want, want_stats), (streams, stats) = got
+    for a, b_ in zip(streams, want):
+        np.testing.assert_array_equal(a, b_)
+    solo = _solo(FlashLMServer(port), prompts, [16, 16])
+    for a, s in zip(streams, solo):
+        np.testing.assert_array_equal(a, s)
+    assert stats == want_stats
+    assert stats["spec_emitted"] == 30 and stats["spec_rounds"] <= 20
+
+
+def test_spec_margin_counts_in_paged_feasibility():
+    """The paged feasibility bound counts the spec_k rows a round writes
+    past the fed position, and the draft's max_seq must cover the
+    capacity — alike in both packages."""
+    jsrv, tsrv = _servers()
+    for i, (cls, srv, err) in enumerate((
+            (JaxBatcher, jsrv, eg.ModelRuntimeError),
+            (ContinuousBatcher, tsrv, ModelRuntimeError))):
+        draft = _drafts()[i]
+        b = cls(srv, slots=2, capacity=64, paged=True, page_size=16,
+                pool_pages=2, draft=draft, spec_k=4)
+        # 20 + 13 - 1 + 4 = 36 rows -> 3 pages > a 2-page pool
+        with pytest.raises(err, match="unpinned"):
+            b.submit(np.zeros(20), 13)
+        b.submit(np.zeros(20), 9)     # 32 rows: 2 pages
+        lb = cls(srv, slots=2, capacity=64, paged=True, page_size=16,
+                 pool_pages=2, lookup=True, spec_k=4)
+        with pytest.raises(err, match="unpinned"):
+            lb.submit(np.zeros(20), 13)
+    short = egt.compile(flash_transformer(vocab=VOCAB, dim=16, heads=2,
+                                          max_seq=32), seed=2, device="cpu")
+    with pytest.raises(ModelRuntimeError, match="DRAFT"):
+        ContinuousBatcher(tsrv, slots=2, capacity=64,
+                          draft=FlashLMServer(short), spec_k=4)
+
+
+def test_speculative_validation_matches_jax():
+    jsrv, tsrv = _servers()
+    for i, (cls, srv, err) in enumerate((
+            (JaxBatcher, jsrv, eg.ModelRuntimeError),
+            (ContinuousBatcher, tsrv, ModelRuntimeError))):
+        draft = _drafts()[i]
+        small = (JaxServer(eg.compile(jax_transformer(
+            vocab=16, dim=16, heads=2, max_seq=64), seed=1)) if i == 0
+            else FlashLMServer(egt.compile(flash_transformer(
+                vocab=16, dim=16, heads=2, max_seq=64), seed=1,
+                device="cpu")))
+        cases = [
+            ("top_k", dict(draft=draft, temperature=0.5, top_k=4)),
+            ("decode_chunk", dict(draft=draft, decode_chunk=4)),
+            ("vocab", dict(draft=small)),
+            ("spec_k", dict(draft=draft, spec_k=0)),
+            ("mutually exclusive", dict(lookup=True, draft=draft)),
+            ("greedy", dict(lookup=True, temperature=0.5)),
+            ("decode_chunk", dict(lookup=True, decode_chunk=4)),
+            ("speculation", dict(lookup=True, pipeline=1)),
+            ("lookup_ngram", dict(lookup=True, lookup_ngram=0)),
+        ]
+        for match, kw in cases:
+            with pytest.raises(err, match=match):
+                cls(srv, slots=2, capacity=64, **kw)
+        b = cls(srv, slots=2, capacity=64, draft=draft, spec_k=4)
+        with pytest.raises(err, match="capacity"):
+            b.submit(np.zeros(30), 32)      # 30 + 32 - 1 + 4 > 64
+        with pytest.raises(err, match="per-request"):
+            b.submit(np.zeros(4), 4, temperature=0.5)
+        lb = cls(srv, slots=2, capacity=64, lookup=True)
+        with pytest.raises(err, match="overrides"):
+            lb.submit(np.zeros(4, np.float32), 4, temperature=0.7)
+        with pytest.raises(err, match="spec_k"):
+            lb.submit(np.zeros(60, np.float32), 4)

@@ -419,7 +419,6 @@ def test_jax_only_methods_raise():
     for call in (lambda: port.export_compiled("out", {"a": [8, 4]}),
                  lambda: port.save_hlo("x.hlo", "out", {"a": [8, 4]}),
                  lambda: port.profile("out", {}, "logdir"),
-                 lambda: port.quantize_weights(),
                  lambda: port.autotune("out")):
         with pytest.raises(NotImplementedError, match="not ported"):
             call()

@@ -1,6 +1,8 @@
 """The port runs without jax and without the JAX package: import,
 compile, predict and generate, continuous batching over a paged pool
-through the paged-attention kernel's plain version, a scheduled MLP
+through the paged-attention kernel's plain version, the server's int8
+weights, ragged, scoring, beam, speculative and lookup modes and the
+batcher's speculative rounds, weight quantization, a scheduled MLP
 (chip_smoke.py's program, narrow), a scheduled softmax row chain and
 scatter-add (the generated kernels' plain versions), and train (steps,
 fit, the scan epoch, checkpoints, EMA, the training driver) on the CPU
@@ -60,6 +62,37 @@ SCRIPT = textwrap.dedent("""
     assert all(done[r].shape == (6,) for r in rids), done
     assert b.stats["preemptions"] > 0, b.stats
     assert b.stats["free_pages"] == 6 and paged_attention.launches == 0
+
+    # the decoder server's other modes and the speculative rounds: int8
+    # weights, ragged prompts, scoring, beam, speculative and lookup
+    # decoding, and the batcher's draft and lookup rounds through the
+    # paged-attention kernel's plain version
+    import exprgrad_torch.quant, exprgrad_torch.models._quant
+    import exprgrad_torch.models._beam, exprgrad_torch.models._spec
+    srv = FlashLMServer(model, cache_dtype=torch.float32)
+    q8 = FlashLMServer(model, weight_dtype=torch.int8)
+    assert q8.weight_bytes() < srv.weight_bytes() / 2
+    assert q8.generate(toks[:, :8], n_new=3, lengths=[8, 5]).shape == (2, 3)
+    assert srv.score(toks).shape == (2,)
+    seqs, scores = srv.generate_beam(toks[:1, :8], n_new=3, beams=2)
+    assert seqs.shape == (1, 2, 3) and scores.shape == (1, 2)
+    spec, _ = srv.generate_speculative(srv, toks[:1, :8], n_new=6, k=2)
+    look, _ = srv.generate_lookup(toks[:1, :8], n_new=6, k=2)
+    want = srv.generate(toks[:1, :8], n_new=6).numpy()
+    assert np.array_equal(spec.numpy(), want), (spec, want)
+    assert np.array_equal(look.numpy(), want), (look, want)
+    for kw in (dict(draft=srv), dict(lookup=True)):
+        b = ContinuousBatcher(srv, slots=2, capacity=32, paged=True,
+                              page_size=4, attention="flash", spec_k=2, **kw)
+        rids = [b.submit(t, 5) for t in toks[:3, :9]]
+        done = b.run()
+        assert all(done[r].shape == (5,) for r in rids), done
+        assert b.stats["spec_rounds"] > 0, b.stats
+    quant = egt.compile(flash_transformer(vocab=12, dim=16, heads=2,
+                                          blocks=1, max_seq=32),
+                        seed=0, device="cpu")
+    assert quant.quantize_weights(min_size=64)
+    assert quant.call("predict", {"tokens": toks}).shape == (2, 16, 12)
 
     import exprgrad_torch.layers
     from chip_smoke import scheduled_mlp
