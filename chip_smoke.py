@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve,
 train, run scheduled contractions, map/reduce kernels and row chains,
 serve a continuous batch over a paged KV pool, train the reference
-examples' models, and serve the decoder's other modes (int8 weights,
+examples' models, serve the decoder's other modes (int8 weights,
 ragged prompts, scoring, beam, speculative and lookup decoding and the
-batcher's speculative rounds).
+batcher's speculative rounds), train and serve the encoder-decoder and
+recurrent models, and export, load and profile a model.
 
     python3 chip_smoke.py
 
@@ -129,7 +130,30 @@ Phases (any failed check raises and the script exits non-zero):
    with "gather", the pool preempts and every page comes back, float32
    greedy streams equal solo generate but at near-ties; the bfloat16
    drives timed beside the plain drive (tokens/s, acceptance), and the
-   host's wait at each round's read back by cProfile.
+   host's wait at each round's read back by cProfile;
+17. path (j), bench.py's seq2seq cell: tiny_seq2seq(vocab 512, dim 256,
+   4 heads, hidden 512, max_src 64, max_tgt 65), 8 sources of 64 tokens:
+   two adam steps on sequence reversal against the CPU port (B2, B3 and
+   B4 three launches each a step: the non-causal encoder, the causal
+   decoder, the cross-attention), the timed steps; predict against the
+   CPU port; greedy_decode for 64 tokens (B2 at every target width from
+   1 to 64); Seq2SeqServer: prefill against predict, greedy against
+   greedy_decode, ragged sources of 17-64 tokens against solo, one beam
+   against greedy, self-draft speculation against greedy (each but at
+   near-ties), score against predict's NLL, int8 weights within 5%
+   relative L2; Seq2SeqBatcher(slots=8) over 12 staggered sources of
+   16-64 tokens, plain and lookup=True, each stream its solo stream but
+   at near-ties; the tokens/s of each;
+18. path (k): RecurrentServer on path (h)'s three trained cells, greedy
+   against the predict target's argmax chain but at near-ties; tokens/s;
+19. the model extras: export_compiled of phase 3's serving predict at
+   [8, 256] and of path (a)'s scheduled contraction at 1024^3, then
+   load_compiled: each artifact within rtol 1e-5 of model.call and
+   running B2 (not sdpa's kernels) or B1 under torch.profiler; save_hlo
+   naming the ops exprgrad_torch::flash_fwd and exprgrad_torch::matmul;
+   profile writing a Chrome trace that holds B2; the host microseconds a
+   call of B2 and B1 through their torch.library ops beside the direct
+   launch, in turns.
 
 B1-B4 compute float32 on the tensor cores as split TF32 and are held
 to the same tolerances as the float32 kernels before them
@@ -324,6 +348,27 @@ VERIFY_SHAPES = ((4, 4, SPEC_K + 1), (8, 2, SPEC_K + 1), (8, 1, LOOKUP_K + 1))
 VERIFY_WINDOW = 40
 PAGED_VERIFY_CASE = (8, 4, 4, SPEC_K + 1, 128, 8, 32, torch.bfloat16)
 PAGED_VERIFY_LENS = tuple(n + SPEC_K for n in PAGED_SERVING_LENS)
+
+# Phase 17, path (j): bench.py's seq2seq serving cell (bench.py:1022-1053):
+# tiny_seq2seq(vocab 512, dim 256, 4 heads, hidden 512, one encoder and
+# one decoder block, max_src 64, max_tgt 65), 8 sources of 64 tokens and
+# 64 new tokens.  It trains S2S_STEPS adam steps on sequence reversal
+# (teacher-forced targets of 64) against the CPU port, then TIMED_STEPS
+# more on the card; ragged sources of 17-64 tokens; the batcher serves 12
+# staggered sources of 16-64 tokens with budgets of 16-60 (60 + spec_k 4
+# fills the 64 positions after BOS that max_tgt 65 holds, so the lookup
+# drive takes the same mix).
+SEQ2SEQ = dict(vocab=512, dim=256, heads=4, hidden=512, max_src=64,
+               max_tgt=65)
+S2S_BATCH, S2S_SRC, S2S_NEW, S2S_STEPS = 8, 64, 64, 2
+S2S_RAGGED = (17, 65)
+S2S_MIX = dict(n=12, src=(16, 65), budget=(16, 61), slots=8)
+# Phase 18, path (k): RecurrentServer on path (h)'s trained cells, the
+# first 8 windows as prompts
+RNN_SERVE = dict(batch=8, new=32)
+# Phase 19: path (a)'s scheduled contraction, exported at a width that
+# keeps the phase short
+EXPORT_MATMUL_N = 1024
 
 
 def gpu_line() -> str:
@@ -2577,7 +2622,8 @@ def path_h(egt, gpu) -> dict:
     """Phase 15: examples/rnn_lm.py's recurrent LM (its BPE tokenizer on
     its text, windows of RNN_SEQ): RNN_STEPS adam steps for each cell,
     against the CPU port, every parameter within TRAIN_UPDATE_RTOL of its
-    own update in L2 norm."""
+    own update in L2 norm.  Returns {cell: (the trained card model, its
+    data)} for path (k)."""
     from exprgrad_torch.io import BPETokenizer
     from exprgrad_torch.models import tiny_recurrent_lm
 
@@ -2628,7 +2674,7 @@ def path_h(egt, gpu) -> dict:
               f"parameter |diff| / |update| vs CPU {worst:.3e}; "
               f"{warm_ms:.2f} ms a step warm ({times[0] * 1e3:.1f} ms the "
               f"first) on {gpu}")
-        out[cell] = warm_ms
+        out[cell] = (card, args)
     return out
 
 
@@ -3061,6 +3107,415 @@ def path_i(egt, model, drafts, gpu) -> dict:
     return out
 
 
+# --- encoder-decoder and recurrent serving, the model extras (17-19) ------
+
+def reversal_data(rng, vocab, n, s):
+    """Sequence reversal: sources of ids in [1, vocab), targets the
+    reversed source teacher-forced after BOS 0, one-hot labels."""
+    src = rng.integers(1, vocab, (n, s)).astype(np.float32)
+    rev = src[:, ::-1]
+    tgt = np.concatenate([np.zeros((n, 1), np.float32), rev[:, :-1]], 1)
+    labels = np.eye(vocab, dtype=np.float32)[rev.astype(np.int64)]
+    return {"src": src, "tgt": tgt, "labels": labels}
+
+
+def s2s_parted(server, src_row, want, got, what):
+    """Where greedy stream ``got`` first parts from ``want`` (the stream
+    of ``src_row`` alone), with the server's top-2 logit margin there on
+    ``src_row``, which must be within NEAR_TIE; None when equal."""
+    differ = np.flatnonzero(np.asarray(want) != np.asarray(got))
+    if not differ.size:
+        return None
+    j = int(differ[0])
+    prefix = np.concatenate([[0.0], np.asarray(want[:j], np.float32)])
+    logits, _ = server.prefill(prefix[None], server.encode(src_row[None]),
+                               server.init_caches(1, j + 1))
+    top = torch.topk(logits[0, -1].float(), 2).values
+    margin = float(top[0] - top[1])
+    print(f"path (j) {what}: parts at token {j} ({got[j]} vs {want[j]}); "
+          f"top-2 logit margin {margin:.3e}")
+    assert margin <= NEAR_TIE, (what, j, margin)
+    return j, margin
+
+
+def _counters():
+    from exprgrad_torch.ops import (attention, mapreduce, matmul,
+                                    paged_attention, rowchain)
+
+    return attention, matmul, mapreduce, rowchain, paged_attention
+
+
+def reset_counters() -> None:
+    attention, *others = _counters()
+    attention.launches = attention.dq_launches = attention.dkv_launches = 0
+    for c in others:
+        c.launches = 0
+
+
+def flash_counts() -> dict:
+    attention = _counters()[0]
+    return {"forward": attention.launches, "dq": attention.dq_launches,
+            "dkv": attention.dkv_launches}
+
+
+def drive_s2s_mix(server, srcs, budgets, **kw):
+    """Serve the mix through ``Seq2SeqBatcher(server, slots, **kw)``: half
+    the requests up front, then one more before each ``step()``.  Returns
+    (streams in submission order, the batcher, seconds from its
+    construction to the last token, synchronized)."""
+    from exprgrad_torch.models import Seq2SeqBatcher
+
+    n = len(srcs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = Seq2SeqBatcher(server, slots=S2S_MIX["slots"], **kw)
+    rids = [b.submit(s, m) for s, m in zip(srcs[:n // 2], budgets[:n // 2])]
+    out = {}
+    while len(out) < n:
+        if len(rids) < n:
+            i = len(rids)
+            rids.append(b.submit(srcs[i], budgets[i]))
+        out.update(b.step())
+    torch.cuda.synchronize()
+    return [out[r] for r in rids], b, time.perf_counter() - t0
+
+
+def path_j(egt, gpu) -> dict:
+    """Phase 17: path (j), bench.py's seq2seq cell.  Training runs B2 on
+    the non-causal encoder, the causal decoder and the cross-attention
+    (sq != skv), and B3/B4 carry the gradient into the encoder through
+    the cross K/V; greedy_decode runs B2 at every target width from 1
+    to 64.  Seq2SeqServer and Seq2SeqBatcher attend in plain torch, as
+    the JAX package's (no kernel of their own)."""
+    from exprgrad_torch.models import (Seq2SeqServer, greedy_decode,
+                                       tiny_seq2seq)
+
+    vocab = SEQ2SEQ["vocab"]
+    graph = tiny_seq2seq(**SEQ2SEQ)
+    card = egt.compile(graph, seed=0, device="cuda")
+    cpu = egt.compile(graph, seed=0, device="cpu")
+    n_params = sum(v.numel() for v in card.params.values())
+    data = reversal_data(np.random.default_rng(0), vocab, S2S_BATCH, S2S_SRC)
+    start = {t: v.clone() for t, v in cpu.params.items()}
+
+    # training: S2S_STEPS steps held against the CPU port, then the timed
+    # ones; the counters cover every step and greedy_decode
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(S2S_STEPS):
+        card.epoch += 1
+        card.apply("train", data)
+    torch.cuda.synchronize()
+    held_ms = (time.perf_counter() - t0) * 1e3
+    steps_launches = flash_counts()
+    stats = card.lowering_stats("train")
+    per_step = stats.get("attention-impl:flash")
+    assert per_step == 3, stats  # encoder, decoder self, cross
+    assert stats.get("attention-grad-impl:flash") == 3, stats
+    assert steps_launches == {"forward": 3 * S2S_STEPS, "dq": 3 * S2S_STEPS,
+                              "dkv": 3 * S2S_STEPS}, steps_launches
+    for _ in range(S2S_STEPS):
+        cpu.epoch += 1
+        cpu.apply("train", data)
+    loss = float(card.call("loss", data)[0])
+    cpu_loss = float(cpu.call("loss", data)[0])
+    rel, worst = update_err(card.params, cpu.params, start)
+    print(f"path (j) tiny_seq2seq {SEQ2SEQ}: {n_params} parameters; "
+          f"{S2S_STEPS} adam steps on reversal [{S2S_BATCH},{S2S_SRC}] "
+          f"({held_ms:.1f} ms on the card): loss {loss:.6f} vs CPU "
+          f"{cpu_loss:.6f}; parameters vs CPU |diff| / |update| "
+          f"{rel:.3e}, max |diff| {worst:.3e}; B2/B3/B4 launches a step "
+          f"{per_step} each")
+    np.testing.assert_allclose(loss, cpu_loss, **TRAIN_LOSS)
+    assert rel <= TRAIN_UPDATE_RTOL, rel
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        card.epoch += 1
+        card.apply("train", data)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    print(f"path (j) train step [{S2S_BATCH},{S2S_SRC}]: {step_ms:.2f} ms "
+          f"(mean of {TIMED_STEPS} warm steps) on {gpu}")
+
+    # predict on the card against the CPU port on the card's weights
+    host = {t: v.cpu().numpy() for t, v in card.params.items()}
+    cpu_copy = egt.from_state(graph, host, {t: v.cpu().numpy() for t, v in
+                                           card.caches.items()},
+                              card.epoch, device="cpu")
+    args = {"src": data["src"], "tgt": data["tgt"]}
+    probs = card.call("predict", args)
+    want = cpu_copy.call("predict", args)
+    predict_err = float(np.abs(probs - want).max())
+    np.testing.assert_allclose(probs, want, **PREDICT)
+
+    # greedy_decode: predict at every target width from 1 to S2S_NEW
+    src = data["src"]
+    before = flash_counts()["forward"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decoded = greedy_decode(card, src, S2S_NEW).astype(np.int64)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = flash_counts()["forward"] - before
+    assert decode_launches == 3 * S2S_NEW, decode_launches
+    launches = flash_counts()
+    print(f"path (j) predict vs the CPU port: max |err| {predict_err:.3e}; "
+          f"greedy_decode {S2S_BATCH}x{S2S_SRC} -> {S2S_NEW}: {decode_s:.3f}"
+          f" s, {S2S_BATCH * S2S_NEW / decode_s:.1f} tokens/s, B2 launches "
+          f"{decode_launches} (3 a width, widths 1-{S2S_NEW}) on {gpu}")
+
+    # Seq2SeqServer: prefill against predict, then each mode
+    server = Seq2SeqServer(card)
+    logits, _ = server.prefill(data["tgt"], server.encode(src),
+                               server.init_caches(S2S_BATCH, S2S_SRC))
+    serve_probs = torch.softmax(logits, -1).cpu().numpy()
+    np.testing.assert_allclose(serve_probs, probs, rtol=1e-4, atol=1e-5)
+    server.generate(src, n_new=S2S_NEW)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy = _ids(server.generate(src, n_new=S2S_NEW))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    assert flash_counts() == launches, "the server launched a kernel"
+    parts = [s2s_parted(server, src[i], decoded[i], greedy[i],
+                        f"generate row {i} vs greedy_decode")
+             for i in range(S2S_BATCH)]
+    res = {"launches": launches, "step_ms": step_ms,
+           "decode_tok_s": S2S_BATCH * S2S_NEW / decode_s,
+           "generate_tok_s": S2S_BATCH * S2S_NEW / gen_s}
+    print(f"path (j) Seq2SeqServer.generate {S2S_BATCH}x{S2S_SRC} -> "
+          f"{S2S_NEW} greedy (float32 cache): {gen_s:.3f} s, "
+          f"{res['generate_tok_s']:.1f} tokens/s, "
+          f"{res['generate_tok_s'] / res['decode_tok_s']:.1f}x "
+          f"greedy_decode; {sum(p is None for p in parts)} of {S2S_BATCH} "
+          f"rows equal greedy_decode's on {gpu}")
+
+    rng = np.random.default_rng(1)
+    lens = rng.integers(*S2S_RAGGED, S2S_BATCH)
+    ragged_src = np.zeros_like(src)
+    rows = []
+    for i, n in enumerate(lens):
+        rows.append(rng.integers(1, vocab, n).astype(np.float32))
+        ragged_src[i, :n] = rows[-1]
+    ragged = _ids(server.generate(ragged_src, n_new=S2S_NEW, lengths=lens))
+    for i, row in enumerate(rows):
+        solo = _ids(server.generate(row[None], n_new=S2S_NEW))[0]
+        s2s_parted(server, row, solo, ragged[i], f"ragged row {i} (length "
+                   f"{lens[i]}) vs solo")
+    beam, beam_scores = server.generate_beam(src, n_new=S2S_NEW, beams=1)
+    for i in range(S2S_BATCH):
+        s2s_parted(server, src[i], greedy[i], _ids(beam)[i, 0],
+                   f"beam of one row {i} vs greedy")
+    # a round verifies k positions past the accepted ones, so the
+    # positional table (max_tgt) holds n_new + k + 1
+    spec_new = SEQ2SEQ["max_tgt"] - 1 - SPEC_K
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec, rounds = server.generate_speculative(server, src[:1],
+                                               n_new=spec_new, k=SPEC_K)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    s2s_parted(server, src[0], greedy[0, :spec_new], _ids(spec)[0],
+               "self-draft speculation vs greedy")
+    assert rounds <= -(-(spec_new - 1) // SPEC_K), rounds
+    nll, _ = server.score(src, greedy)
+    prefix = np.concatenate([np.zeros((S2S_BATCH, 1)), greedy[:, :-1]],
+                            1).astype(np.float32)
+    p = card.call("predict", {"src": src, "tgt": prefix})
+    launches = res["launches"] = flash_counts()  # and the serving none
+    want_nll = -np.log(np.take_along_axis(p, greedy[:, :, None], -1)[..., 0]
+                       ).sum(-1)
+    np.testing.assert_allclose(nll.cpu().numpy(), want_nll, rtol=SCORE_RTOL)
+    quant = Seq2SeqServer(card, weight_dtype=torch.int8)
+    q_logits, _ = quant.prefill(data["tgt"], quant.encode(src),
+                                quant.init_caches(S2S_BATCH, S2S_SRC))
+    q_rel = float(torch.linalg.norm(q_logits - logits)
+                  / torch.linalg.norm(logits))
+    assert q_rel <= QUANT_REL, q_rel
+    print(f"path (j) ragged lengths {lens.tolist()} against solo, beam of "
+          f"one against greedy: checked; self-draft speculation k={SPEC_K}, "
+          f"{spec_new} tokens: {rounds} rounds, {spec_s:.3f} s, "
+          f"{spec_new / spec_s:.1f} tokens/s"
+          f"; score against predict's NLL: max rel err "
+          f"{float(np.abs(nll.cpu().numpy() / want_nll - 1).max()):.3e}; "
+          f"int8 weights: prefill logits relative L2 {q_rel:.4f} on {gpu}")
+
+    # Seq2SeqBatcher over the staggered mix, plain and lookup
+    n = S2S_MIX["n"]
+    sizes = rng.integers(*S2S_MIX["src"], n)
+    budgets = [int(x) for x in rng.integers(*S2S_MIX["budget"], n)]
+    srcs = [rng.integers(1, vocab, m).astype(np.float32) for m in sizes]
+    solo = [_ids(server.generate(s[None], n_new=m))[0]
+            for s, m in zip(srcs, budgets)]
+    for name, kw in (("plain", {}), ("lookup", dict(lookup=True,
+                                                    spec_k=SPEC_K))):
+        drive_s2s_mix(server, srcs, budgets, **kw)  # warm
+        streams, b, secs = drive_s2s_mix(server, srcs, budgets, **kw)
+        for i, (got, ref) in enumerate(zip(streams, solo)):
+            assert got.shape == ref.shape, (name, i, got.shape)
+            s2s_parted(server, srcs[i], ref, got,
+                       f"batcher {name} request {i} vs solo")
+        tokens = sum(len(x) for x in streams)
+        m = b.request_metrics()
+        res[f"batcher_{name}_tok_s"] = tokens / secs
+        print(f"path (j) Seq2SeqBatcher(slots={S2S_MIX['slots']}) {name}: "
+              f"{n} requests of {sizes.min()}-{sizes.max()} source tokens, "
+              f"{tokens} tokens in {secs:.3f} s: {tokens / secs:.1f} "
+              f"tokens/s, ttft {_percentiles([r['ttft_s'] for r in m])}, "
+              f"latency {_percentiles([r['latency_s'] for r in m])}; "
+              f"stats {b.stats} on {gpu}")
+    assert flash_counts() == launches, "serving launched a kernel"
+    return res
+
+
+def path_k(egt, trained, gpu) -> dict:
+    """Phase 18: path (k), RecurrentServer on path (h)'s three trained
+    cells: greedy against the predict target's argmax chain (recomputed
+    from scratch each step), but at near-ties; tokens/s."""
+    from exprgrad_torch.models import RecurrentServer
+
+    out = {}
+    for cell, (model, args) in trained.items():
+        srv = RecurrentServer(model)
+        prompt = args["tokens"][:RNN_SERVE["batch"]]
+        new = RNN_SERVE["new"]
+        srv.generate(prompt, n_new=new)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = _ids(srv.generate(prompt, n_new=new))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        window, margins, equal = prompt.copy(), {}, 0
+        chain = []
+        for _ in range(new):
+            probs = model.call("predict", {"tokens": window})[:, -1]
+            chain.append(probs)
+            nxt = probs.argmax(-1)
+            window = np.concatenate([window, nxt[:, None].astype(
+                np.float32)], 1)
+        want = window[:, prompt.shape[1]:].astype(np.int64)
+        for r in range(len(prompt)):
+            differ = np.flatnonzero(want[r] != got[r])
+            if not differ.size:
+                equal += 1
+                continue
+            j = int(differ[0])
+            top = np.sort(np.log(chain[j][r]))[-2:]
+            margins[r] = float(top[1] - top[0])
+            assert margins[r] <= NEAR_TIE, (cell, r, j, margins[r])
+        out[cell] = len(prompt) * new / secs
+        print(f"path (k) RecurrentServer {cell}: {len(prompt)}x"
+              f"{prompt.shape[1]} -> {new} greedy: {secs:.3f} s, "
+              f"{out[cell]:.1f} tokens/s; {equal} of {len(prompt)} rows "
+              f"equal the predict chain (near-ties {margins}) on {gpu}")
+    return out
+
+
+def is_b2(name: str) -> bool:
+    """Kernel B2 by its CUDA name (csrc/flash_fwd.cu's, in an anonymous
+    namespace), not sdpa's (``pytorch_flash::flash_fwd_kernel``,
+    ``fmha_*``)."""
+    return "(anonymous namespace)::flash_fwd_kernel<" in name
+
+
+def phase_extras(egt, model, q, k, v, gpu) -> dict:
+    """Phase 19: the model extras.  export_compiled of phase 3's serving
+    predict at [BATCH, SEQ] and of path (a)'s scheduled contraction at
+    EXPORT_MATMUL_N, load_compiled, each artifact against model.call and
+    running B2 (not sdpa) or B1; save_hlo naming both ops; profile's
+    trace holding B2; and the host microseconds a call of B2 and B1
+    through their torch.library ops beside the direct launch (what the
+    wrappers did before the ops)."""
+    import json as _json
+    import tempfile
+
+    from exprgrad_torch.ops import attention, matmul
+    from exprgrad_torch.utils import kernels
+
+    res = {"launches": {"B1": 0, "B2": 0}}
+    tokens = np.random.default_rng(0).integers(
+        0, SERVING["vocab"], (BATCH, SEQ)).astype(np.float32)
+    n = EXPORT_MATMUL_N
+    ab = np.random.default_rng(1).normal(size=(2, n, n)).astype(np.float32)
+    mm = egt.compile(matmul_graph(egt, MATMUL_TILE), seed=0,
+                     schedule_mode="force", device="cuda")
+    cases = (("predict", model, "predict", {"tokens": tokens}, "B2",
+              attention, SERVING["blocks"]),
+             ("path (a)", mm, "c", {"a": ab[0], "b": ab[1]}, "B1", matmul,
+              1))
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        for what, m, target, args, kernel, counter, per_call in cases:
+            shapes = {name: list(a.shape) for name, a in args.items()}
+            want = m.call(target, args)
+            t0 = time.perf_counter()
+            data = m.export_compiled(target, shapes)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fn = egt.load_compiled(data)
+            load_s = time.perf_counter() - t0
+            reset_counters()
+            got = fn(args)
+            torch.cuda.synchronize()
+            launched = counter.launches
+            assert launched == per_call, (what, launched)
+            res["launches"][kernel] += launched
+            err = float(np.abs(got.cpu().numpy() - want).max())
+            np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-5,
+                                       atol=1e-6)
+            names = kernel_names(lambda: fn(args))
+            if kernel == "B2":
+                assert any(is_b2(x) for x in names), names
+                assert not any("fmha" in x or "pytorch_flash" in x
+                               for x in names), names
+            else:
+                assert any("matmul_kernel" in x for x in names), names
+            path = f"{tmp}/{target}.txt"
+            m.save_hlo(path, target, shapes)
+            op = {"B2": "exprgrad_torch.flash_fwd",
+                  "B1": "exprgrad_torch.matmul"}[kernel]
+            with open(path) as f:
+                assert op in f.read(), (what, op)
+            print(f"phase 19 {what}: export_compiled {export_s:.2f} s "
+                  f"({len(data)} bytes), load_compiled {load_s:.2f} s; the "
+                  f"artifact against model.call max |err| {err:.3e}, "
+                  f"{kernel} launches {launched} a call; save_hlo names "
+                  f"{op}; kernels {[x[:50] for x in names]} on {gpu}")
+        logdir = f"{tmp}/profile"
+        model.profile("predict", {"tokens": tokens}, logdir)
+        with open(f"{logdir}/predict.pt.trace.json") as f:
+            events = _json.load(f)["traceEvents"]
+        assert any(is_b2(e.get("name", "")) for e in events)
+        print(f"phase 19 profile: {len(events)} trace events in "
+              f"{logdir}/predict.pt.trace.json, B2 among them")
+
+    a = torch.randn(256, 256, device=q.device)
+    qs = q[:1, :1, :64, :64].contiguous()  # device time far below the host's
+    fns = {"B2 op": lambda: attention.flash_attention_forward(
+               q, k, v, causal=True),
+           "B2 direct": lambda: attention._flash_fwd_cuda(
+               q, k, v, None, True, None, None),
+           "B2 small op": lambda: attention.flash_attention_forward(
+               qs, qs, qs, causal=True),
+           "B2 small direct": lambda: attention._flash_fwd_cuda(
+               qs, qs, qs, None, True, None, None),
+           "B1 op": lambda: matmul.matmul_impl(a, a),
+           "B1 direct": lambda: matmul._matmul_cuda(a, a, None, [], [], [],
+                                                    [], False)}
+    host = {name: [] for name in fns}
+    for kern in ("B2", "B2 small", "B1"):
+        for how in ("op", "direct", "direct", "op"):
+            host[f"{kern} {how}"].append(round(host_us(fns[f"{kern} {how}"],
+                                                       calls=1000), 2))
+    res["host_us"] = host
+    print(f"phase 19 host us a call, through the torch.library op and the "
+          f"direct launch, in turns (B2 at [8,4,256,128] f32 causal and "
+          f"at [1,1,64,64], B1 at 256^3): {host} on {gpu}")
+    return res
+
+
 def phase_done(name, since) -> float:
     """Print a phase's seconds; returns the time it ended."""
     now = time.perf_counter()
@@ -3359,7 +3814,7 @@ def main() -> int:
     path_g_run = path_g(egt, attention, gpu)
     t_phase = phase_done("14 (path (g): flash_transformer with experts)",
                          t_phase)
-    path_h(egt, gpu)
+    rnn_models = path_h(egt, gpu)
     t_phase = phase_done("15 (path (h): the recurrent LM)", t_phase)
 
     # 16. B7 at a verify round's shapes and its time there, then path (i)
@@ -3371,18 +3826,36 @@ def main() -> int:
         PAGED_VERIFY_LENS, 65)
     drafts = train_draft(egt, data)
     path_i_run = path_i(egt, model, drafts, gpu)
-    phase_done("16 (B7 at the verify shapes, path (i): the server's other "
-               "modes and the speculative batcher)", t_phase)
-    flash_launches = {"forward": launches + path_g_run["launches"]["forward"]
-                      + path_i_run["b2"],
-                      "dq": train_launches["dq"]
-                      + path_g_run["launches"]["dq"],
-                      "dkv": train_launches["dkv"]
-                      + path_g_run["launches"]["dkv"]}
-    print(f"flash kernel launches: serving predict {launches} and train "
-          f"{train_launches}, path (g) {path_g_run['launches']}; in all "
-          f"{flash_launches}")
+    t_phase = phase_done("16 (B7 at the verify shapes, path (i): the "
+                         "server's other modes and the speculative batcher)",
+                         t_phase)
+
+    # 17.-19. encoder-decoder and recurrent serving, the model extras,
+    # each path with the counters at 0 just before it ---------------------
+    path_j_run = path_j(egt, gpu)
+    t_phase = phase_done("17 (path (j): seq2seq train, predict, "
+                         "greedy_decode, Seq2SeqServer, Seq2SeqBatcher)",
+                         t_phase)
+    path_k(egt, rnn_models, gpu)
+    t_phase = phase_done("18 (path (k): RecurrentServer)", t_phase)
     q, k, v = cases[0][1]
+    extras = phase_extras(egt, model, q, k, v, gpu)
+    phase_done("19 (export_compiled, load_compiled, save_hlo, profile)",
+               t_phase)
+    j_launches = path_j_run["launches"]
+    flash_launches = {"forward": launches + path_g_run["launches"]["forward"]
+                      + path_i_run["b2"] + j_launches["forward"]
+                      + extras["launches"]["B2"],
+                      "dq": train_launches["dq"]
+                      + path_g_run["launches"]["dq"] + j_launches["dq"],
+                      "dkv": train_launches["dkv"]
+                      + path_g_run["launches"]["dkv"] + j_launches["dkv"]}
+    mm_launches += extras["launches"]["B1"]
+    print(f"flash kernel launches: serving predict {launches} and train "
+          f"{train_launches}, path (g) {path_g_run['launches']}, path (j) "
+          f"{j_launches}, exported predict {extras['launches']['B2']}; in "
+          f"all {flash_launches}; matmul kernel launches in all "
+          f"{mm_launches} (exported path (a) {extras['launches']['B1']})")
     print(f"scaled_dot_product_attention [8,4,256,128] f32 causal runs "
           f"{kernel_names(lambda: sdpa(q, k, v, is_causal=True))}")
     # its backward by device time, which settles the library's figure

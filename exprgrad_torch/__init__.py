@@ -78,7 +78,7 @@ from .fun import (
 )
 
 from . import models
-from .model import Model, compile, from_state
+from .model import Model, compile, from_state, load_compiled
 from .quant import QuantW, dequantize, quantize_weight
 from .registry import register_extern
 from .train import classification_accuracy, evaluate, train
@@ -99,7 +99,8 @@ __all__ = [
     "classification_accuracy", "compile", "concat_first", "cond", "cos",
     "debug_index", "debug_scalar", "epoch", "evaluate", "exp",
     "extern", "extern_grads", "from_state", "grad", "input", "input_",
-    "irange", "iters", "layer", "ln", "log", "log10", "log2", "make_opt",
+    "irange", "iters", "layer", "ln", "load_compiled", "log", "log10",
+    "log2", "make_opt",
     "maximum", "minimum", "models", "one_hot", "param", "pow_", "rand",
     "register_extern", "remap", "select", "select_random_samples",
     "select_samples", "shuffle_xy", "sin", "sq", "sqrt", "squares",

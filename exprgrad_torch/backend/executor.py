@@ -150,6 +150,38 @@ class TorchExecutor:
             self._lowerings[i] = low
         return low
 
+    def random_tensors(self, seed: int) -> dict[int, torch.Tensor]:
+        """The target's RANDOM tensors in a run seeded with ``seed``: one
+        stream per (seed, tid), as the JAX package folds tid into its
+        key, so a tensor's values do not depend on the target's other
+        RANDOM tensors (the streams are not jax.random's)."""
+        out = {}
+        for tid in self.random_tids:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(random_seed(seed, tid))
+            lo, hi = self.program.tensors[tid].random_range
+            out[tid] = torch.rand(
+                tuple(self.shapes[tid]), generator=gen, dtype=self.dtype,
+                device=self.device,
+            ) * (hi - lo) + lo
+        return out
+
+    def generated_kernels(self) -> list[str]:
+        """The generated kernels a run launches, as ``"B5 <kernel>"`` and
+        ``"B6 <chain head>"`` descriptions (empty when there are none):
+        the scheduled map/reduce kernels and row chains this executor's
+        plan routes to Triton."""
+        found = [f"B6 {self.row_fused[i].members[0].low._kernel_desc()}"
+                 for i in sorted(self.row_fused)]
+        for i, kernel in enumerate(self.target.kernels):
+            if (i in self._skip_kernels or i in self.fused
+                    or i in self.row_fused or kernel.extern is not None):
+                continue
+            low = self._lowering(i)
+            if low._bounds_ok and low.scheduled_route() == "mapreduce":
+                found.append(f"B5 {low._kernel_desc()}")
+        return found
+
     def run(
         self,
         tensors: dict[int, torch.Tensor],
@@ -158,7 +190,9 @@ class TorchExecutor:
         seed: int,
     ) -> dict[int, torch.Tensor]:
         """Run the target on device tensors; returns {tid: tensor} for the
-        output and every updated parameter/cache."""
+        output and every updated parameter/cache.  RANDOM tensors already
+        in ``tensors`` are used as given (an exported program carries
+        them as constants)."""
         program = self.program
         # weight-quantized parameters (Model.quantize_weights) enter as
         # QuantW codes and scales and are dequantized here, into this run
@@ -181,17 +215,8 @@ class TorchExecutor:
             else:
                 tensors[tid] = torch.zeros(shape, dtype=self.dtype,
                                            device=self.device)
-        for tid in self.random_tids:
-            # one stream per (seed, tid), as the JAX package folds tid into
-            # its key: a tensor's values do not depend on the target's
-            # other RANDOM tensors (the streams are not jax.random's)
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(random_seed(seed, tid))
-            lo, hi = program.tensors[tid].random_range
-            tensors[tid] = torch.rand(
-                tuple(self.shapes[tid]), generator=gen, dtype=self.dtype,
-                device=self.device,
-            ) * (hi - lo) + lo
+        for tid, value in self.random_tensors(seed).items():
+            tensors.setdefault(tid, value)
         stats = None if self._ran else self.stats
         extern_memo: dict = {}  # one logical extern call per run
         for i, kernel in enumerate(self.target.kernels):

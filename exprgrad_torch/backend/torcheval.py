@@ -941,6 +941,18 @@ class KernelLowering:
         return (self.kernel.write.accumulate != "add"
                 or bool(self.dynamic_axes))
 
+    def scheduled_route(self):
+        """The scheduled kernel this kernel runs: ``"matmul"`` (B1),
+        ``"mapreduce"`` (B5, generated), or None when it is not scheduled,
+        the policy ignores schedules, or both classifiers decline."""
+        if not (is_scheduled(self.kernel) and self.policy.routes_schedules):
+            return None
+        if not self._general_only() and self.scheduled_matmul().ok:
+            return "matmul"
+        if self.scheduled_mapreduce().ok:
+            return "mapreduce"
+        return None
+
     def run_plain(self, tensors: dict, epoch: int):
         """The new value of the kernel's output by its plain lowering (the
         einsum or the general paths): the plain version of kernel B5."""
@@ -976,26 +988,23 @@ class KernelLowering:
         result = None
         path = "einsum"
         fallback_reason = None
-        if is_scheduled(self.kernel) and self.policy.routes_schedules:
+        route = self.scheduled_route()
+        if route == "matmul":
+            path = "matmul"
+            result = self.scheduled_matmul().lower(tensors)
+        elif route == "mapreduce":
+            path = "mapreduce"
+            result = self.scheduled_mapreduce().lower(tensors)
+        elif is_scheduled(self.kernel) and self.policy.routes_schedules:
+            # a matmul-shaped kernel that B1 declined late (transposed
+            # operands) reports that cause, not the map/reduce
+            # classifier's generic "contraction"
             sm = None if general_only else self.scheduled_matmul()
-            if sm is not None and sm.ok:
-                path = "matmul"
-                result = sm.lower(tensors)
-            else:
-                mr = self.scheduled_mapreduce()
-                if mr.ok:
-                    path = "mapreduce"
-                    result = mr.lower(tensors)
-                else:
-                    # a matmul-shaped kernel that B1 declined late
-                    # (transposed operands) reports that cause, not the
-                    # map/reduce classifier's generic "contraction"
-                    why = mr.why
-                    if (sm is not None and why.startswith("contraction")
-                            and ("tile sizes" in sm.why
-                                 or "transposed" in sm.why)):
-                        why = sm.why
-                    fallback_reason = f"unsupported kernel shape ({why})"
+            why = self.scheduled_mapreduce().why
+            if (sm is not None and why.startswith("contraction")
+                    and ("tile sizes" in sm.why or "transposed" in sm.why)):
+                why = sm.why
+            fallback_reason = f"unsupported kernel shape ({why})"
         conv_decline = None
         if result is None and not general_only:
             result = self._try_contraction(tensors)

@@ -15,6 +15,9 @@ same lowering with the kernels' plain versions.
 from __future__ import annotations
 
 import contextlib
+import io
+import json
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -29,6 +32,9 @@ from .irprint import fmt_program
 from .passes import compile_program, infer_shapes
 from .utils.buckets import bucket_for, normalize_buckets
 from .utils.native import shuffle_indices
+
+
+_ARTIFACT_META = "exprgrad_torch.json"  # export_compiled's own record
 
 
 def resolve_device(device) -> torch.device:
@@ -631,24 +637,144 @@ class Model:
             done[tdef.name] = axes
         return done
 
-    # --- JAX-only features, not ported yet -----------------------------
-    def _not_ported(self, what: str):
-        raise NotImplementedError(
-            f"{what} is not ported to exprgrad_torch yet (ROADMAP.md, "
-            "queue A)"
-        )
+    # --- serving artifacts and profiles -------------------------------
+    def _exported(self, target_name: str,
+                  input_shapes: dict[str, Sequence[int]], seed: int):
+        """``torch.export`` of the target's executor run at
+        ``input_shapes``, the parameters and caches (and the RANDOM
+        tensors drawn with ``seed``) held by the program as buffers.
 
-    def export_compiled(self, *args, **kwargs):
-        self._not_ported("export_compiled")
+        A fresh executor is traced, so the model's own executors never
+        see the trace's tensors.  Refused: a target with no output, and
+        one whose plan launches a generated kernel (B5, B6), whose
+        Triton launch ``torch.export`` cannot trace."""
+        if target_name not in self.program.targets:
+            raise ModelRuntimeError(
+                f"{target_name!r} is not a target of the model")
+        output = self.program.targets[target_name].output
+        if output is None:
+            raise ModelRuntimeError(
+                f"target {target_name!r} has no output to export"
+            )
+        names = sorted(input_shapes)
+        pairs = [(self.program.inputs[n], list(input_shapes[n]))
+                 for n in names]
+        shapes = infer_shapes(self.program, target_name, pairs)
+        executor = TorchExecutor(self.program, target_name, shapes,
+                                 self.device,
+                                 schedule_mode=self.schedule_mode)
+        generated = executor.generated_kernels()
+        if generated:
+            raise ModelRuntimeError(
+                f"cannot export target {target_name!r}: its plan launches "
+                f"the generated kernel(s) {generated}, whose Triton launch "
+                "torch.export cannot trace (ROADMAP A15); compile with "
+                "schedule_mode='ignore' to export the plain lowering")
+        state = {**self.params, **self.caches,
+                 **executor.random_tensors(seed)}
+        tids = [self.program.inputs[n] for n in names]
+        epoch = self.epoch
 
-    def save_hlo(self, *args, **kwargs):
-        self._not_ported("save_hlo")
+        class Served(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                for tid, value in state.items():
+                    self.register_buffer(f"t{tid}", value)
 
-    def profile(self, *args, **kwargs):
-        self._not_ported("profile")
+            def forward(self, args: dict):
+                tensors = {tid: args[n] for tid, n in zip(tids, names)}
+                tensors.update({tid: getattr(self, f"t{tid}")
+                                for tid in state})
+                return executor.run(tensors, shapes, epoch, seed)[output]
+
+        example = {n: torch.zeros(tuple(input_shapes[n]), dtype=self.dtype,
+                                  device=self.device) for n in names}
+        with matmul_precision(self.precision):
+            return torch.export.export(Served(), (example,), strict=False)
+
+    def export_compiled(
+        self,
+        target_name: str,
+        input_shapes: dict[str, Sequence[int]],
+        path: Optional[str] = None,
+        seed: int = 0,
+    ) -> bytes:
+        """Serialize a serving artifact of one target at fixed input
+        shapes: ``torch.export`` of the executor run, with the current
+        parameters and caches embedded as constants and ``rand()``
+        tensors fixed to ``seed``, saved by ``torch.export.save``.  It
+        loads with :func:`exprgrad_torch.load_compiled`, with no graph,
+        compiler or parameter files, and runs on the device it was
+        exported on.  Kernels B1 and B2 stay in the artifact as the ops
+        ``exprgrad_torch::matmul`` and ``exprgrad_torch::flash_fwd``.
+        Returns the bytes, also written to ``path`` when given.
+
+        A weight-quantized model is refused (export first, then
+        ``quantize_weights``), as is a target whose plan launches a
+        generated kernel (B5, B6)."""
+        if self._quantized_tids:
+            raise ModelRuntimeError(
+                "cannot export_compiled a weight-quantized model (the "
+                "artifact embeds plain tensors); export first, then "
+                "quantize_weights()"
+            )
+        program = self._exported(target_name, input_shapes, seed)
+        meta = {"device": str(self.device), "dtype": str(self.dtype),
+                "inputs": sorted(input_shapes)}
+        buf = io.BytesIO()
+        torch.export.save(program, buf,
+                          extra_files={_ARTIFACT_META: json.dumps(meta)})
+        data = buf.getvalue()
+        if path is not None:
+            with open(path, "wb") as f:
+                f.write(data)
+        return data
+
+    def save_hlo(
+        self,
+        path: str,
+        target_name: str,
+        input_shapes: dict[str, Sequence[int]],
+        optimized: bool = True,
+    ) -> None:
+        """Write the text of the target's exported program (the port's
+        counterpart of the JAX package's HLO dump, itself the analog of
+        the reference's LLVM bitcode dump): the ``torch.export`` graph of
+        the executor run at ``input_shapes``, after
+        ``run_decompositions()`` (to core ATen operators) when
+        ``optimized``.  Kernels B1 and B2 appear as the ops
+        ``exprgrad_torch::matmul`` and ``exprgrad_torch::flash_fwd``."""
+        program = self._exported(target_name, input_shapes, 0)
+        if optimized:
+            program = program.run_decompositions()
+        with open(path, "w") as f:
+            f.write(str(program))
+
+    def profile(self, target_name: str, args: dict, logdir: str) -> None:
+        """Run one :meth:`call` under ``torch.profiler`` (CPU activity,
+        and CUDA activity on the card) and write the trace into
+        ``logdir`` as ``<target>.pt.trace.json``: a Chrome trace, which
+        chrome://tracing or Perfetto opens (TensorBoard's PyTorch
+        profiler plugin reads the same file)."""
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with torch_profile(activities=activities) as prof:
+            self.call(target_name, args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        os.makedirs(logdir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(logdir, f"{target_name}.pt.trace.json"))
 
     def autotune(self, *args, **kwargs):
-        self._not_ported("autotune")
+        raise NotImplementedError(
+            "autotune is not ported to exprgrad_torch yet (ROADMAP.md, "
+            "queue A)"
+        )
 
 
 def _source(graphs, dtype: str) -> ir.Program:
@@ -720,3 +846,31 @@ def from_state(
     if rng_state is not None:
         out._rng.bit_generator.state = rng_state
     return out
+
+
+def load_compiled(data):
+    """Load a serving artifact written by :meth:`Model.export_compiled`.
+
+    ``data`` is the serialized bytes or a file path; returns
+    ``fn(args: dict[str, array]) -> tensor``.  The artifact holds the
+    program and the parameters: nothing else is needed.  Inputs are
+    copied to the device the artifact was exported on, in its dtype, and
+    the output stays there."""
+    if isinstance(data, str):
+        with open(data, "rb") as f:
+            data = f.read()
+    extra = {_ARTIFACT_META: ""}
+    program = torch.export.load(io.BytesIO(data), extra_files=extra)
+    meta = json.loads(extra[_ARTIFACT_META])
+    device = resolve_device(meta["device"])
+    dtype = getattr(torch, meta["dtype"].split(".")[-1])
+    module = program.module()
+
+    def fn(args: dict):
+        tensors = {name: torch.as_tensor(args[name], dtype=dtype,
+                                         device=device)
+                   for name in meta["inputs"]}
+        with torch.no_grad():
+            return module(tensors)
+
+    return fn

@@ -16,13 +16,16 @@ from .vit import patchify, tiny_vit
 from .xor import xor_from_scratch, xor_mlp
 
 from .serve import FlashLMServer
-from .batcher import ContinuousBatcher
+from .batcher import ContinuousBatcher, Seq2SeqBatcher
+from .rnn_serve import RecurrentServer
+from .seq2seq_serve import Seq2SeqServer
 
 __all__ = [
     "ContinuousBatcher", "FlashLMServer", "conv_autoencoder", "ddpm_sample",
     "ddpm_schedule", "diffusion_train_batch", "fashion_mnist_cnn",
     "flash_transformer", "greedy_decode", "mnist_gan", "mobile_cnn",
-    "patchify", "tiny_diffusion", "tiny_mixer", "tiny_recurrent_lm",
+    "patchify", "RecurrentServer", "Seq2SeqBatcher", "Seq2SeqServer",
+    "tiny_diffusion", "tiny_mixer", "tiny_recurrent_lm",
     "tiny_seq2seq", "tiny_transformer", "tiny_vae", "tiny_vit",
     "vae_sample", "vae_train_batch", "xor_from_scratch", "xor_mlp",
 ]

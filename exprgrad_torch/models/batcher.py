@@ -36,8 +36,12 @@ place.  Greedy streams equal serving each prompt alone with
 ``server.generate``, up to float reassociation at near-ties; sampled
 rows draw from a ``torch.Generator`` seeded with ``seed``.
 
-Not ported yet (ROADMAP A13): ``decode_chunk > 1``, ``pipeline`` and
-``Seq2SeqBatcher``; they raise ``NotImplementedError``.
+:class:`Seq2SeqBatcher` is the scheduler's encoder-decoder sibling over
+:class:`~exprgrad_torch.models.Seq2SeqServer` (dense caches; plain and
+``lookup=True`` rounds).
+
+Not ported yet (ROADMAP A13): ``decode_chunk > 1`` and ``pipeline``;
+they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -1228,4 +1232,354 @@ class ContinuousBatcher:
             out["window_evicted"] = self._window_evicted
             out["prefixes"] = len(self._prefixes)
             out["prefix_hits"] = self._prefix_hits
+        return out
+
+
+class Seq2SeqBatcher:
+    """Continuous batching for encoder-decoder serving
+    (:class:`~exprgrad_torch.models.Seq2SeqServer`): the scheduler's
+    seq2seq sibling.
+
+    Each request is encoded once at admission (right-padded to the
+    shared ``max_src`` width, its pad positions masked by the server's
+    ``kv_mask``), and its encoder memory, cross K/V and mask are written
+    into the slot's rows of per-slot tensors.  Decoding then runs one
+    step for the whole slot batch with per-row cursors on the decoder's
+    self-attention caches (``ops.decode.append_at`` and position
+    masking), :class:`ContinuousBatcher`'s mechanism.  The caches are
+    dense (no page pool).  Greedy streams equal
+    ``Seq2SeqServer.generate`` on each source alone; sampling settings
+    are per request, every draw from one ``torch.Generator`` seeded with
+    ``seed``.
+
+    ``lookup=True`` makes each dispatch a draft-free verify round:
+    ``spec_k`` proposals a slot from an ngram match of the slot's last
+    emitted tokens over its source and generation (the copy regime of
+    translation and summarization), verified in one ``spec_k + 1``-wide
+    step; exact greedy only.
+    """
+
+    def __init__(self, server, slots: int = 8, max_src=None,
+                 capacity=None, temperature: float = 0.0, top_k=None,
+                 top_p=None, stop_token=None, bos: int = 0, seed: int = 0,
+                 stream_tokens: bool = False, lookup: bool = False,
+                 spec_k: int = 4, lookup_ngram: int = 2):
+        check_top_p(top_p)
+        if lookup:
+            if temperature != 0.0 or top_k is not None or top_p is not None:
+                raise ModelRuntimeError(
+                    "lookup speculation is exact-greedy only (no "
+                    "proposal distribution for a rejection scheme)")
+            if lookup_ngram < 1:
+                raise ModelRuntimeError(
+                    f"lookup_ngram must be >= 1 (got {lookup_ngram})")
+        if spec_k < 1:  # stored unconditionally: validate unconditionally
+            raise ModelRuntimeError(f"spec_k must be >= 1 (got {spec_k})")
+        self.lookup = bool(lookup)
+        self.spec_k = int(spec_k)
+        self.lookup_ngram = int(lookup_ngram)
+        self.server = server
+        self.device = server.device
+        self.slots = int(slots)
+        self.max_src = int(max_src or server.max_src)
+        if self.max_src > server.max_src:
+            raise ModelRuntimeError(
+                f"max_src {self.max_src} exceeds the model's "
+                f"{server.max_src} source positions")
+        self.capacity = int(capacity or server.max_tgt)
+        if self.capacity > server.max_tgt:
+            raise ModelRuntimeError(
+                f"capacity {self.capacity} exceeds the model's max_tgt "
+                f"{server.max_tgt} target positions")
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.stop_token = stop_token
+        self.bos = int(bos)
+        self.stream_tokens = bool(stream_tokens)
+        self._stream: list[tuple] = []
+        self._row_pick = make_row_picker(server.vocab)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+
+        n_dec = len(server.dec)
+        h, hd, dim = server.heads, server.head_dim, server.dim
+        dtype = server.p["src.embed"].dtype
+        self.enc_mem = torch.zeros((self.slots, self.max_src, dim),
+                                   dtype=dtype, device=self.device)
+        self.enc_ck = [torch.zeros((self.slots, h, self.max_src, hd),
+                                   dtype=dtype, device=self.device)
+                       for _ in range(n_dec)]
+        self.enc_cv = [torch.zeros_like(ck) for ck in self.enc_ck]
+        self.enc_mask = torch.zeros((self.slots, self.max_src),
+                                    dtype=torch.bool, device=self.device)
+        self.caches = server.init_caches(self.slots, self.capacity)
+
+        self.pos = np.zeros(self.slots, np.int32)
+        self.last = np.full(self.slots, float(bos), np.float32)
+        self.active = np.zeros(self.slots, bool)
+        self.req_temp = np.zeros(self.slots, np.float32)
+        self.req_topk = np.full(self.slots, server.vocab, np.int32)
+        self.req_topp = np.ones(self.slots, np.float32)
+        self._req: list = [None] * self.slots
+        self.queue: deque = deque()
+        self._next_rid = 0
+        self._steps = 0
+        self._dispatches = 0
+        self._spec_rounds = 0
+        self._spec_emitted = 0
+        self._metrics: deque = deque(maxlen=4096)
+
+    def _dev(self, x, dtype=None):
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    # -- device work ---------------------------------------------------
+    def _admit(self, src, length: int, slot: int) -> None:
+        """Encode a [1, max_src] padded source and write its memory, cross
+        K/V and validity mask into the slot's rows (in place)."""
+        enc = self.server.encode(src, lengths=[length])
+        self.enc_mem[slot] = enc.memory[0]
+        for big, one in zip(self.enc_ck, enc.ck):
+            big[slot] = one[0]
+        for big, one in zip(self.enc_cv, enc.cv):
+            big[slot] = one[0]
+        self.enc_mask[slot] = enc.kv_mask[0]
+
+    def _enc(self):
+        from .seq2seq_serve import _Enc
+
+        return _Enc(self.enc_mem, tuple(self.enc_ck), tuple(self.enc_cv),
+                    self.enc_mask)
+
+    def _decode(self):
+        """One decode step for every slot: per-row cursor positions on
+        the decoder self-caches, cross-attention against the slot's
+        encoder state, per-request sampling."""
+        pos = self._dev(self.pos)
+        logits, self.caches = self.server._step(
+            self._dev(self.last)[:, None], self._enc(), self.caches,
+            q_pos=pos[:, None], key_pos=_cursor_key_pos(self.capacity, pos),
+            row_starts=pos)
+        return self._row_pick(logits[:, -1], self._gen, self.req_temp,
+                              self.req_topk, self.req_topp)
+
+    def _lookup_props(self, slot) -> np.ndarray:
+        """Lookup proposals over SOURCE + generation: the last emitted
+        ngram is matched against the source too, so copy-heavy outputs
+        propose straight from the source text.  An inactive slot
+        proposes zeros."""
+        req = self._req[slot]
+        if req is None or not self.active[slot]:
+            return np.zeros(self.spec_k, np.int64)
+        hist = np.concatenate([req.tokens.astype(np.int64),
+                               np.asarray(req.out, np.int64)])
+        return lookup_propose(hist, self.spec_k, self.lookup_ngram)
+
+    def _lookup_round(self):
+        """A draft-free verify round for the whole slot batch: the host's
+        proposals ride in as data, the decoder verifies all
+        ``spec_k + 1`` positions in one forward (per-row cursors and
+        position masking: rejected rows' K/V are overwritten by the next
+        round's writes, no rewind), greedy acceptance counts come back.
+        The encoder state is read-only throughout."""
+        k = self.spec_k
+        props = self._dev(np.stack([self._lookup_props(s)
+                                    for s in range(self.slots)]))
+        tok = self._dev(self.last)
+        pos = self._dev(self.pos)
+        seq = torch.cat([tok[:, None], props.to(tok.dtype)], dim=1)
+        qp = pos[:, None] + torch.arange(k + 1, dtype=pos.dtype,
+                                         device=pos.device)[None, :]
+        logits, self.caches = self.server._step(
+            seq, self._enc(), self.caches, q_pos=qp,
+            key_pos=_cursor_key_pos(self.capacity, pos, k), row_starts=pos)
+        return _greedy_accept(logits, props, k)
+
+    # -- public API ----------------------------------------------------
+    def submit(self, src, max_new: int, rid=None, temperature=None,
+               top_k=None, top_p=None, stop_seq=None):
+        """Queue a source sequence; returns its id.  Per-request sampling
+        overrides and ``stop_seq`` as on :class:`ContinuousBatcher`."""
+        check_top_p(top_p)
+        tokens = np.asarray(src, np.float32).reshape(-1)
+        if tokens.size < 1:
+            raise ModelRuntimeError("empty source")
+        if tokens.size > self.max_src:
+            raise ModelRuntimeError(
+                f"source length {tokens.size} exceeds max_src "
+                f"{self.max_src}")
+        if max_new < 1:
+            raise ModelRuntimeError(f"max_new must be >= 1 (got {max_new})")
+        margin = self.spec_k if self.lookup else 0
+        if max_new + margin > self.capacity:
+            extra = f" + spec_k {margin}" if margin else ""
+            raise ModelRuntimeError(
+                f"max_new {max_new}{extra} exceeds target capacity "
+                f"{self.capacity}")
+        if self.lookup and (temperature is not None or top_k is not None
+                            or top_p is not None):
+            raise ModelRuntimeError(
+                "per-request sampling overrides are not available in "
+                "lookup mode (exact greedy only)")
+        if rid is None:
+            rid = self._next_rid
+        self._next_rid = max(self._next_rid, rid if isinstance(rid, int)
+                             else self._next_rid) + 1
+        req = _Request(rid, tokens, int(max_new))
+        req.stop_seq = _check_stop_seq(stop_seq, self.server.vocab)
+        req.temp = float(self.temperature if temperature is None
+                         else temperature)
+        tk = top_k if top_k is not None else self.top_k
+        if tk is not None and tk < 1:
+            raise ModelRuntimeError(f"top_k must be >= 1 (got {tk})")
+        req.top_k = int(self.server.vocab if tk is None else tk)
+        tp = top_p if top_p is not None else self.top_p
+        req.top_p = float(1.0 if tp is None else tp)
+        self.queue.append(req)
+        return rid
+
+    def cancel(self, rid) -> bool:
+        """Abort a queued or resident request; returns whether anything
+        was cancelled (a cancelled request gives no result)."""
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                del self.queue[i]
+                return True
+        for slot in range(self.slots):
+            req = self._req[slot]
+            if req is not None and req.rid == rid:
+                self.active[slot] = False
+                self._req[slot] = None
+                return True
+        return False
+
+    def _emit(self, slot, token: int) -> bool:
+        """Record one generated token; True when the request is done."""
+        req = self._req[slot]
+        if req.first_token_at is None:
+            req.first_token_at = time.perf_counter()
+        req.out.append(token)
+        if self.stream_tokens:
+            self._stream.append((req.rid, token))
+        if _stop_seq_hit(req):
+            return True
+        if self.stop_token is not None and token == self.stop_token:
+            return True
+        return len(req.out) >= req.max_new
+
+    def _advance(self, slot, tokens, finished) -> int:
+        """Advance a slot through emitted tokens (pos/last bookkeeping,
+        finish on budget or stop); returns how many were applied."""
+        applied = 0
+        for tok in tokens:
+            tok = int(tok)
+            self.pos[slot] += 1
+            self.last[slot] = float(tok)
+            applied += 1
+            if self._emit(slot, tok):
+                finished.append(self._finish(slot))
+                break
+        return applied
+
+    def _finish(self, slot):
+        req = self._req[slot]
+        req.finished_at = time.perf_counter()
+        self._metrics.append({
+            "rid": req.rid,
+            "prompt_tokens": int(req.tokens.size),
+            "generated_tokens": len(req.out),
+            "ttft_s": req.first_token_at - req.submitted,
+            "latency_s": req.finished_at - req.submitted,
+            "preemptions": 0,
+        })
+        self.active[slot] = False
+        self._req[slot] = None
+        return (req.rid, np.asarray(req.out, np.int64))
+
+    def step(self):
+        """One scheduler iteration: encode-admit queued requests into
+        free slots, then one batched decode step (or one lookup verify
+        round); returns the completed ``(rid, tokens)`` pairs."""
+        finished = []
+        for slot in range(self.slots):
+            if not self.queue:
+                break
+            if self.active[slot]:
+                continue
+            req = self.queue.popleft()
+            src = np.zeros((1, self.max_src), np.float32)
+            src[0, :req.tokens.size] = req.tokens
+            self._admit(src, req.tokens.size, slot)
+            self._req[slot] = req
+            self.active[slot] = True
+            self.pos[slot] = 0
+            self.last[slot] = float(self.bos)
+            self.req_temp[slot] = req.temp
+            self.req_topk[slot] = req.top_k
+            self.req_topp[slot] = req.top_p
+
+        if self.active.any() and self.lookup:
+            self._dispatches += 1
+            self._spec_rounds += 1
+            greedy, accept = self._lookup_round()
+            k = self.spec_k
+            host = torch.cat([greedy, accept[:, None]], dim=1).cpu().numpy()
+            for slot in range(self.slots):
+                if not self.active[slot]:
+                    continue
+                take = int(host[slot, k + 1]) + 1
+                self._steps += take
+                self._spec_emitted += self._advance(
+                    slot, host[slot, :take], finished)
+            return finished
+
+        if self.active.any():
+            self._steps += 1
+            self._dispatches += 1
+            nxt = self._decode().cpu().numpy()
+            for slot in range(self.slots):
+                if self.active[slot]:
+                    self._advance(slot, [int(nxt[slot])], finished)
+        return finished
+
+    def run(self) -> dict:
+        """Drive ``step()`` until every queued and active request is done;
+        returns ``{request_id: np.ndarray of generated tokens}``."""
+        out = {}
+        while self.queue or self.active.any():
+            for rid, toks in self.step():
+                out[rid] = toks
+        return out
+
+    def drain_tokens(self) -> list:
+        """Tokens emitted since the last drain, as ``(request_id,
+        token_id)`` pairs.  Requires ``stream_tokens=True``."""
+        if not self.stream_tokens:
+            raise ModelRuntimeError(
+                "token streaming is off; construct with "
+                "Seq2SeqBatcher(..., stream_tokens=True)")
+        out = self._stream
+        self._stream = []
+        return out
+
+    def request_metrics(self, reset: bool = False) -> list:
+        """Per-finished-request records (ids, token counts, ``ttft_s``,
+        ``latency_s``), in completion order; ``reset=True`` drains."""
+        out = list(self._metrics)
+        if reset:
+            self._metrics.clear()
+        return out
+
+    @property
+    def stats(self) -> dict:
+        """Scheduler counters: decode iterations run and occupancy now."""
+        out = {
+            "decode_steps": self._steps,
+            "dispatches": self._dispatches,
+            "active": int(self.active.sum()),
+            "queued": len(self.queue),
+        }
+        if self.lookup:
+            out["spec_rounds"] = self._spec_rounds
+            out["spec_emitted"] = self._spec_emitted
         return out

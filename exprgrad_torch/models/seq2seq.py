@@ -39,8 +39,9 @@ def greedy_decode(model, src, n_new: int, bos: int = 0):
 
     O(t^2) in total (each step re-runs the full teacher-forced forward)
     but exact and backend-agnostic — the production fast path is
-    the JAX package's ``Seq2SeqServer`` (encode once + KV cache,
-    per-token cost independent of t, greedy token-equal to this).
+    :class:`~exprgrad_torch.models.Seq2SeqServer` (encode once + KV
+    cache, per-token cost independent of t, greedy token-equal to this).
+    The model's parameters may be tensors on any device.
     Returns [batch, n_new] int token ids.
     """
     import numpy as np
@@ -50,7 +51,7 @@ def greedy_decode(model, src, n_new: int, bos: int = 0):
     # the target prefix grows to n_new+1 positions; they must fit the
     # model's tgt positional table or the embedding read goes OOB
     max_tgt = next(
-        (np.asarray(model.params[tid]).shape[0]
+        (model.params[tid].shape[0]
          for tid in model.program.params
          if model.program.tensors[tid].name == "tgt.pos"),
         None,

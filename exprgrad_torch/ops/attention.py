@@ -10,11 +10,21 @@ For CPU tensors — and only for them — they run
 straightforward math over the whole score matrix that also serves as the
 oracle the kernels are checked against on the card.
 :func:`flash_attention` is the differentiable op (``torch.autograd``).
+
+The forward is also the ``torch.library`` op ``exprgrad_torch::flash_fwd``
+(CPU: the plain version; CUDA: the kernel; a fake implementation gives
+``out`` and ``lse`` their shapes), so ``torch.export`` keeps kernel B2
+in an exported program (``Model.export_compiled``).  It is defined with
+``Library.define``/``impl`` rather than ``torch.library.custom_op``,
+whose Python wrapper costs more host time a call (aliasing checks and
+an autograd layer the training path does not use: ``_FlashAttention``
+owns the gradient).
 """
 
 from __future__ import annotations
 
 import math
+import struct
 from typing import Optional, Sequence
 
 import torch
@@ -30,6 +40,9 @@ dq_launches = 0
 dkv_launches = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/flash_fwd.cu's FlashFwdArgs: q, k, v, out, lse; b, h, hkv, sq, skv,
+# d; scale; causal, window, q_off, k_off, dtype
+_FWD_ARGS = struct.Struct("<5Q6if5i")
 _MAX_HEAD_DIM = 128
 
 
@@ -76,17 +89,18 @@ def _kernel_args(tensors: dict, sm_scale, causal, offsets, window):
     starts with q, k, v; every tensor must share q's device and dtype
     and be contiguous."""
     q, k, v = tensors["q"], tensors["k"], tensors["v"]
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for {q.device}")
+    dev, dtype = q.device, q.dtype  # read once: a launch is on every path
+    if dev.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for {dev}")
     _check(q, k, v, causal, window, offsets)
     for name, t in tensors.items():
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _KERNEL_DTYPES:
+    if dtype not in _KERNEL_DTYPES:
         raise ValueError(
             f"the flash kernels take float32 or bfloat16, not {q.dtype}"
         )
@@ -144,6 +158,40 @@ def attention_forward_plain(q, k, v, sm_scale: Optional[float] = None,
     return out.to(q.dtype), lse.reshape(b * h, sq).to(torch.float32)
 
 
+def _flash_fwd_cuda(q, k, v, sm_scale, causal, offsets, window):
+    """The CUDA implementation of ``exprgrad_torch::flash_fwd``: checks
+    what the kernel takes, or raises, then launches it."""
+    b, h, sq, d, hkv, skv, sm_scale, q_off, k_off = _kernel_args(
+        dict(q=q, k=k, v=v), sm_scale, causal, offsets, window)
+    out = torch.empty_like(q)
+    lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
+    kernels.call("egt_flash_fwd_packed", q.device, _FWD_ARGS.pack(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, h, hkv, sq, skv, d, sm_scale, int(causal),
+        int(window or 0), q_off, k_off, _KERNEL_DTYPES[q.dtype]))
+    global launches
+    launches += 1
+    return out, lse
+
+
+def _flash_fwd_fake(q, k, v, sm_scale, causal, offsets, window):
+    b, h, sq, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b * h, sq), dtype=torch.float32))
+
+
+_LIB = torch.library.Library("exprgrad_torch", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, float? sm_scale, "
+            "bool causal, int[]? offsets, int? window) -> (Tensor, Tensor)")
+_LIB.impl("flash_fwd", attention_forward_plain, "CPU")
+_LIB.impl("flash_fwd", _flash_fwd_cuda, "CUDA")
+torch.library.register_fake("exprgrad_torch::flash_fwd", _flash_fwd_fake,
+                            lib=_LIB)
+# the overload's C++ callable: calling it skips OpOverload.__call__'s
+# Python frame, about 2 us of host time a call
+_FLASH_FWD = torch.ops.exprgrad_torch.flash_fwd.default._op
+
+
 def flash_attention_forward(q, k, v, sm_scale: Optional[float] = None,
                             causal: bool = False,
                             offsets: Optional[Sequence[int]] = None,
@@ -156,19 +204,11 @@ def flash_attention_forward(q, k, v, sm_scale: Optional[float] = None,
 
     CUDA tensors launch the CUDA kernel (float32 or bfloat16, contiguous,
     ``d <= 128``) or raise; CPU tensors run
-    :func:`attention_forward_plain`."""
-    if q.device.type == "cpu":
-        return attention_forward_plain(q, k, v, sm_scale, causal, offsets,
-                                       window)
-    b, h, sq, d, hkv, skv, sm_scale, q_off, k_off = _kernel_args(
-        dict(q=q, k=k, v=v), sm_scale, causal, offsets, window)
-    out = torch.empty_like(q)
-    lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
-    _launch("egt_flash_fwd", q, k, v, out, lse, b, h, hkv, sq, skv, d,
-            sm_scale, int(causal), int(window or 0), q_off, k_off)
-    global launches
-    launches += 1
-    return out, lse
+    :func:`attention_forward_plain`.  Both go through the op
+    ``exprgrad_torch::flash_fwd``."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash-attention kernel for {q.device}")
+    return _FLASH_FWD(q, k, v, sm_scale, causal, offsets, window)
 
 
 def attention_backward_plain(q, k, v, out, lse, g,

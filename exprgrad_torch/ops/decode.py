@@ -40,7 +40,7 @@ class KVCache(NamedTuple):
 
 
 def init_cache(batch: int, kv_heads: int, capacity: int, head_dim: int,
-               dtype=torch.bfloat16, device="cpu") -> KVCache:
+               dtype=torch.bfloat16, device="cuda") -> KVCache:
     if dtype not in _CACHE_DTYPES:
         raise ValueError(
             f"cache dtype must be float32, bfloat16 or int8, not {dtype}")

@@ -14,10 +14,21 @@ The epilogue is data (:class:`Epilogue`): where the TPU kernel traced a
 Python closure into its body, the CUDA kernel interprets a small register
 program per output element.  ``exprgrad_torch.backend.scheduled``
 compiles a folded chain of elementwise kernels into one.
+
+:func:`matmul_impl` goes through the ``torch.library`` op
+``exprgrad_torch::matmul`` (CPU: :func:`matmul_plain`; CUDA: the kernel;
+a fake implementation gives the output's shape and dtype), so
+``torch.export`` keeps kernel B1 in an exported program.  The epilogue
+program travels as the op's ``int[]`` and ``float[]`` arguments (the
+steps five ints each, the constants, the extras' pattern indices) and
+its extra operands as ``Tensor[]``, all None without an epilogue.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import struct
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -30,6 +41,10 @@ from ..utils import kernels
 launches = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/matmul.cu's MatmulArgs: a, b, c; m, n, k, transpose, in_dtype,
+# out_dtype
+_MATMUL_ARGS = struct.Struct("<3Q6i")
+_NO_EPILOGUE = kernels.EpiProgram()  # all zeros; the kernel only reads it
 PATTERNS = ("row", "col", "full")
 
 # Opcodes of the epilogue program (csrc/matmul.cu ``enum Op``): the ops
@@ -58,6 +73,24 @@ class Epilogue:
     code: tuple
     consts: tuple = ()
     patterns: tuple = ()
+
+    @functools.cached_property
+    def flat(self) -> tuple:
+        """``(code, consts, patterns)`` as the op's flat arguments: five
+        ints a step, the constants, each extra's index in ``PATTERNS``
+        (made once per program)."""
+        return (tuple(x for step in self.code for x in step), self.consts,
+                tuple(PATTERNS.index(p) for p in self.patterns))
+
+    @staticmethod
+    def from_flat(code, consts, patterns) -> Optional["Epilogue"]:
+        """Inverse of :meth:`flat`; None for an empty program."""
+        if not code and not consts and not patterns:
+            return None
+        return Epilogue(tuple(tuple(code[i:i + 5])
+                              for i in range(0, len(code), 5)),
+                        tuple(consts),
+                        tuple(PATTERNS[p] for p in patterns))
 
     def text(self) -> str:
         """One line per step, for reading and for golden tests."""
@@ -141,13 +174,12 @@ def _frame_extra(arr: torch.Tensor, pattern: str, rows: int, cols: int):
     return arr.reshape(shape)
 
 
-def _check(a, b, epilogue, extra):
+def _check(a, b, n_extra: int, extra):
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError("matmul operands must be rank-2")
     if a.shape[1] != b.shape[0]:
         raise ValueError(
             f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
-    n_extra = len(epilogue.patterns) if epilogue is not None else 0
     if len(extra) != n_extra:
         raise ValueError(
             f"{len(extra)} extra operands for an epilogue of {n_extra}")
@@ -161,7 +193,8 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
     transposed when ``transpose_out``, then ``epilogue`` in float64 over
     the whole ``[rows, cols]`` frame, cast to ``out_dtype`` (``a``'s dtype
     by default)."""
-    _check(a, b, epilogue, extra)
+    _check(a, b, len(epilogue.patterns) if epilogue is not None else 0,
+           extra)
     value = a.double() @ b.double()
     if transpose_out:
         value = value.T
@@ -173,24 +206,106 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
     return value.to(out_dtype or a.dtype)
 
 
-def _program(epilogue: Optional[Epilogue], extra) -> kernels.EpiProgram:
+@functools.lru_cache(maxsize=256)
+def _program(code: tuple, consts: tuple,
+             patterns: tuple) -> kernels.EpiProgram:
+    """The kernel's ``EpiProgram`` for a flat epilogue (:meth:`Epilogue.
+    flat`), packed once per program; a launch copies it and fills in the
+    extras' pointers."""
     prog = kernels.EpiProgram()
-    if epilogue is None:
-        return prog
-    if (len(epilogue.code) > kernels.EPI_MAX_CODE
-            or len(epilogue.consts) > kernels.EPI_MAX_CONSTS
-            or len(extra) > kernels.EPI_MAX_EXTRA):
+    n_code = len(code) // 5
+    if (n_code > kernels.EPI_MAX_CODE
+            or len(consts) > kernels.EPI_MAX_CONSTS
+            or len(patterns) > kernels.EPI_MAX_EXTRA):
         raise ValueError("epilogue program exceeds the kernel's tables")
-    prog.n_code = len(epilogue.code)
-    prog.n_extra = len(extra)
-    for i, (op, dst, a, b, c) in enumerate(epilogue.code):
+    prog.n_code = n_code
+    for i in range(n_code):
+        op, dst, a, b, c = code[5 * i:5 * i + 5]
         prog.code[i][:] = [op | (dst << 8), a, b, c]
-    for i, value in enumerate(epilogue.consts):
+    for i, value in enumerate(consts):
         prog.consts[i] = value
-    for i, (arr, pattern) in enumerate(zip(extra, epilogue.patterns)):
-        prog.extra_pattern[i] = PATTERNS.index(pattern)
-        prog.extra[i] = arr.data_ptr()
+    for i, pattern in enumerate(patterns):
+        prog.extra_pattern[i] = pattern
     return prog
+
+
+def _matmul_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype, code,
+                 consts, patterns, extra, transpose_out) -> torch.Tensor:
+    """The CUDA implementation of ``exprgrad_torch::matmul`` (the op's flat
+    arguments, None for an empty program): checks what the kernel takes,
+    or raises, then launches it."""
+    code, consts, patterns, extra = (code or (), consts or (),
+                                     patterns or (), extra or ())
+    _check(a, b, len(patterns), extra)
+    out_dtype = out_dtype or a.dtype
+    if a.dtype not in _KERNEL_DTYPES or b.dtype != a.dtype:
+        raise ValueError(
+            f"the matmul kernel takes float32 or bfloat16 operands of one "
+            f"dtype, not {a.dtype} and {b.dtype}")
+    if out_dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"the matmul kernel cannot store {out_dtype}")
+    (m, k), n = a.shape, b.shape[1]
+    rows, cols = (n, m) if transpose_out else (m, n)
+    dev = a.device
+    for name, t in (("a", a), ("b", b)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, a on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for i, (arr, pattern) in enumerate(zip(extra, patterns)):
+        _frame_extra(arr, PATTERNS[pattern], rows, cols)
+        if arr.dtype != out_dtype:
+            raise ValueError(f"extra {i} is {arr.dtype}, not {out_dtype}")
+        if arr.device != dev:
+            raise ValueError(f"extra {i} is on {arr.device}, a on {dev}")
+        if not arr.is_contiguous():
+            raise ValueError(f"extra {i} must be contiguous")
+    out = torch.empty((rows, cols), dtype=out_dtype, device=dev)
+    if rows == 0 or cols == 0:
+        return out  # nothing to launch
+    if code or patterns:
+        prog = kernels.EpiProgram.from_buffer_copy(
+            _program(tuple(code), tuple(consts), tuple(patterns)))
+        prog.n_extra = len(extra)
+        for i, arr in enumerate(extra):
+            prog.extra[i] = arr.data_ptr()
+    else:
+        prog = _NO_EPILOGUE
+    kernels.call("egt_matmul_packed", dev, _MATMUL_ARGS.pack(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+        int(transpose_out), _KERNEL_DTYPES[a.dtype],
+        _KERNEL_DTYPES[out_dtype]), ctypes.addressof(prog))
+    global launches
+    launches += 1
+    return out
+
+
+def _matmul_cpu(a, b, out_dtype, code, consts, patterns, extra,
+                transpose_out):
+    """The CPU implementation of ``exprgrad_torch::matmul``:
+    :func:`matmul_plain`."""
+    return matmul_plain(a, b, out_dtype,
+                        Epilogue.from_flat(code or (), consts or (),
+                                           patterns or ()), extra or (),
+                        transpose_out)
+
+
+def _matmul_fake(a, b, out_dtype, code, consts, patterns, extra,
+                 transpose_out):
+    shape = ((b.shape[1], a.shape[0]) if transpose_out
+             else (a.shape[0], b.shape[1]))
+    return a.new_empty(shape, dtype=out_dtype or a.dtype)
+
+
+_LIB = torch.library.Library("exprgrad_torch", "FRAGMENT")
+_LIB.define("matmul(Tensor a, Tensor b, ScalarType? out_dtype, int[]? code, "
+            "float[]? consts, int[]? patterns, Tensor[]? extra, "
+            "bool transpose_out) -> Tensor")
+_LIB.impl("matmul", _matmul_cpu, "CPU")
+_LIB.impl("matmul", _matmul_cuda, "CUDA")
+torch.library.register_fake("exprgrad_torch::matmul", _matmul_fake, lib=_LIB)
+# the overload's C++ callable, as ``ops.attention._FLASH_FWD``
+_MATMUL = torch.ops.exprgrad_torch.matmul.default._op
 
 
 def matmul_impl(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
@@ -204,41 +319,17 @@ def matmul_impl(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
     float32 or bfloat16 and of one dtype; ``out_dtype`` and every extra
     operand float32 or bfloat16, extras contiguous in ``out_dtype`` with
     the element count of their pattern.  CPU tensors run
-    :func:`matmul_plain`."""
-    if a.device.type == "cpu":
-        return matmul_plain(a, b, out_dtype, epilogue, extra, transpose_out)
-    _check(a, b, epilogue, extra)
-    out_dtype = out_dtype or a.dtype
-    if a.dtype not in _KERNEL_DTYPES or b.dtype != a.dtype:
-        raise ValueError(
-            f"the matmul kernel takes float32 or bfloat16 operands of one "
-            f"dtype, not {a.dtype} and {b.dtype}")
-    if out_dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"the matmul kernel cannot store {out_dtype}")
-    (m, k), n = a.shape, b.shape[1]
-    rows, cols = (n, m) if transpose_out else (m, n)
-    tensors = [("a", a), ("b", b)]
-    for i, (arr, pattern) in enumerate(zip(extra, epilogue.patterns
-                                           if epilogue else ())):
-        _frame_extra(arr, pattern, rows, cols)
-        if arr.dtype != out_dtype:
-            raise ValueError(f"extra {i} is {arr.dtype}, not {out_dtype}")
-        tensors.append((f"extra {i}", arr))
-    for name, t in tensors:
-        if t.device != a.device:
-            raise ValueError(f"{name} is on {t.device}, a on {a.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    out = torch.empty((rows, cols), dtype=out_dtype, device=a.device)
-    if out.numel() == 0:
-        return out  # nothing to launch
-    prog = _program(epilogue, extra)
-    kernels.call("egt_matmul", a.device, a.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), m, n, k, int(transpose_out),
-                 _KERNEL_DTYPES[a.dtype], _KERNEL_DTYPES[out_dtype], prog)
-    global launches
-    launches += 1
-    return out
+    :func:`matmul_plain`.  Both go through the op
+    ``exprgrad_torch::matmul``."""
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no matmul kernel for {a.device}")
+    if epilogue is None and not extra:  # None boxes cheaper than []
+        return _MATMUL(a, b, out_dtype, None, None, None, None,
+                       transpose_out)
+    code, consts, patterns = (epilogue.flat if epilogue is not None
+                              else ((), (), ()))
+    return _MATMUL(a, b, out_dtype, code, consts, patterns, list(extra),
+                   transpose_out)
 
 
 class _ScheduledMatmul(torch.autograd.Function):

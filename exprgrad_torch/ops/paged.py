@@ -52,7 +52,7 @@ class PagedKVPool(NamedTuple):
 
 
 def init_pool(n_pages: int, kv_heads: int, page_size: int, head_dim: int,
-              dtype=torch.bfloat16, device="cpu") -> PagedKVPool:
+              dtype=torch.bfloat16, device="cuda") -> PagedKVPool:
     if dtype not in _CACHE_DTYPES:
         raise ValueError(
             f"pool dtype must be float32, bfloat16 or int8, not {dtype}")

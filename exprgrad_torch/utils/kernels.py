@@ -73,8 +73,12 @@ _SIGNATURES = {
     # causal, window, q_off, k_off, dtype, stream
     "egt_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _P],
+    # FlashFwdArgs (egt_flash_fwd's arguments but the stream), stream
+    "egt_flash_fwd_packed": [_P, _P],
     # a, b, c, m, n, k, transpose, in_dtype, out_dtype, program, stream
     "egt_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, EpiProgram, _P],
+    # MatmulArgs (a .. out_dtype), &program, stream
+    "egt_matmul_packed": [_P, _P, _P],
     # q, k, v, k_scale, v_scale, table, key_pos, q_pos, out, part, b, h,
     # hkv, n_pages, t, d, page, n_tbl, scale, window, vec, n_split, pps,
     # q_dtype, kv_dtype, stream
@@ -191,15 +195,23 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name} failed with cudaError_t {err}")
 
 
+_entries: dict = {}  # entry point name -> bound ctypes function
+
+
 def call(name: str, device: torch.device, *args) -> None:
     """Launch C entry point ``name`` on ``device`` and its current stream,
     whose handle is appended to ``args``; raises if the launch failed.
     The device is switched only when it is not the current one: a launch
-    is on every call's path, so it stays cheap on the host."""
-    fn = getattr(load(), name)
+    is on every call's path, so it stays cheap on the host (the bound
+    function is looked up once, the current device read without
+    ``torch.cuda``'s Python layer)."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(load(), name)
     index = device.index
-    if index == torch.cuda.current_device():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    current = torch._C._cuda_getDevice()
+    if index is None or index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(current))
     else:
         with torch.cuda.device(index):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -23,9 +23,12 @@ seed 0:
    ``mapreduce_impl``, uniform and with every index on one destination,
    beside ``index_add``: host us per call, CUDA events, device ms of
    every kernel a call launches; and B6's softmax 8192^2 host us per
-   call.  ``host`` (not in the default) gives only the two host figures,
-   through calls the port has had since it ran B5 and B6, so that
+   call.  ``host`` (not in the default) gives only host figures, through
+   calls the port has had since it ran B5 and B6 (and B2's forward and
+   B1, the torch.library ops of this port's later checkouts), so that
    ``--root`` can point at an older checkout.
+   ``ops`` (not in the default) gives only B2's forward and B1's host
+   figures, the median and range of five rounds, without Triton.
 4. b7: paged decode attention (B7, csrc/paged_attention.cu) at bench.py's
    paged shape and at path (e)'s decode step, beside its library route
    (gather_view, then scaled_dot_product_attention): as b5.
@@ -437,14 +440,80 @@ def gather_call(dev):
 
 def host(say, dev):
     """Host us per call of B5's scatter-add, a B5 gather and B6's softmax
-    entry points (no synchronize inside the timed calls)."""
+    entry points, and of B2's forward (the serving shape, causal, and
+    [1,1,64,64], whose device time is far below the host's) and B1
+    (256^3, bare and with chip_smoke's relu-and-row-bias epilogue), each
+    through the entry point the port has had since it ran the kernel (no
+    synchronize inside the timed calls)."""
+    from chip_smoke import epilogue
+    from exprgrad_torch.ops import attention, matmul
+
     mr, tensors, _, _ = scatter_call(dev)
     gather = gather_call(dev)
     softmax = softmax_call(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q, k, v = (torch.randn(8, 4, 256, 128, generator=gen, device=dev)
+               for _ in range(3))
+    qs = torch.randn(1, 1, 64, 64, generator=gen, device=dev)
+    a = torch.randn(256, 256, generator=gen, device=dev)
+    bias = torch.randn(256, generator=gen, device=dev)
+    relu_row = epilogue([("extra", 1, 0, 0, 0), ("add", 2, 0, 1, 0),
+                         ("const", 3, 0, 0, 0), ("le", 4, 3, 2, 0),
+                         ("select", 5, 4, 2, 3), ("mov", 0, 5, 0, 0)],
+                        (0.0,), ("row",))
+    fns = {
+        "B2 forward": lambda: attention.flash_attention_forward(
+            q, k, v, causal=True),
+        "B2 forward [1,1,64,64]": lambda: attention.flash_attention_forward(
+            qs, qs, qs, causal=True),
+        "B1": lambda: matmul.matmul_impl(a, a),
+        "B1 relu+bias": lambda: matmul.matmul_impl(
+            a, a, epilogue=relu_row, extra=[bias]),
+    }
+    fused = ", ".join(f"{name} {host_us(fn, calls=1000):.1f}"
+                      for name, fn in fns.items())
     say(f"host us per call: B5 scatter-add "
         f"{host_us(lambda: mr.lower(tensors)):.1f}, B5 gather "
-        f"{host_us(gather):.1f}, B6 softmax 8192^2 {host_us(softmax):.1f} "
-        f"(package at "
+        f"{host_us(gather):.1f}, B6 softmax 8192^2 {host_us(softmax):.1f}, "
+        f"{fused} (package at "
+        f"{Path(sys.modules['exprgrad_torch'].__file__).parents[1]})")
+
+
+def ops_host(say, dev, rounds=5, calls=2000):
+    """Host us per call of B2's forward and B1 through their entry points
+    (``host``'s four calls, without B5 and B6): the median and the range
+    of ``rounds`` rounds of ``calls`` calls each."""
+    from chip_smoke import epilogue
+    from exprgrad_torch.ops import attention, matmul
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q, k, v = (torch.randn(8, 4, 256, 128, generator=gen, device=dev)
+               for _ in range(3))
+    qs = torch.randn(1, 1, 64, 64, generator=gen, device=dev)
+    a = torch.randn(256, 256, generator=gen, device=dev)
+    bias = torch.randn(256, generator=gen, device=dev)
+    relu_row = epilogue([("extra", 1, 0, 0, 0), ("add", 2, 0, 1, 0),
+                         ("const", 3, 0, 0, 0), ("le", 4, 3, 2, 0),
+                         ("select", 5, 4, 2, 3), ("mov", 0, 5, 0, 0)],
+                        (0.0,), ("row",))
+    fns = {
+        "B2 forward": lambda: attention.flash_attention_forward(
+            q, k, v, causal=True),
+        "B2 forward [1,1,64,64]": lambda: attention.flash_attention_forward(
+            qs, qs, qs, causal=True),
+        "B1": lambda: matmul.matmul_impl(a, a),
+        "B1 relu+bias": lambda: matmul.matmul_impl(
+            a, a, epilogue=relu_row, extra=[bias]),
+    }
+    parts = []
+    for name, fn in fns.items():
+        runs = sorted(host_us(fn, calls=calls) for _ in range(rounds))
+        parts.append(f"{name} {runs[len(runs) // 2]:.2f} "
+                     f"({runs[0]:.2f}-{runs[-1]:.2f})")
+    say(f"ops host us per call, median (range) of {rounds} x {calls}: "
+        f"{', '.join(parts)} (package at "
         f"{Path(sys.modules['exprgrad_torch'].__file__).parents[1]})")
 
 
@@ -685,7 +754,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/probe_torch_kernels.txt")
     ap.add_argument("--parts", default="tensor,power,b5,b7",
-                    help="any of tensor, power, b5, b7, host")
+                    help="any of tensor, power, b5, b7, host, ops")
     ap.add_argument("--skip-variants", action="store_true")
     ap.add_argument("--variants", default="fwd,bwd",
                     help="which kernels' variants to time: fwd, bwd, b5, b7")
@@ -716,6 +785,8 @@ def main() -> int:
             b5(say, dev)
         elif "host" in parts:
             host(say, dev)
+        if "ops" in parts:
+            ops_host(say, dev)
         if "b7" in parts:
             b7(say, dev)
         which = set() if args.skip_variants else set(

@@ -73,7 +73,8 @@ BUILDERS = {
 def test_every_exported_builder_is_covered():
     # the serving runtime and the sampling/batch helpers build no graph
     exported = set(port_models.__all__) - {
-        "ContinuousBatcher", "FlashLMServer", "ddpm_sample", "ddpm_schedule",
+        "ContinuousBatcher", "FlashLMServer", "RecurrentServer",
+        "Seq2SeqBatcher", "Seq2SeqServer", "ddpm_sample", "ddpm_schedule",
         "diffusion_train_batch", "greedy_decode", "vae_sample",
         "vae_train_batch"}
     assert exported <= set(BUILDERS)

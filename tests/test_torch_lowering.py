@@ -415,13 +415,12 @@ def test_schedule_falls_back_with_warning():
 
 
 def test_jax_only_methods_raise():
+    """Of the JAX package's model extras only ``autotune`` is not ported
+    (ROADMAP A7); export, save_hlo and profile are held by
+    tests/test_torch_export.py."""
     port = egt.compile(_scheduled_matmul(egt), device="cpu", seed=0)
-    for call in (lambda: port.export_compiled("out", {"a": [8, 4]}),
-                 lambda: port.save_hlo("x.hlo", "out", {"a": [8, 4]}),
-                 lambda: port.profile("out", {}, "logdir"),
-                 lambda: port.autotune("out")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        port.autotune("out")
 
 
 def test_astype_executable_and_precision():

@@ -126,6 +126,29 @@ def test_wrapper_checks_its_operands():
                      extra=[torch.ones(3)])
 
 
+def test_epilogue_travels_as_the_ops_flat_arguments():
+    """An epilogue crosses ``exprgrad_torch::matmul`` as flat ints and
+    floats and comes back whole; the kernel's packed program holds each
+    step as ``op | dst << 8, a, b, c``, the constants and the extras'
+    pattern indices (the pointers are filled in per launch)."""
+    from exprgrad_torch.ops.matmul import PATTERNS, Epilogue, _program
+
+    prog = EPILOGUES["bias_relu"][0]
+    code, consts, patterns = prog.flat
+    assert Epilogue.from_flat(code, consts, patterns) == prog
+    assert Epilogue.from_flat([], [], []) is None
+    packed = _program(tuple(code), tuple(consts), tuple(patterns))
+    assert packed is _program(tuple(code), tuple(consts), tuple(patterns))
+    assert (packed.n_code, packed.n_extra) == (len(prog.code), 0)
+    for i, (op, dst, a, b, c) in enumerate(prog.code):
+        assert list(packed.code[i]) == [op | (dst << 8), a, b, c]
+    assert list(packed.consts[:len(consts)]) == pytest.approx(consts)
+    assert [PATTERNS[p] for p in packed.extra_pattern[:len(patterns)]] == \
+        list(prog.patterns)
+    with pytest.raises(ValueError, match="tables"):
+        _program((0, 0, 0, 0, 0) * 65, (), ())
+
+
 def test_scheduled_matmul_grads_match_jax():
     rng = np.random.default_rng(3)
     a = rng.normal(size=(64, 128)).astype(np.float32)

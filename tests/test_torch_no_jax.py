@@ -5,9 +5,11 @@ weights, ragged, scoring, beam, speculative and lookup modes and the
 batcher's speculative rounds, weight quantization, a scheduled MLP
 (chip_smoke.py's program, narrow), a scheduled softmax row chain and
 scatter-add (the generated kernels' plain versions), and train (steps,
-fit, the scan epoch, checkpoints, EMA, the training driver) on the CPU
-in a fresh interpreter where ``import jax`` and ``import exprgrad_tpu``
-fail.  The CUDA sources define every entry point the ctypes binding
+fit, the scan epoch, checkpoints, EMA, the training driver), the
+encoder-decoder server and batcher (plain and lookup), the recurrent
+server, and ``export_compiled``/``load_compiled`` of a seq2seq predict,
+on the CPU in a fresh interpreter where ``import jax`` and
+``import exprgrad_tpu`` fail.  The CUDA sources define every entry point the ctypes binding
 names, with its parameter types (nvcc cannot run here).
 
 The check runs in a subprocess because this test process already holds
@@ -190,6 +192,49 @@ TRAIN_SCRIPT = textwrap.dedent("""
 """)
 
 
+SEQ2SEQ_SCRIPT = textwrap.dedent("""
+    import sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["exprgrad_tpu"] = None
+    import numpy as np
+    import torch
+    import exprgrad_torch as egt
+    from exprgrad_torch.models import (RecurrentServer, Seq2SeqBatcher,
+                                       Seq2SeqServer, greedy_decode,
+                                       tiny_recurrent_lm, tiny_seq2seq)
+
+    s2s = egt.compile(tiny_seq2seq(vocab=8, dim=16, heads=2, max_src=16,
+                                   max_tgt=16), seed=0, device="cpu")
+    src = np.random.default_rng(0).integers(1, 8, (2, 6)).astype(np.float32)
+    srv = Seq2SeqServer(s2s)
+    out = srv.generate(src, n_new=5)
+    assert np.array_equal(out.numpy(), greedy_decode(s2s, src, 5))
+    assert srv.generate_beam(src, n_new=3, beams=2)[0].shape == (2, 2, 3)
+    spec, _ = srv.generate_speculative(srv, src[:1], n_new=5, k=2)
+    assert np.array_equal(spec.numpy(), out.numpy()[:1])
+    assert srv.score(src, out.numpy())[0].shape == (2,)
+    for kw in ({}, dict(lookup=True, spec_k=2)):
+        b = Seq2SeqBatcher(srv, slots=2, **kw)
+        rids = [b.submit(s, 5) for s in (src[0], src[1], src[0, :3])]
+        done = b.run()
+        assert np.array_equal(done[rids[0]], out.numpy()[0]), done
+    rnn = egt.compile(tiny_recurrent_lm(vocab=8, cell="gru"), seed=0,
+                      device="cpu")
+    assert RecurrentServer(rnn).generate(src[:, :3], n_new=4).shape == (2, 4)
+
+    data = s2s.export_compiled("predict", {"src": [2, 6], "tgt": [2, 3]})
+    fn = egt.load_compiled(data)
+    args = {"src": src, "tgt": src[:, :3]}
+    assert np.allclose(fn(args).numpy(), s2s.call("predict", args),
+                       rtol=1e-5, atol=1e-6)
+    mods = sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "exprgrad_tpu")
+                  and sys.modules[m] is not None)
+    assert not mods, mods
+    print("NO_JAX_OK")
+""")
+
+
 def _run_blocked(script):
     proc = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True,
@@ -205,6 +250,10 @@ def test_port_runs_with_jax_blocked():
 
 def test_port_trains_with_jax_blocked():
     _run_blocked(TRAIN_SCRIPT)
+
+
+def test_port_serves_seq2seq_and_exports_with_jax_blocked():
+    _run_blocked(SEQ2SEQ_SCRIPT)
 
 
 def _c_type(param: str):
@@ -235,6 +284,30 @@ def test_cuda_sources_define_every_bound_entry_point():
         head = found[0][found[0].index(decl) + len(decl):]
         params = [p.strip() for p in head[:head.index(")")].split(",")]
         assert [_c_type(p) for p in params] == list(argtypes), name
+
+
+def test_packed_argument_layouts_match_the_sources():
+    """The packed launches of B2 and B1 (``egt_flash_fwd_packed``,
+    ``egt_matmul_packed``) pass one struct each: the Python packing is as
+    long as the C struct, whose size the sources assert, and the packed
+    entry hands every field to the unpacked entry in order."""
+    import re
+
+    from exprgrad_torch.ops import attention, matmul
+    from exprgrad_torch.utils import kernels
+
+    for src, name, packer, entry in (
+            ("flash_fwd.cu", "FlashFwdArgs", attention._FWD_ARGS,
+             "egt_flash_fwd"),
+            ("matmul.cu", "MatmulArgs", matmul._MATMUL_ARGS, "egt_matmul")):
+        text = (kernels._CSRC / src).read_text()
+        size = re.search(rf"sizeof\({name}\) == (\d+)", text)
+        assert size and int(size.group(1)) == packer.size, (name, size)
+        body = text[text.index(f"struct {name} {{"):]
+        fields = re.findall(r"\b(\w+)(?=[,;])", body[:body.index("};")])
+        call = text[text.index(f"{entry}_packed("):]
+        call = call[call.index(f"return {entry}("):call.index(");")]
+        assert re.findall(r"->(\w+)", call) == fields, (name, fields)
 
 
 def test_compile_on_cuda_without_a_gpu_raises(monkeypatch):

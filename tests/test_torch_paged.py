@@ -108,7 +108,8 @@ def test_append_and_append_at_match_jax(dtype):
     want = jax_decode.append_at(jax_decode.init_cache(b, hkv, cap, d, jd),
                                 jnp.asarray(k_new), jnp.asarray(v_new),
                                 jnp.asarray(starts))
-    got = decode.append_at(decode.init_cache(b, hkv, cap, d, td),
+    got = decode.append_at(decode.init_cache(b, hkv, cap, d, td,
+                                             device="cpu"),
                            torch.as_tensor(k_new), torch.as_tensor(v_new),
                            torch.as_tensor(starts))
     _equal(got[:2] + got[3:], want[:2] + want[3:])
@@ -132,7 +133,8 @@ def test_decode_attention_positions_match_jax(dtype, window, group, t):
     kv = [rng.normal(size=(b, hkv, cap, d)).astype(np.float32)
           for _ in range(2)]
     jc = jax_decode.append(jc, jnp.asarray(kv[0]), jnp.asarray(kv[1]))
-    tc = decode.append(decode.init_cache(b, hkv, cap, d, td),
+    tc = decode.append(decode.init_cache(b, hkv, cap, d, td,
+                                         device="cpu"),
                        torch.as_tensor(kv[0]), torch.as_tensor(kv[1]))
     key_pos = np.where(np.arange(cap)[None] < lens[:, None],
                        np.arange(cap)[None], -1).astype(np.int32)
@@ -159,7 +161,7 @@ def test_paged_functions_match_jax_bit_for_bit(dtype):
     rng = np.random.default_rng(3)
     n_pages, hkv, page, d = 9, 2, 4, 8
     jp, tp = _pools(rng, n_pages, hkv, page, d, dtype)
-    _equal(paged.init_pool(n_pages, hkv, page, d, dtype=td),
+    _equal(paged.init_pool(n_pages, hkv, page, d, dtype=td, device="cpu"),
            jax_paged.init_pool(n_pages, hkv, page, d, dtype=jd))
 
     # write_token: one token per row ([b] ids), then t = 2 per row
@@ -188,7 +190,7 @@ def test_paged_functions_match_jax_bit_for_bit(dtype):
     kv = [rng.normal(size=(1, hkv, cap, d)).astype(np.float32)
           for _ in range(2)]
     jc = jax_decode.append(jc, jnp.asarray(kv[0]), jnp.asarray(kv[1]))
-    tc = decode.append(decode.init_cache(1, hkv, cap, d, td),
+    tc = decode.append(decode.init_cache(1, hkv, cap, d, td, device="cpu"),
                        torch.as_tensor(kv[0]), torch.as_tensor(kv[1]))
     ids = np.asarray([6, 8], np.int32)
     jp = jax_paged.write_prefill(jp, jc, jnp.asarray(ids), src_offset=4)
@@ -217,8 +219,10 @@ def test_dense_and_paged_prefill_agree():
     rng = np.random.default_rng(4)
     hkv, d, page = 2, 8, 4
     k = torch.as_tensor(rng.normal(size=(1, hkv, 12, d)).astype(np.float32))
-    cache = decode.append(decode.init_cache(1, hkv, 12, d, torch.int8), k, k)
-    pool = paged.write_prefill(paged.init_pool(5, hkv, page, d, torch.int8),
+    cache = decode.append(decode.init_cache(1, hkv, 12, d, torch.int8,
+                                            device="cpu"), k, k)
+    pool = paged.write_prefill(paged.init_pool(5, hkv, page, d, torch.int8,
+                                               device="cpu"),
                                cache, [4, 1, 3])
     view = paged.gather_view(pool, torch.as_tensor([[4, 1, 3]]))
     _equal(view[:2] + view[3:], cache[:2] + cache[3:])
@@ -302,8 +306,24 @@ def test_dead_rows_give_zero_and_bfloat16_queries():
     torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
 
 
+def test_cache_helpers_default_to_the_card():
+    """``init_cache`` and ``init_pool`` allocate on the card unless the
+    caller names another device, as ``compile`` does: without a GPU the
+    call fails in torch's CUDA initialisation instead of handing back a
+    CPU tensor."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    with pytest.raises(AssertionError, match="CUDA"):
+        decode.init_cache(1, 2, 8, 16)
+    with pytest.raises(AssertionError, match="CUDA"):
+        paged.init_pool(4, 2, 8, 16)
+    assert decode.init_cache(1, 2, 8, 16, device="cpu").k.device.type == \
+        "cpu"
+    assert paged.init_pool(4, 2, 8, 16, device="cpu").k.device.type == "cpu"
+
+
 def test_validation_errors_match_jax():
-    pool = paged.init_pool(4, 2, 8, 64, torch.float32)
+    pool = paged.init_pool(4, 2, 8, 64, torch.float32, device="cpu")
     q = torch.zeros((1, 2, 1, 64))
     tbl = torch.zeros((1, 2), dtype=torch.int32)
     kp = torch.zeros((1, 16), dtype=torch.int32)
@@ -321,7 +341,7 @@ def test_validation_errors_match_jax():
         f(torch.zeros((2, 2, 1, 64)), pool, tbl, kp, qp)
     # a page of 12 slots (not a multiple of 8, which the TPU kernel
     # refuses) is taken
-    pool12 = paged.init_pool(4, 2, 12, 64, torch.float32)
+    pool12 = paged.init_pool(4, 2, 12, 64, torch.float32, device="cpu")
     out = f(q, pool12, tbl, torch.zeros((1, 24), dtype=torch.int32), qp)
     assert out.shape == q.shape
     # no kernel for a device that is neither the CPU nor CUDA
