@@ -4,7 +4,8 @@ serve a continuous batch over a paged KV pool, train the reference
 examples' models, serve the decoder's other modes (int8 weights,
 ragged prompts, scoring, beam, speculative and lookup decoding and the
 batcher's speculative rounds), train and serve the encoder-decoder and
-recurrent models, and export, load and profile a model.
+recurrent models, export, load and profile a model, and decode in
+chunks and pipelined chunks, each chunk one CUDA graph replay.
 
     python3 chip_smoke.py
 
@@ -153,7 +154,26 @@ Phases (any failed check raises and the script exits non-zero):
    naming the ops exprgrad_torch::flash_fwd and exprgrad_torch::matmul;
    profile writing a Chrome trace that holds B2; the host microseconds a
    call of B2 and B1 through their torch.library ops beside the direct
-   launch, in turns.
+   launch, in turns; then export_compiled of path (d)'s head predict (B1
+   and two B6 a call) and of path (c)'s bench.py scatter-add (one B5
+   scatter): each artifact within rtol 1e-5 of model.call, launching the
+   generated kernels (counted, and by name), save_hlo naming the ops
+   exprgrad_torch::rowchain and exprgrad_torch::mapreduce, and the
+   scatter-add's artifact loaded and run in a fresh process that imports
+   only exprgrad_torch;
+20. path (l): ContinuousBatcher(decode_chunk=N, pipeline=P), each chunk
+   dispatch one CUDA graph replay: bench.py's continuous-batching cell
+   (capacity 320, pages of 32, a pool of 40, decode_chunk 32, prompts
+   bucketed to 192) under path (e)'s mix, flash and gather (float32-cache
+   greedy streams equal decode_chunk 1's but at near-ties; bfloat16
+   drives timed warm, decode_chunk 1 beside them, one under
+   torch.profiler for the busy share and B7's device time a launch);
+   bench.py's steady-state sweep over (decode_chunk, pipeline) = (1, 0),
+   (8, 0), (32, 0), (32, 4), (128, 0), (128, 1) at capacity 1088 (tokens/s,
+   ms a decode step and a dispatch; the pipelined streams equal pipeline
+   0's); a windowed model under pipeline 1 against 0.  Graph replays equal
+   the chunk dispatches, and B7 launches blocks x (steps a chunk x
+   replays + one warm-up step a graph captured).
 
 B1-B4 compute float32 on the tensor cores as split TF32 and are held
 to the same tolerances as the float32 kernels before them
@@ -172,9 +192,11 @@ the last line is a JSON object naming the device.
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -369,6 +391,25 @@ RNN_SERVE = dict(batch=8, new=32)
 # Phase 19: path (a)'s scheduled contraction, exported at a width that
 # keeps the phase short
 EXPORT_MATMUL_N = 1024
+
+# Phase 20, path (l): multi-step and pipelined decode, one CUDA graph
+# replay a chunk dispatch.  bench.py's continuous-batching cell
+# (bench.py:575-622): the serving widths at max_seq = capacity 320, 8
+# slots, pages of 32, a pool of half the dense reservation (8 * 10 // 2 =
+# 40 pages), decode_chunk 32, prompts bucketed to 192, under path (e)'s
+# staggered mix; and its steady-state sweep (bench.py:632-700): capacity
+# 64 + 1024, 8 prompts of 64 with budgets of 1024, a pool of 8 * 34 pages,
+# STEADY_CONFIGS of (decode_chunk, pipeline), the timed window of
+# bench.py's formula; the pairs in STEADY_FULL then run to the end, for
+# their streams.  A windowed model (window 64) at the cell's settings with
+# decode_chunk 8, under pipeline 1 and 0.
+CB_CELL = dict(slots=8, capacity=320, paged=True, page_size=32,
+               pool_pages=8 * (320 // 32) // 2, decode_chunk=32,
+               prompt_buckets=(192,))
+STEADY = dict(slots=8, prompt=64, budget=1024, page_size=32)
+STEADY_CONFIGS = ((1, 0), (8, 0), (32, 0), (32, 4), (128, 0), (128, 1))
+STEADY_FULL = ((32, 0), (32, 4), (128, 0), (128, 1))
+CB_WINDOW, CB_WINDOW_CHUNK = 64, 8
 
 
 def gpu_line() -> str:
@@ -3516,6 +3557,371 @@ def phase_extras(egt, model, q, k, v, gpu) -> dict:
     return res
 
 
+_LOAD_IN_CHILD = """
+import json, sys
+import numpy as np
+import torch
+import exprgrad_torch as egt
+from exprgrad_torch.ops import mapreduce, matmul, rowchain
+args = dict(np.load(sys.argv[2]))
+fn = egt.load_compiled(sys.argv[1])
+got = fn(args)
+torch.cuda.synchronize()
+np.save(sys.argv[3], got.cpu().numpy())
+print(json.dumps({"mapreduce": mapreduce.launches, "rowchain": rowchain.launches,
+                  "matmul": matmul.launches, "modules": sorted(
+                      m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "exprgrad_tpu"))}))
+"""
+
+
+def export_generated(egt, gpu) -> dict:
+    """Phase 19 (b): export of plans that launch the generated kernels:
+    path (d)'s head predict (B1 and two B6 a call) and path (c)'s bench.py
+    scatter-add (one B5 scatter).  Each artifact within rtol 1e-5 of
+    model.call, running the generated kernels (counted, and by name under
+    torch.profiler), save_hlo naming the ops; the scatter-add's artifact
+    also loads and runs in a fresh process that imports only
+    exprgrad_torch.  Returns the launches of the artifacts' calls."""
+    import tempfile
+
+    from exprgrad_torch.ops import mapreduce, matmul, rowchain
+    from exprgrad_torch.utils import kernels
+
+    counters = {"mapreduce": mapreduce, "rowchain": rowchain,
+                "matmul": matmul}
+    head = egt.compile(transformer_head(egt, HEAD["dim"], HEAD["vocab"]),
+                       seed=0, schedule_mode="force", device="cuda")
+    x = np.random.default_rng(2).standard_normal(
+        (HEAD["rows"], HEAD["dim"]), dtype=np.float32)
+    (_, graph, target, args, _) = next(
+        p for p in path_c_programs(egt) if p[0] == "scatter-add (bench.py)")
+    scatter = egt.compile(graph, seed=0, schedule_mode="force",
+                          device="cuda")
+    cases = (("path (d) head predict", head, "predict", {"x": x}),
+             ("path (c) scatter-add", scatter, target, args))
+    total = dict.fromkeys(counters, 0)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        for what, m, target, args in cases:
+            shapes = {name: list(a.shape) for name, a in args.items()}
+            want = m.call(target, args)
+            stats = m.lowering_stats(target)
+            expect = {"mapreduce": stats.get("mapreduce", 0),
+                      "rowchain": stats.get("rowchain", 0),
+                      "matmul": stats.get("matmul", 0)
+                      + stats.get("matmul-fused", 0)}
+            (ex,) = (e for (t, _), e in m._executors.items() if t == target)
+            generated = ex.generated_kernels()
+            assert len(generated) == expect["mapreduce"] + expect[
+                "rowchain"] and generated, (what, generated, stats)
+            t0 = time.perf_counter()
+            data = m.export_compiled(target, shapes)
+            export_s = time.perf_counter() - t0
+            fn = egt.load_compiled(data)
+            reset_counters()
+            got = fn(args)
+            torch.cuda.synchronize()
+            launched = {k: c.launches for k, c in counters.items()}
+            assert launched == expect, (what, launched, expect)
+            for k in total:
+                total[k] += launched[k]
+            got = got.cpu().numpy()
+            err = float(np.abs(got - want).max())
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+            names = kernel_names(lambda: fn(args))
+            for kind, name in (("rowchain", "egt_rowchain"),
+                               ("mapreduce", "egt_mapreduce")):
+                if expect[kind]:
+                    assert any(name in n for n in names), (what, names)
+            path = f"{tmp}/{target}.txt"
+            m.save_hlo(path, target, shapes)
+            with open(path) as f:
+                text = f.read()
+            ops = [f"exprgrad_torch.{k}" for k, n in expect.items() if n]
+            assert all(op in text for op in ops), (what, ops)
+            print(f"phase 19 {what}: export_compiled {export_s:.2f} s "
+                  f"({len(data)} bytes); the artifact against model.call max "
+                  f"|err| {err:.3e}, launches {launched} a call (the plan "
+                  f"{generated}); save_hlo names {ops}; kernels "
+                  f"{[n[:40] for n in names]} on {gpu}")
+        art, npz, out = (f"{tmp}/scatter.egc", f"{tmp}/args.npz",
+                         f"{tmp}/got.npy")
+        with open(art, "wb") as f:
+            f.write(data)
+        np.savez(npz, **args)
+        here = str(Path(__file__).resolve().parent)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p]))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", _LOAD_IN_CHILD, art, npz,
+                              out], capture_output=True, text=True, env=env,
+                             timeout=600)
+        child_s = time.perf_counter() - t0
+        assert run.returncode == 0, run.stderr[-4000:]
+        child = json.loads(run.stdout.strip().splitlines()[-1])
+        assert child["modules"] == [], child
+        assert child["mapreduce"] == expect["mapreduce"] == 1, child
+        err = float(np.abs(np.load(out) - want).max())
+        np.testing.assert_allclose(np.load(out), want, rtol=1e-5, atol=1e-6)
+        print(f"phase 19 path (c) scatter-add loaded in a fresh process "
+              f"({child_s:.1f} s, imports only exprgrad_torch): launches "
+              f"{child}, max |err| against model.call {err:.3e}")
+    return total
+
+
+def _parted_at_near_ties(srv, prompts, ref, streams, what) -> list:
+    """Where ``streams`` part from ``ref``, the solo run's top-2 logit
+    margin at the first differing token must be a near-tie; returns the
+    (request, token, margin) of each parting."""
+    parted = []
+    for i, (r, g) in enumerate(zip(ref, streams)):
+        differ = np.flatnonzero(r != g)
+        if not differ.size:
+            continue
+        j = int(differ[0])
+        seq = np.concatenate([prompts[i], r[:j].astype(np.float32)])
+        logits, _ = srv.prefill(seq[None], srv.init_caches(1))
+        top = torch.topk(logits[0, -1], 2).values
+        margin = float(top[0] - top[1])
+        parted.append((i, j, margin))
+        print(f"path (l) {what} request {i}: parts at token {j} ({r[j]} vs "
+              f"{g[j]}); solo top-2 logit margin {margin:.3e}")
+        assert margin <= NEAR_TIE, (what, i, j, margin)
+    return parted
+
+
+def drive_batcher(b, prompts, budgets):
+    """Serve the mix through the batcher ``b`` (half the requests up
+    front, then one more before each step()) with the kernels' counters at
+    0 just before; returns (streams, seconds to the last token,
+    synchronized, graph replays in the drive, graphs captured in it, B7
+    launches).  Checks each stream, that the replays are the chunk
+    dispatches, and that every page came back."""
+    from exprgrad_torch.ops import paged_attention
+
+    n, vocab = len(prompts), b.server.vocab
+    replays0 = sum(g.replays for g in b.chunk_graphs.values())
+    graphs0, dispatches0 = len(b.chunk_graphs), b.stats["dispatches"]
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [b.submit(p, m) for p, m in zip(prompts[:n // 2],
+                                          budgets[:n // 2])]
+    out = {}
+    while len(out) < n:
+        if len(rids) < n:
+            i = len(rids)
+            rids.append(b.submit(prompts[i], budgets[i]))
+        out.update(b.step())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = paged_attention.launches
+    others = sum(c.launches for c in _counters()[:-1])
+    assert others == 0, others
+    replays = sum(g.replays for g in b.chunk_graphs.values()) - replays0
+    dispatches = b.stats["dispatches"] - dispatches0
+    assert replays == (dispatches if b.decode_chunk > 1 else 0), (
+        replays, dispatches)
+    assert b.stats["free_pages"] == b.stats["pool_pages"], b.stats
+    streams = [out[r] for r in rids]
+    for s, m in zip(streams, budgets):
+        assert s.shape == (m,) and np.all((s >= 0) & (s < vocab)), s.shape
+    return (streams, secs, replays, len(b.chunk_graphs) - graphs0,
+            launches)
+
+
+def b7_expected(b, replays, graphs, dispatches) -> int:
+    """B7 launches of a run: a block each a step under flash, a step being
+    an eager dispatch (decode_chunk 1), a captured step of a replay, or a
+    graph's one-step warm-up; none under gather."""
+    if b.attention != "flash":
+        return 0
+    blocks = len(b.server.blocks)
+    if b.decode_chunk == 1:
+        return blocks * dispatches
+    return blocks * (b.decode_chunk * replays + graphs)
+
+
+def path_l(egt, gpu) -> dict:
+    """Phase 20: ContinuousBatcher(decode_chunk=N, pipeline=P) on the card,
+    each chunk dispatch one CUDA graph replay: bench.py's
+    continuous-batching cell (flash and gather; float32-cache greedy
+    streams against decode_chunk 1 but at near-ties; bfloat16 drives
+    timed), its steady-state sweep, and a windowed model's pipeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from exprgrad_torch.models import (ContinuousBatcher, FlashLMServer,
+                                       flash_transformer)
+
+    res = {"b7": 0, "replays": 0, "captures": {}, "tokens_s": {}}
+    vocab, blocks = SERVING["vocab"], SERVING["blocks"]
+    cap = CB_CELL["capacity"]
+    model = egt.compile(flash_transformer(**dict(SERVING, max_seq=cap)),
+                        seed=0, device="cuda")
+    prompts, budgets = staggered_mix(vocab)
+    tokens = sum(budgets)
+
+    def run(b, what, timed=False):
+        d0 = b.stats["dispatches"]
+        streams, secs, replays, graphs, launches = drive_batcher(
+            b, prompts, budgets)
+        dispatches = b.stats["dispatches"] - d0
+        want = b7_expected(b, replays, graphs, dispatches)
+        assert launches == want, (what, launches, want, b.stats)
+        res["b7"] += launches
+        res["replays"] += replays
+        for g in list(b.chunk_graphs.values())[len(b.chunk_graphs)
+                                               - graphs:]:
+            res["captures"][what] = round(g.capture_seconds, 4)
+        print(f"path (l) {what}: {tokens} tokens in {secs:.4f} s, "
+              f"{tokens / secs:.1f} tokens/s, {dispatches} dispatches "
+              f"({secs / max(dispatches, 1) * 1e3:.3f} ms each), {replays} "
+              f"graph replays, {graphs} captured; B7 launches {launches} = "
+              f"{blocks} blocks x ({b.decode_chunk} steps x {replays} "
+              f"replays + {graphs} warm-up); stats {b.stats}"
+              + (f" on {gpu}" if timed else ""))
+        return streams, secs
+
+    def cell(server, kind, chunk=CB_CELL["decode_chunk"], **kw):
+        return ContinuousBatcher(server, attention=kind, **dict(
+            CB_CELL, decode_chunk=chunk, **kw))
+
+    # float32 cache: decode_chunk 32 (flash, gather) against decode_chunk 1
+    srv32 = FlashLMServer(model, cache_dtype=torch.float32)
+    ref, _ = run(cell(srv32, "flash", chunk=1), "f32 flash chunk 1")
+    for kind in ("flash", "gather"):
+        got, _ = run(cell(srv32, kind), f"f32 {kind} chunk 32")
+        parted = _parted_at_near_ties(srv32, prompts, ref, got,
+                                      f"f32 {kind} chunk 32")
+        print(f"path (l) f32 {kind} chunk 32: {len(prompts) - len(parted)} "
+              f"of {len(prompts)} greedy streams equal decode_chunk 1's")
+
+    # the default bfloat16 cache: a warm drive (with the capture), then a
+    # timed drive on the same batcher; decode_chunk 1 beside it
+    srv = FlashLMServer(model)
+    for what, b in (("bf16 flash chunk 32", cell(srv, "flash")),
+                    ("bf16 gather chunk 32", cell(srv, "gather")),
+                    ("bf16 flash chunk 1", cell(srv, "flash", chunk=1))):
+        run(b, what + " (first drive)")
+        _, secs = run(b, what + " (warm)", timed=True)
+        res["tokens_s"][what] = tokens / secs
+        if what == "bf16 flash chunk 32":
+            warm = b
+    # one more warm drive under torch.profiler: the device's busy share
+    # and B7's device time a launch inside the replays
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        drive_batcher(warm, prompts, budgets)
+        wall = (time.perf_counter() - t0) * 1e3
+    from exprgrad_torch.ops import paged_attention
+    b7_launched = paged_attention.launches
+    dev_ms, b7_ms, b7_seen = 0.0, 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            dev_ms += ms
+            if "paged_split_kernel" in e.name or "paged_merge_kernel" in (
+                    e.name):
+                b7_ms += ms
+                b7_seen += "paged_split_kernel" in e.name
+    res["busy"] = dev_ms / wall
+    res["b7_ms_per_launch"] = b7_ms / b7_seen if b7_seen else None
+    print(f"path (l) bf16 flash chunk 32 under torch.profiler: wall "
+          f"{wall:.2f} ms, device {dev_ms:.3f} ms, busy {dev_ms / wall:.4f}; "
+          f"B7 {b7_seen} launches seen of {b7_launched}, device "
+          f"{b7_ms:.4f} ms, {res['b7_ms_per_launch']} ms a launch on {gpu}")
+
+    # the steady-state sweep (bench.py:632-700)
+    steady_cap = STEADY["prompt"] + STEADY["budget"]
+    smodel = egt.compile(flash_transformer(**dict(SERVING,
+                                                  max_seq=steady_cap)),
+                         seed=0, device="cuda")
+    ssrv = FlashLMServer(smodel)
+    pages = -(-steady_cap // STEADY["page_size"])
+    full = {}
+    res["steady"] = {}
+    for chunk, pipe in STEADY_CONFIGS:
+        b = ContinuousBatcher(
+            ssrv, slots=STEADY["slots"], capacity=steady_cap, paged=True,
+            page_size=STEADY["page_size"], pool_pages=STEADY["slots"] * pages,
+            decode_chunk=chunk, pipeline=pipe, attention="flash")
+        # the same prompts for every pair (bench.py draws each pair's from
+        # one running generator), so that streams compare
+        rng = np.random.default_rng(0)
+        reset_counters()
+        rids = [b.submit(rng.integers(0, vocab, STEADY["prompt"]).astype(
+            np.float32), STEADY["budget"]) for _ in range(STEADY["slots"])]
+        b.step()
+        b.step()
+        for _ in range(pipe):
+            b.step()
+        window = min(max(2 + pipe, 64 // chunk),
+                     (STEADY["budget"] - 1) // chunk - 1 - 2 * pipe)
+        assert window > 0, (chunk, pipe, window)
+        steps0, d0 = b.stats["decode_steps"], b.stats["dispatches"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(window):
+            b.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        assert b.active.all(), b.stats
+        steps = b.stats["decode_steps"] - steps0
+        dispatches = max(1, b.stats["dispatches"] - d0)
+        key = f"{chunk}+pipe{pipe}" if pipe else str(chunk)
+        res["steady"][key] = (STEADY["slots"] * steps / dt,
+                              dt / steps * 1e3, dt / dispatches * 1e3)
+        line = (f"path (l) steady {key}: {STEADY['slots'] * steps / dt:.1f} "
+                f"tokens/s, {dt / steps * 1e3:.4f} ms per decode step, "
+                f"{dt / dispatches * 1e3:.4f} ms per dispatch ({window} "
+                f"step() calls timed)")
+        if (chunk, pipe) in STEADY_FULL:
+            out = b.run()
+            full[(chunk, pipe)] = [out[r] for r in rids]
+            replays = sum(g.replays for g in b.chunk_graphs.values())
+            graphs = len(b.chunk_graphs)
+            assert replays == b.stats["dispatches"], (replays, b.stats)
+            launches = paged_attention.launches
+            want = b7_expected(b, replays, graphs, b.stats["dispatches"])
+            assert launches == want, (key, launches, want)
+            assert b.stats["free_pages"] == b.stats["pool_pages"], b.stats
+            res["b7"] += launches
+            res["replays"] += replays
+            for g in b.chunk_graphs.values():
+                res["captures"][f"steady {key}"] = round(
+                    g.capture_seconds, 4)
+            line += (f"; to the end: {replays} replays, B7 launches "
+                     f"{launches}, capture {[round(g.capture_seconds, 3) for g in b.chunk_graphs.values()]} s")
+        print(line + f" on {gpu}")
+        if chunk == 32 and pipe == 0:
+            res["tokens_s"]["steady 32"] = STEADY["slots"] * steps / dt
+    for chunk, pipe in STEADY_FULL:
+        if pipe:
+            for a, c in zip(full[(chunk, pipe)], full[(chunk, 0)]):
+                np.testing.assert_array_equal(a, c)
+            print(f"path (l) steady {chunk}+pipe{pipe}: the {len(c)}-token "
+                  f"greedy streams of all {STEADY['slots']} requests equal "
+                  f"pipeline 0's")
+
+    # a windowed model: pipeline 1 against pipeline 0 at decode_chunk 8
+    wmodel = egt.compile(flash_transformer(**dict(
+        SERVING, max_seq=cap, window=CB_WINDOW)), seed=0, device="cuda")
+    wsrv = FlashLMServer(wmodel)
+    got = {}
+    for pipe in (1, 0):
+        b = cell(wsrv, "flash", chunk=CB_WINDOW_CHUNK, pipeline=pipe)
+        got[pipe], _ = run(b, f"window {CB_WINDOW} chunk "
+                              f"{CB_WINDOW_CHUNK} pipeline {pipe}")
+        assert b.stats["window_evicted"] > 0, b.stats
+    for a, c in zip(got[1], got[0]):
+        np.testing.assert_array_equal(a, c)
+    print(f"path (l) window {CB_WINDOW}: the greedy streams of pipeline 1 "
+          f"equal pipeline 0's")
+    return res
+
+
 def phase_done(name, since) -> float:
     """Print a phase's seconds; returns the time it ended."""
     now = time.perf_counter()
@@ -3840,7 +4246,14 @@ def main() -> int:
     t_phase = phase_done("18 (path (k): RecurrentServer)", t_phase)
     q, k, v = cases[0][1]
     extras = phase_extras(egt, model, q, k, v, gpu)
-    phase_done("19 (export_compiled, load_compiled, save_hlo, profile)",
+    exported = export_generated(egt, gpu)
+    t_phase = phase_done("19 (export_compiled, load_compiled, save_hlo, "
+                         "profile)", t_phase)
+
+    # 20. multi-step and pipelined decode, a chunk one CUDA graph replay,
+    # with the counters at 0 just before each drive --------------------
+    path_l_run = path_l(egt, gpu)
+    phase_done("20 (path (l): decode_chunk and pipeline as CUDA graphs)",
                t_phase)
     j_launches = path_j_run["launches"]
     flash_launches = {"forward": launches + path_g_run["launches"]["forward"]
@@ -3850,7 +4263,13 @@ def main() -> int:
                       + path_g_run["launches"]["dq"] + j_launches["dq"],
                       "dkv": train_launches["dkv"]
                       + path_g_run["launches"]["dkv"] + j_launches["dkv"]}
-    mm_launches += extras["launches"]["B1"]
+    mm_launches += extras["launches"]["B1"] + exported["matmul"]
+    for kind in ("mapreduce", "rowchain"):
+        gen_launches[kind] += exported[kind]
+    print(f"exported plans with generated kernels (phase 19): launches "
+          f"{exported}; path (l) (phase 20): B7 launches "
+          f"{path_l_run['b7']} in {path_l_run['replays']} graph replays, "
+          f"capture seconds {path_l_run['captures']}")
     print(f"flash kernel launches: serving predict {launches} and train "
           f"{train_launches}, path (g) {path_g_run['launches']}, path (j) "
           f"{j_launches}, exported predict {extras['launches']['B2']}; in "
@@ -3936,7 +4355,8 @@ def main() -> int:
         dict(row("paged_decode_attention",
                  "exprgrad_torch/csrc/paged_attention.cu",
                  "exprgrad_tpu/ops/paged_attention.py:78",
-                 path_e_run["launches"] + path_i_run["b7"],
+                 path_e_run["launches"] + path_i_run["b7"]
+                 + path_l_run["b7"],
                  max(paged_err, verify_err, paged_times["bench"]["err"],
                      paged_times["verify"]["err"]),
                  paged_times["bench"]["kernel"],
@@ -3951,7 +4371,11 @@ def main() -> int:
                      "bound_by": paged_times["verify"]["bound"][1],
                      "library_ms": paged_times["verify"]["library"],
                      "device_ms": device_ms["B7 verify"],
-                     "library_device_ms": device_ms["B7 library verify"]}),
+                     "library_device_ms": device_ms["B7 library verify"]},
+             graph={"replays": path_l_run["replays"],
+                    "launches": path_l_run["b7"],
+                    "device_ms_per_launch": path_l_run["b7_ms_per_launch"],
+                    "busy": path_l_run["busy"]}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -29,10 +29,8 @@ where the JAX package fuses (ROADMAP.md C).
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from .. import ir
-from ..interp import accumulation_identity
 from .scheduled import is_scheduled
 
 # the most elements of one row a program holds in registers (16 warps
@@ -75,19 +73,11 @@ class RowChain:
         """The plain version: the members one after another through the
         port's own lowering; ``{tid: new value}`` of the final tensor and
         the escaping ones."""
-        local = dict(tensors)
-        for m in self.members:
-            tid = m.kernel.write.tensor
-            if tid not in local:  # a fused-away intermediate
-                low = m.low
-                local[tid] = torch.full(
-                    tuple(low.shapes[tid]),
-                    accumulation_identity(m.kernel.write.accumulate),
-                    dtype=low.dtype, device=low.device)
-            local[tid] = m.plain(local, epoch)
-        return {self.kernels[mi].write.tensor:
-                local[self.kernels[mi].write.tensor]
-                for mi in self.out_members}
+        from ..ops.generated import run_members
+
+        return run_members([m.low for m in self.members],
+                           [self.kernels[mi].write.tensor
+                            for mi in self.out_members], tensors, epoch)
 
     def lower(self, tensors: dict) -> dict:
         from ..ops.rowchain import rowchain_impl

@@ -645,9 +645,9 @@ class Model:
         tensors drawn with ``seed``) held by the program as buffers.
 
         A fresh executor is traced, so the model's own executors never
-        see the trace's tensors.  Refused: a target with no output, and
-        one whose plan launches a generated kernel (B5, B6), whose
-        Triton launch ``torch.export`` cannot trace."""
+        see the trace's tensors.  Kernels B1, B2, B5 and B6 stay in the
+        graph as their ``torch.library`` ops.  Refused: a target with no
+        output."""
         if target_name not in self.program.targets:
             raise ModelRuntimeError(
                 f"{target_name!r} is not a target of the model")
@@ -663,13 +663,6 @@ class Model:
         executor = TorchExecutor(self.program, target_name, shapes,
                                  self.device,
                                  schedule_mode=self.schedule_mode)
-        generated = executor.generated_kernels()
-        if generated:
-            raise ModelRuntimeError(
-                f"cannot export target {target_name!r}: its plan launches "
-                f"the generated kernel(s) {generated}, whose Triton launch "
-                "torch.export cannot trace (ROADMAP A15); compile with "
-                "schedule_mode='ignore' to export the plain lowering")
         state = {**self.params, **self.caches,
                  **executor.random_tensors(seed)}
         tids = [self.program.inputs[n] for n in names]
@@ -706,12 +699,14 @@ class Model:
         loads with :func:`exprgrad_torch.load_compiled`, with no graph,
         compiler or parameter files, and runs on the device it was
         exported on.  Kernels B1 and B2 stay in the artifact as the ops
-        ``exprgrad_torch::matmul`` and ``exprgrad_torch::flash_fwd``.
+        ``exprgrad_torch::matmul`` and ``exprgrad_torch::flash_fwd``, the
+        generated kernels B5 and B6 as ``exprgrad_torch::mapreduce`` and
+        ``exprgrad_torch::rowchain``, each holding its whole kernel
+        (Triton source, launch plan and IR) as a string argument.
         Returns the bytes, also written to ``path`` when given.
 
         A weight-quantized model is refused (export first, then
-        ``quantize_weights``), as is a target whose plan launches a
-        generated kernel (B5, B6)."""
+        ``quantize_weights``)."""
         if self._quantized_tids:
             raise ModelRuntimeError(
                 "cannot export_compiled a weight-quantized model (the "
@@ -742,8 +737,9 @@ class Model:
         the reference's LLVM bitcode dump): the ``torch.export`` graph of
         the executor run at ``input_shapes``, after
         ``run_decompositions()`` (to core ATen operators) when
-        ``optimized``.  Kernels B1 and B2 appear as the ops
-        ``exprgrad_torch::matmul`` and ``exprgrad_torch::flash_fwd``."""
+        ``optimized``.  Kernels B1, B2, B5 and B6 appear as the ops
+        ``exprgrad_torch::matmul``, ``exprgrad_torch::flash_fwd``,
+        ``exprgrad_torch::mapreduce`` and ``exprgrad_torch::rowchain``."""
         program = self._exported(target_name, input_shapes, 0)
         if optimized:
             program = program.run_decompositions()
@@ -859,6 +855,9 @@ def load_compiled(data):
     if isinstance(data, str):
         with open(data, "rb") as f:
             data = f.read()
+    # the generated kernels' ops must be registered before the load
+    from .ops import mapreduce, rowchain  # noqa: F401
+
     extra = {_ARTIFACT_META: ""}
     program = torch.export.load(io.BytesIO(data), extra_files=extra)
     meta = json.loads(extra[_ARTIFACT_META])

@@ -22,6 +22,43 @@ def check_top_p(top_p: Optional[float]) -> None:
         raise ModelRuntimeError(f"top_p must lie in (0, 1] (got {top_p})")
 
 
+def draw(probs: torch.Tensor, generator) -> torch.Tensor:
+    """One token a row from ``probs`` [b, vocab]: the argmax of ``probs /
+    q`` with ``q ~ Exp(1)``, which is how ``torch.multinomial`` draws one
+    sample (the same tokens from the same generator state), without its
+    check of the probabilities, which reads a value back to the host."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
+
+
+def sample_rows(logits, generator, temp, top_k, top_p, vocab: int):
+    """Per-row temperature, top-k and nucleus sampling with the
+    parameters as tensors [b] on the logits' device (``temp <= 0`` rows
+    take the argmax): device work only, no host decision and no read
+    back, so a CUDA graph can capture it."""
+    dev = logits.device
+    sampled = temp > 0.0
+    scale = torch.where(sampled, temp, torch.ones_like(temp))[:, None]
+    sl_in = logits.float() / scale
+    greedy = torch.argmax(sl_in, dim=-1)
+    sl = torch.sort(sl_in, dim=-1, descending=True).values
+    # top-k: threshold at the k-th logit where active
+    kk = top_k.long().clamp(1, vocab)
+    kth = torch.gather(sl, 1, kk[:, None] - 1)
+    k_on = (kk < vocab)[:, None]
+    filt = sl_in.masked_fill(k_on & (sl_in < kth), -torch.inf)
+    ranks = torch.arange(vocab, device=dev)[None, :]
+    sl = sl.masked_fill(k_on & (ranks >= kk[:, None]), -torch.inf)
+    # nucleus over the survivors: the smallest prefix reaching top_p
+    probs = torch.softmax(sl, dim=-1)
+    pp = top_p.float()[:, None]
+    keep = torch.cumsum(probs, dim=-1) - probs < pp
+    kth_p = torch.where(keep, sl, torch.inf).amin(dim=-1, keepdim=True)
+    filt = filt.masked_fill((pp < 1.0) & (filt < kth_p), -torch.inf)
+    drawn = draw(torch.softmax(filt, dim=-1), generator)
+    return torch.where(sampled, drawn, greedy)
+
+
 def make_row_picker(vocab: int):
     """Return ``pick(logits [b, vocab], generator, temp [b], top_k [b],
     top_p [b]) -> token ids [b]`` with per-row sampling parameters: one
@@ -35,34 +72,14 @@ def make_row_picker(vocab: int):
 
     def pick(logits, generator, temp, top_k, top_p):
         temp = np.asarray(temp, np.float32)
-        sampled = temp > 0.0
-        if not sampled.any():
+        if not (temp > 0.0).any():
             return torch.argmax(logits, dim=-1)
         dev = logits.device
-        scale = torch.as_tensor(np.where(sampled, temp, 1.0)[:, None],
-                                device=dev)
-        sl_in = logits.float() / scale
-        greedy = torch.argmax(sl_in, dim=-1)
-        sl = torch.sort(sl_in, dim=-1, descending=True).values
-        # top-k: threshold at the k-th logit where active
-        kk = torch.as_tensor(np.clip(np.asarray(top_k, np.int64), 1, vocab),
-                             device=dev)
-        kth = torch.gather(sl, 1, kk[:, None] - 1)
-        k_on = (kk < vocab)[:, None]
-        filt = sl_in.masked_fill(k_on & (sl_in < kth), -torch.inf)
-        ranks = torch.arange(vocab, device=dev)[None, :]
-        sl = sl.masked_fill(k_on & (ranks >= kk[:, None]), -torch.inf)
-        # nucleus over the survivors: the smallest prefix reaching top_p
-        probs = torch.softmax(sl, dim=-1)
-        pp = torch.as_tensor(np.asarray(top_p, np.float32)[:, None],
-                             device=dev)
-        keep = torch.cumsum(probs, dim=-1) - probs < pp
-        kth_p = torch.where(keep, sl, torch.inf).amin(dim=-1, keepdim=True)
-        filt = filt.masked_fill((pp < 1.0) & (filt < kth_p), -torch.inf)
-        drawn = torch.multinomial(torch.softmax(filt, dim=-1), 1,
-                                  generator=generator)[:, 0]
-        return torch.where(torch.as_tensor(sampled, device=dev), drawn,
-                           greedy)
+        return sample_rows(
+            logits, generator, torch.as_tensor(temp, device=dev),
+            torch.as_tensor(np.asarray(top_k, np.int64), device=dev),
+            torch.as_tensor(np.asarray(top_p, np.float32), device=dev),
+            vocab)
 
     return pick
 

@@ -40,8 +40,12 @@ rows draw from a ``torch.Generator`` seeded with ``seed``.
 :class:`~exprgrad_torch.models.Seq2SeqServer` (dense caches; plain and
 ``lookup=True`` rounds).
 
-Not ported yet (ROADMAP A13): ``decode_chunk > 1`` and ``pipeline``;
-they raise ``NotImplementedError``.
+``decode_chunk=N`` runs N decode steps a dispatch and ``pipeline=P``
+keeps P more chunk dispatches in flight, chained on the device, reading
+each chunk's tokens back only when it drains (the JAX package's
+multi-step scheduling; same streams as ``decode_chunk=1``).  On the card a
+chunk dispatch is one CUDA graph replay (``models/_chunk.py``); on the
+CPU its steps run eagerly.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ from ..ops.decode import KVCache
 from ..ops.paged import (gather_rows, gather_view, init_pool, write_prefill,
                          write_prefill_at, write_token)
 from ..utils.buckets import bucket_for, normalize_buckets
-from ._sample import check_top_p, make_row_picker
+from ._chunk import ChunkGraph, Pending
+from ._sample import check_top_p, make_row_picker, sample_rows
 from ._spec import lookup_propose
 
 
@@ -196,12 +201,6 @@ def _write_slot_rows(caches, minis, slot: int) -> None:
             big.v_scale[slot, :, :w] = m.v_scale[0]
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to exprgrad_torch yet (ROADMAP A13); the "
-        "JAX package's ContinuousBatcher has it")
-
-
 class ContinuousBatcher:
     """Iteration-level scheduler over a :class:`FlashLMServer`.
 
@@ -303,14 +302,32 @@ class ContinuousBatcher:
         if pipeline < 0:
             raise ModelRuntimeError(
                 f"pipeline must be >= 0 (got {pipeline})")
+        self.decode_chunk = int(decode_chunk)
         if pipeline and self._spec:
             raise ModelRuntimeError(
                 "pipeline= and speculation are mutually exclusive (the spec "
                 "round's acceptance is data-dependent per dispatch)")
-        if decode_chunk > 1:
-            raise _not_ported("multi-step decode (decode_chunk > 1)")
-        if pipeline:
-            raise _not_ported("pipelined decode (pipeline > 0)")
+        if pipeline and decode_chunk < 2:
+            raise ModelRuntimeError(
+                "pipeline= requires decode_chunk >= 2 (pipelining "
+                "amortizes the per-dispatch round trip over chunks)")
+        # pipelined chunked decode: keep `pipeline` extra chunk dispatches
+        # in flight, chained on the device on the previous dispatch's
+        # (tok, pos); the host reads a chunk's tokens back only when it
+        # drains.  Greedy streams equal pipeline=0 (rows are independent,
+        # tokens past a stop are fenced or discarded).  A stopped row
+        # wastes at most `pipeline` chunks of device work, and its slot
+        # is released only once the pipe drains.
+        self.pipeline = int(pipeline)
+        self._pipe: deque = deque()
+        self._pending_release: list = []
+        self._deferred_finished: list = []
+        self._pipe_draining = False
+        self._dev_tok = None
+        self._dev_pos = None
+        self._shadow_pos = None
+        # CUDA graphs of the chunk dispatch, by key; their capture seconds
+        self.chunk_graphs: dict = {}
         if prefill_chunk is not None:
             if not paged:
                 raise ModelRuntimeError(
@@ -472,6 +489,87 @@ class ContinuousBatcher:
             cache_io=io)
         return self._row_pick(logits[:, -1], self._gen, self.req_temp,
                               self.req_topk, self.req_topp)
+
+    def _chunk_steps(self, tok, pos, stop_at, table, temp, top_k, top_p,
+                     n=None, generator=None, sampled=False):
+        """``n`` (default ``decode_chunk``) decode steps for every slot on
+        device tensors — the body of a chunk dispatch, which a CUDA graph
+        captures: a row advances only while ``pos < stop_at``; a parked
+        row writes the trash page (paged, ``wpid`` read from the page
+        table on the device) or its own next slot (dense), masked by
+        position either way.  Returns (tokens [n, slots], final tok,
+        final pos)."""
+        srv = self.server
+        toks = []
+        for _ in range(self.decode_chunk if n is None else n):
+            alive = pos < stop_at
+            x = srv._embed_at(tok[:, None], pos[:, None])
+            if self.paged:
+                pg = self.page_size
+                entry = (pos // pg).clamp(max=table.shape[1] - 1)
+                wpid = torch.gather(table, 1, entry[:, None].long())[:, 0]
+                wpid = torch.where(alive, wpid, torch.zeros_like(wpid))
+                io = _make_paged_io(self.attention, table, wpid, pos % pg)
+                logits, _ = srv._step(
+                    x, self.caches, 0, q_pos=pos[:, None], cache_io=io,
+                    key_pos=_cursor_key_pos(
+                        self.pages_per_slot * pg, pos))
+            else:
+                logits, _ = srv._step(
+                    x, self.caches, 0, q_pos=pos[:, None], row_starts=pos,
+                    key_pos=_cursor_key_pos(self.capacity, pos))
+            if sampled:
+                nxt = sample_rows(logits[:, -1], generator, temp, top_k,
+                                  top_p, srv.vocab)
+            else:
+                nxt = torch.argmax(logits[:, -1], dim=-1)
+            toks.append(nxt)
+            tok = torch.where(alive, nxt.to(tok.dtype), tok)
+            pos = pos + alive.to(pos.dtype)
+        return torch.stack(toks), tok, pos
+
+    def _dispatch_chunk(self, stop_at, table, chained: bool) -> Pending:
+        """Issue one chunk dispatch from the host's ``last`` and ``pos``,
+        or, ``chained``, from the previous dispatch's device-side (tok,
+        pos); no read back.  On the card it is one replay of the chunk's
+        CUDA graph, captured on the first dispatch of its key; on the CPU
+        the steps run eagerly."""
+        s = self.slots
+        ints = np.concatenate([self.pos, stop_at, self.req_topk,
+                               table.reshape(-1)]).astype(np.int32)
+        floats = np.concatenate([self.last, self.req_temp,
+                                 self.req_topp]).astype(np.float32)
+        sampled = bool((self.req_temp > 0.0).any())
+        prev = (self._dev_tok, self._dev_pos) if chained else None
+        if self.device.type != "cuda":
+            dev = self.device
+            ti = torch.from_numpy(ints).to(dev)
+            tf = torch.from_numpy(floats).to(dev)
+            tok, pos = prev if chained else (tf[:s], ti[:s])
+            toks, self._dev_tok, self._dev_pos = self._chunk_steps(
+                tok, pos, ti[s:2 * s], ti[3 * s:].view(s, -1), tf[s:2 * s],
+                ti[2 * s:3 * s], tf[2 * s:], generator=self._gen,
+                sampled=sampled)
+            return Pending(toks.cpu())
+        key = ("cb_chunk", self.decode_chunk, self.paged, s,
+               self.pages_per_slot if self.paged else self.capacity,
+               self.pool_pages if self.paged else 0,
+               self.page_size if self.paged else 0, self.attention,
+               str(self.server.cache_dtype), sampled)
+        graph = self.chunk_graphs.get(key)
+        if graph is None:
+            gen = self._gen if sampled else None
+
+            def steps(*args, n=None):
+                return self._chunk_steps(*args, n=n, generator=gen,
+                                         sampled=sampled)
+
+            graph = ChunkGraph(steps, s, table.shape[1], self.caches,
+                               self.device, ints, floats, prev, gen)
+            self.chunk_graphs[key] = graph
+        pending = graph.launch(ints, floats, self.caches, prev)
+        self._dev_tok, self._dev_pos = graph.tok, graph.pos
+        return pending
 
     def _verify(self, tok, pos, props, wpid, woff):
         """The target's ``spec_k + 1``-wide step over each slot's pending
@@ -743,7 +841,8 @@ class ContinuousBatcher:
         Window models evict pages behind the attention band, also between
         prefill chunks, so their worst-case simultaneous residency is the
         band plus the largest write run between evictions: an admission
-        chunk or a dispatch."""
+        chunk, a decode chunk or a speculative round."""
+        margin = max(self.spec_k if self._spec else 0, self.decode_chunk)
         need = tokens.size + remaining - 1
         if self._spec:
             need += self.spec_k
@@ -753,8 +852,7 @@ class ContinuousBatcher:
         window = self.server.window
         if window is None:
             return full
-        burst = max(self.spec_k if self._spec else 1,
-                    self._admit_chunk() or 0)
+        burst = max(margin, self._admit_chunk() or 0)
         steady = self._pages_for(int(window) + burst + 1) + 2
         return min(full, steady)
 
@@ -975,9 +1073,15 @@ class ContinuousBatcher:
             "preemptions": req.preempted,
         })
         self.active[slot] = False
-        self._req[slot] = None
-        if self.paged:
-            self._free_slot_pages(slot)
+        if self._pipe_draining and self._pipe:
+            # dispatches in flight still write this slot's pages (their
+            # page-table snapshots predate the finish): quarantine the slot
+            # until the pipe drains, then release it
+            self._pending_release.append(slot)
+        else:
+            self._req[slot] = None
+            if self.paged:
+                self._free_slot_pages(slot)
         return (req.rid, np.asarray(req.out, np.int64))
 
     def _evict_window_pages(self, slot, frontier=None) -> None:
@@ -1037,12 +1141,125 @@ class ContinuousBatcher:
             return True
         return len(req.out) >= req.max_new
 
+    def _can_pipeline(self) -> bool:
+        """Chunk dispatches may be issued ahead only in steady state: every
+        resident slot decoding, nothing queued, nothing quarantined —
+        admissions and preemptions need a drained pipe (they re-chain
+        host-authoritative state)."""
+        return (not self.queue and not self._pending_release
+                and bool(self.active.any())
+                and all(self.active[s] or self._req[s] is None
+                        for s in range(self.slots)))
+
+    def _chunk_fence(self, start, chunk: int):
+        """Per-active-row absolute budget fence for a chunk dispatch whose
+        rows start at ``start``, and each row's last written position
+        inside the chunk span.  ``pos`` and ``len(out)`` advance in
+        lockstep, so the fence is the same for every in-flight chunk of a
+        request: the pipelined path's equality to the sequential one rests
+        on both computing it here."""
+        stop_at = start.copy()
+        upto = {}
+        for slot in range(self.slots):
+            if self.active[slot]:
+                req = self._req[slot]
+                stop_at[slot] = self.pos[slot] + req.max_new - len(req.out)
+                upto[slot] = int(min(int(start[slot]) + chunk,
+                                     int(stop_at[slot]))) - 1
+        return stop_at, upto
+
+    def _issue_chunk(self, chunk: int) -> bool:
+        """Issue one chunk dispatch chained on the previous one's
+        device-side (tok, pos): uploads only, no read back.  Returns False
+        (issuing nothing) when in-flight chunks already fence every active
+        row's budget, or when the pool cannot cover the chunk span without
+        preempting; the caller then takes the sequential path, which may
+        preempt."""
+        start = (self._shadow_pos if self._pipe else self.pos
+                 ).astype(np.int32).copy()
+        stop_at, upto = self._chunk_fence(start, chunk)
+        if not any(int(stop_at[s]) > int(start[s])
+                   for s in range(self.slots) if self.active[s]):
+            return False  # all budget already covered in flight
+        if self.paged:
+            needed = sum(
+                max(0, u // self.page_size + 1 - len(self.slot_pages[slot]))
+                for slot, u in upto.items())
+            if needed > len(self.free_pages):
+                return False
+            for slot, u in upto.items():
+                self._ensure_pages_upto(slot, u)
+            table = self.page_table.copy()
+        else:
+            table = np.zeros((self.slots, 1), np.int32)
+        chained = bool(self._pipe)
+        self._steps += chunk
+        self._dispatches += 1
+        pending = self._dispatch_chunk(stop_at, table, chained)
+        # the kernel's rule: pos += 1 while pos < stop_at
+        self._shadow_pos = np.minimum(
+            start + chunk, np.maximum(start, stop_at)).astype(np.int32)
+        self._pipe.append({"toks": pending, "start": start,
+                           "stop_at": stop_at, "active": self.active.copy()})
+        return True
+
+    def _pipelined_chunk_step(self, finished, issue: bool = True):
+        """Fill the pipe to ``1 + pipeline`` in-flight chunk dispatches,
+        then drain the oldest (its tokens: stop detection, budgets,
+        metrics).  Returns ``finished``, or None when nothing is in flight
+        and steady state does not hold: the caller falls through to the
+        sequential paths (admission, preemption, one dispatch)."""
+        chunk = self.decode_chunk
+        while (issue and self._can_pipeline()
+               and len(self._pipe) < 1 + self.pipeline):
+            if not self._issue_chunk(chunk):
+                break
+        if not self._pipe:
+            return None
+        entry = self._pipe.popleft()
+        toks = entry["toks"].tokens()
+        self._pipe_draining = True
+        try:
+            for slot in range(self.slots):
+                if not (entry["active"][slot] and self.active[slot]):
+                    continue
+                taken = min(chunk, int(entry["stop_at"][slot])
+                            - int(entry["start"][slot]))
+                self._apply_tokens(slot, toks[:taken, slot], finished)
+        finally:
+            self._pipe_draining = False
+        if not self.active.any():
+            # every row finished or was cancelled: no dispatch in flight
+            # is needed, so wait them out now and release the quarantined
+            # slots without further step() calls
+            while self._pipe:
+                self._pipe.popleft()["toks"].tokens()
+        if not self._pipe:
+            for slot in self._pending_release:
+                self._req[slot] = None
+                if self.paged:
+                    self._free_slot_pages(slot)
+            self._pending_release.clear()
+            self._dev_tok = self._dev_pos = self._shadow_pos = None
+        return finished
+
     def step(self):
         """One scheduler iteration: admit queued requests into free slots
-        (prefill + first token each), then run one batched decode step
-        for every active slot.  Returns the ``(request_id, tokens)``
-        pairs that completed this iteration."""
+        (prefill + first token each), then run one batched decode
+        dispatch for every active slot (``decode_chunk`` steps).  Returns
+        the ``(request_id, tokens)`` pairs that completed this
+        iteration."""
         finished = []
+        if self._deferred_finished:
+            finished.extend(self._deferred_finished)
+            self._deferred_finished.clear()
+
+        # 0) dispatches in flight while steady state broke (a submission
+        # arrived, or a finished slot is quarantined): drain before any
+        # admission, which the device-chained dispatches would not see
+        if self._pipe and not self._can_pipeline():
+            self._pipelined_chunk_step(finished)
+            return finished
 
         # 1) reserve free slots for queued requests
         for slot in range(self.slots):
@@ -1106,7 +1323,19 @@ class ContinuousBatcher:
             self._spec_step(finished)
             return finished
 
-        # 2') one decode step for the whole slot batch
+        # 2a) pipelined chunks: keep `pipeline` more chunk dispatches in
+        # flight (chained on the device), drain the oldest
+        if self.pipeline and self.active.any():
+            res = self._pipelined_chunk_step(finished)
+            if res is not None:
+                return res
+
+        # 2b) one chunk dispatch for the whole slot batch
+        if self.active.any() and self.decode_chunk > 1:
+            self._chunk_step(finished)
+            return finished
+
+        # 2c) one decode step for the whole slot batch
         if self.active.any():
             self._steps += 1
             self._dispatches += 1
@@ -1130,6 +1359,30 @@ class ContinuousBatcher:
                 if self.active[slot]:
                     self._apply_tokens(slot, nxt[slot:slot + 1], finished)
         return finished
+
+    def _chunk_step(self, finished) -> None:
+        """One chunk dispatch, read back at once: pages for every row's
+        whole chunk span first (which may preempt), then the fence, then
+        each active row's tokens up to its fence."""
+        chunk = self.decode_chunk
+        if self.paged:
+            _, upto = self._chunk_fence(self.pos.copy(), chunk)
+            for slot, u in upto.items():
+                if self.active[slot]:  # an ensure may preempt mid-loop
+                    self._ensure_pages_upto(slot, u)
+        # after the pages: a preempted row is parked (fence = pos), so the
+        # dispatch never writes its freed pages
+        stop_at, _ = self._chunk_fence(self.pos.copy(), chunk)
+        table = (self.page_table.copy() if self.paged
+                 else np.zeros((self.slots, 1), np.int32))
+        self._steps += chunk
+        self._dispatches += 1
+        toks = self._dispatch_chunk(stop_at, table, chained=False).tokens()
+        for slot in range(self.slots):
+            if not self.active[slot]:
+                continue
+            taken = min(chunk, int(stop_at[slot]) - int(self.pos[slot]))
+            self._apply_tokens(slot, toks[:taken, slot], finished)
 
     def _spec_step(self, finished) -> None:
         """Dispatch one speculative round and apply each active slot's
@@ -1167,14 +1420,16 @@ class ContinuousBatcher:
         returns ``{request_id: np.ndarray of generated tokens}``."""
         out = {}
         while (self.queue or self.active.any()
-               or any(r is not None for r in self._req)):
+               or any(r is not None for r in self._req)
+               or self._deferred_finished or self._pipe):
             for rid, toks in self.step():
                 out[rid] = toks
         return out
 
     def cancel(self, rid) -> bool:
         """Abort a request (client disconnect): drop it from the queue, or
-        free its slot and pages at once if resident.  Returns whether
+        free its slot and pages at once if resident (after draining the
+        dispatches in flight, which still write them).  Returns whether
         anything was cancelled; finished requests return False.
         Cancelled requests produce no result and no metrics record."""
         for i, req in enumerate(self.queue):
@@ -1184,6 +1439,14 @@ class ContinuousBatcher:
         for slot in range(self.slots):
             req = self._req[slot]
             if req is not None and req.rid == rid:
+                if self._pipe:
+                    # requests that finish during this drain surface on
+                    # the next step()
+                    while self._pipe:
+                        self._pipelined_chunk_step(
+                            self._deferred_finished, issue=False)
+                    if self._req[slot] is None or self._req[slot].rid != rid:
+                        return False  # finished during the drain
                 self.active[slot] = False
                 self._req[slot] = None
                 if self.paged:

@@ -29,10 +29,12 @@ per kernel, once per executor, from the plan of
   same bits on every run.
 
 bfloat16 operands are loaded, computed in float32 and stored once.
-:func:`mapreduce_impl` launches the kernel for CUDA tensors and raises on
-any other device but the CPU, where it runs the plain version: the
-port's own lowering of the same IR kernel (whole-tensor einsum and gather
-code), which shares nothing with the emitter.
+:func:`mapreduce_impl` goes through the ``torch.library`` op
+``exprgrad_torch::mapreduce`` (so an exported program keeps it): CUDA
+tensors launch the kernel, any other device but the CPU raises, and the
+CPU runs the plain version: the port's own lowering of the same IR kernel
+(whole-tensor einsum and gather code), which shares nothing with the
+emitter.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 from ..interp import accumulation_identity
 from ..ir import Op
 from ..utils import triton_build
+from . import generated
 
 # kernel launches since the last reset; chip_smoke.py reads it to prove
 # the main path ran through the kernel
@@ -908,7 +911,10 @@ def _bytes(low, kernel, fresh: bool) -> int:
 
 class MapReduceKernel:
     """One generated B5 kernel: its source, operands and launch plan, and
-    the plain version of the same IR kernel."""
+    the plain version of the same IR kernel.  ``spec`` is the whole
+    kernel as one string (:mod:`exprgrad_torch.ops.generated`), the
+    argument of the op ``exprgrad_torch::mapreduce``; ``args`` the tensor
+    ids the op takes, the output's previous value first."""
 
     def __init__(self, mr):
         self.source, self.tids, self.plan = emit_mapreduce(mr)
@@ -918,9 +924,60 @@ class MapReduceKernel:
         self.fresh = mr.low.fresh_output
         self.dtype = mr.low.dtype
         self.plain = mr.plain
+        self._caches()
+        reads = {r.tensor for r in mr.kernel.reads}
+        self.args = [self.out_tid] + sorted(
+            (reads | set(self.tids)) - {self.out_tid})
+        self.spec = generated.encode(dict(
+            generated.ir_fields([mr.low]), kind="mapreduce",
+            source=self.source, tids=self.tids, plan=_plan_out(self.plan),
+            out_tid=self.out_tid, mode=self.mode, scatter=self.scatter,
+            fresh=self.fresh, args=self.args))
+        generated.register(mr.low.device, self.spec, self)
+
+    def _caches(self):
         self.handles = {}  # function name -> loaded Triton kernel
         self.rows = {}  # device -> a scatter's rows 0..K (group)
         self.counts = {}  # device -> a scatter's piece counts (scatter)
+
+    @classmethod
+    def from_spec(cls, spec: str) -> "MapReduceKernel":
+        """The kernel of a spec string, in a process that may never have
+        planned it (a loaded artifact): the same source and plan, and the
+        plain version rebuilt from the IR."""
+        fields = generated.decode(spec)
+        kern = cls.__new__(cls)
+        kern.source, kern.tids = fields["source"], fields["tids"]
+        kern.plan = _plan_in(fields["plan"])
+        kern.out_tid, kern.mode = fields["out_tid"], fields["mode"]
+        kern.scatter, kern.fresh = fields["scatter"], fields["fresh"]
+        kern.dtype = getattr(torch, fields["dtype"])
+        kern.args, kern.spec = fields["args"], spec
+        kern._caches()
+        lowerings = generated.plain_from_fields(fields)
+
+        def plain(tensors, epoch):
+            device = tensors[kern.out_tid].device
+            return lowerings(device)[0].run_plain(tensors, epoch)
+
+        kern.plain = plain
+        return kern
+
+
+def _plan_out(plan: dict) -> dict:
+    """A launch plan as JSON: dtypes by name."""
+    return {k: str(v).split(".")[-1] if isinstance(v, torch.dtype) else v
+            for k, v in plan.items()}
+
+
+def _plan_in(plan: dict) -> dict:
+    """:func:`_plan_out` read back: grids as tuples, dtypes as dtypes."""
+    out = dict(plan)
+    if isinstance(out["grid"], list):
+        out["grid"] = tuple(out["grid"])
+    if "key_dtype" in out:
+        out["key_dtype"] = getattr(torch, out["key_dtype"])
+    return out
 
 
 def mapreduce_plain(kern: MapReduceKernel, tensors: dict, epoch: int):
@@ -984,18 +1041,39 @@ def scatter(kern: MapReduceKernel, out, prevs, ops, epoch: int) -> None:
 
 def mapreduce_impl(kern: MapReduceKernel, tensors: dict,
                    epoch: int) -> torch.Tensor:
-    """The new value of the kernel's output tensor.  CUDA tensors launch
-    the generated kernel or raise; CPU tensors run the plain version."""
+    """The new value of the kernel's output tensor, through the op
+    ``exprgrad_torch::mapreduce``: CUDA tensors launch the generated
+    kernel or raise; CPU tensors run the plain version."""
     prev = tensors[kern.out_tid]
-    if prev.device.type == "cpu":
-        return mapreduce_plain(kern, tensors, epoch)
-    if prev.device.type != "cuda":
+    if prev.device.type not in ("cpu", "cuda"):
         raise ValueError(
             f"the map/reduce kernel runs on CUDA tensors, not on "
             f"{prev.device}")
+    return _MAPREDUCE(kern.spec, [tensors[t] for t in kern.args],
+                      int(epoch))
+
+
+def _kernel_of(spec: str, device) -> MapReduceKernel:
+    return generated.lookup(device, spec, MapReduceKernel.from_spec)
+
+
+def _mapreduce_cpu(spec, tensors, epoch):
+    """The CPU implementation of ``exprgrad_torch::mapreduce``: the plain
+    version."""
+    kern = _kernel_of(spec, tensors[0].device)
+    return generated.fresh(
+        mapreduce_plain(kern, dict(zip(kern.args, tensors)), epoch),
+        tensors)
+
+
+def _mapreduce_cuda(spec, tensors, epoch):
+    """The CUDA implementation of ``exprgrad_torch::mapreduce``: one
+    launch of the generated kernel (a scatter's keys and walk), counted."""
+    prev = tensors[0]
+    kern = _kernel_of(spec, prev.device)
     if kern.dtype not in _TL_DTYPE or prev.dtype != kern.dtype:
         raise ValueError(f"the map/reduce kernel cannot store {prev.dtype}")
-    ops = _operands(kern, tensors, prev.device)
+    ops = _operands(kern, dict(zip(kern.args, tensors)), prev.device)
     plan = kern.plan
     out = torch.empty_like(prev, memory_format=torch.contiguous_format)
     prevs = () if kern.fresh else (prev.contiguous(),)
@@ -1008,3 +1086,17 @@ def mapreduce_impl(kern: MapReduceKernel, tensors: dict,
     global launches
     launches += 1
     return out
+
+
+def _mapreduce_fake(spec, tensors, epoch):
+    return torch.empty_like(tensors[0], memory_format=torch.contiguous_format)
+
+
+generated.LIB.define(
+    "mapreduce(str spec, Tensor[] tensors, int epoch) -> Tensor")
+generated.LIB.impl("mapreduce", _mapreduce_cpu, "CPU")
+generated.LIB.impl("mapreduce", _mapreduce_cuda, "CUDA")
+torch.library.register_fake("exprgrad_torch::mapreduce", _mapreduce_fake,
+                            lib=generated.LIB)
+# the overload's C++ callable, as ``ops.matmul._MATMUL``
+_MAPREDUCE = torch.ops.exprgrad_torch.mapreduce.default._op

@@ -13,9 +13,11 @@ each escaping intermediate, combined with its previous value.  The row
 ops it fuses are bound by bytes: the input is read once instead of once
 per member.
 
-:func:`rowchain_impl` launches the kernel for CUDA tensors and raises on
-any other device but the CPU, where it runs the plain version: the
-members one after another through the port's own lowering.
+:func:`rowchain_impl` goes through the ``torch.library`` op
+``exprgrad_torch::rowchain`` (so an exported program keeps it): CUDA
+tensors launch the kernel, any other device but the CPU raises, and the
+CPU runs the plain version: the members one after another through the
+port's own lowering.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..utils import triton_build
+from . import generated
 from .mapreduce import (HEADER, _COMBINE, _REDUCE, _TL_DTYPE, Emitter,
                         Scope, _operands, contiguous_strides, identity_lit,
                         index_type, iterators, lit, pow2, program_ids)
@@ -143,7 +146,10 @@ def emit_rowchain(chain) -> tuple[str, list[int], dict]:
 
 class RowChainKernel:
     """One generated B6 kernel: its source, operands, outputs and launch
-    plan, and the plain version of the same chain."""
+    plan, and the plain version of the same chain.  ``spec`` is the whole
+    kernel as one string (:mod:`exprgrad_torch.ops.generated`), the
+    argument of the op ``exprgrad_torch::rowchain``; ``args`` the tensor
+    ids the op takes, the outputs' previous values first."""
 
     def __init__(self, chain):
         self.source, self.tids, self.plan = emit_rowchain(chain)
@@ -154,6 +160,38 @@ class RowChainKernel:
         self.dtype = chain.members[0].low.dtype
         self.plain = chain.plain
         self.handles = {}  # function name -> loaded Triton kernel
+        written = {k.write.tensor for k in chain.kernels}
+        reads = {r.tensor for k in chain.kernels for r in k.reads}
+        self.args = self.out_tids + sorted(
+            ((reads - written) | set(self.tids)) - set(self.out_tids))
+        lows = [m.low for m in chain.members]
+        self.spec = generated.encode(dict(
+            generated.ir_fields(lows), kind="rowchain", source=self.source,
+            tids=self.tids, plan=self.plan, out_tids=self.out_tids,
+            fresh=self.fresh, args=self.args))
+        generated.register(lows[0].device, self.spec, self)
+
+    @classmethod
+    def from_spec(cls, spec: str) -> "RowChainKernel":
+        """The kernel of a spec string, in a process that may never have
+        planned it (a loaded artifact): the same source and plan, and the
+        plain version rebuilt from the members' IR."""
+        fields = generated.decode(spec)
+        kern = cls.__new__(cls)
+        kern.source, kern.tids = fields["source"], fields["tids"]
+        kern.plan, kern.out_tids = fields["plan"], fields["out_tids"]
+        kern.fresh, kern.args = fields["fresh"], fields["args"]
+        kern.dtype = getattr(torch, fields["dtype"])
+        kern.spec, kern.handles = spec, {}
+        lowerings = generated.plain_from_fields(fields)
+
+        def plain(tensors, epoch):
+            device = tensors[kern.out_tids[0]].device
+            return generated.run_members(lowerings(device), kern.out_tids,
+                                         tensors, epoch)
+
+        kern.plain = plain
+        return kern
 
 
 def rowchain_plain(kern: RowChainKernel, tensors: dict, epoch: int) -> dict:
@@ -164,20 +202,41 @@ def rowchain_plain(kern: RowChainKernel, tensors: dict, epoch: int) -> dict:
 
 def rowchain_impl(kern: RowChainKernel, tensors: dict, epoch: int) -> dict:
     """``{tid: new value}`` of the chain's final tensor and escaping
-    intermediates.  CUDA tensors launch the generated kernel or raise;
-    CPU tensors run the plain version."""
-    prevs = [tensors[t] for t in kern.out_tids]
-    device = prevs[0].device
-    if device.type == "cpu":
-        return rowchain_plain(kern, tensors, epoch)
-    if device.type != "cuda":
+    intermediates, through the op ``exprgrad_torch::rowchain``: CUDA
+    tensors launch the generated kernel or raise; CPU tensors run the
+    plain version."""
+    device = tensors[kern.out_tids[0]].device
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(
             f"the row-chain kernel runs on CUDA tensors, not on {device}")
+    outs = _ROWCHAIN(kern.spec, [tensors[t] for t in kern.args],
+                     len(kern.out_tids), int(epoch))
+    return dict(zip(kern.out_tids, outs))
+
+
+def _kernel_of(spec: str, device) -> RowChainKernel:
+    return generated.lookup(device, spec, RowChainKernel.from_spec)
+
+
+def _rowchain_cpu(spec, tensors, n_out, epoch):
+    """The CPU implementation of ``exprgrad_torch::rowchain``: the plain
+    version."""
+    kern = _kernel_of(spec, tensors[0].device)
+    got = rowchain_plain(kern, dict(zip(kern.args, tensors)), epoch)
+    return [generated.fresh(got[t], tensors) for t in kern.out_tids]
+
+
+def _rowchain_cuda(spec, tensors, n_out, epoch):
+    """The CUDA implementation of ``exprgrad_torch::rowchain``: one
+    launch of the generated kernel, counted."""
+    prevs = list(tensors[:n_out])
+    device = prevs[0].device
+    kern = _kernel_of(spec, device)
     if kern.dtype not in _TL_DTYPE or any(p.dtype != kern.dtype
                                           for p in prevs):
         raise ValueError(f"the row-chain kernel cannot store "
                          f"{[p.dtype for p in prevs]}")
-    ops = _operands(kern, tensors, device)
+    ops = _operands(kern, dict(zip(kern.args, tensors)), device)
     outs = [torch.empty_like(p, memory_format=torch.contiguous_format)
             for p in prevs]
     pairs = [t for out, prev, fresh in zip(outs, prevs, kern.fresh)
@@ -187,4 +246,19 @@ def rowchain_impl(kern: RowChainKernel, tensors: dict, epoch: int) -> dict:
                         *pairs, *ops)
     global launches
     launches += 1
-    return dict(zip(kern.out_tids, outs))
+    return outs
+
+
+def _rowchain_fake(spec, tensors, n_out, epoch):
+    return [torch.empty_like(t, memory_format=torch.contiguous_format)
+            for t in tensors[:n_out]]
+
+
+generated.LIB.define("rowchain(str spec, Tensor[] tensors, int n_out, "
+                     "int epoch) -> Tensor[]")
+generated.LIB.impl("rowchain", _rowchain_cpu, "CPU")
+generated.LIB.impl("rowchain", _rowchain_cuda, "CUDA")
+torch.library.register_fake("exprgrad_torch::rowchain", _rowchain_fake,
+                            lib=generated.LIB)
+# the overload's C++ callable, as ``ops.matmul._MATMUL``
+_ROWCHAIN = torch.ops.exprgrad_torch.rowchain.default._op

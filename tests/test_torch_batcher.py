@@ -415,14 +415,6 @@ def test_step_with_positions_matches_jax(model):
     np.testing.assert_allclose(got2.numpy(), np.asarray(want2), **STEP_TOL)
 
 
-@pytest.mark.parametrize("kw", [dict(decode_chunk=2), dict(pipeline=1)],
-                         ids=["decode_chunk", "pipeline"])
-def test_unported_options_raise(kw):
-    _, tsrv = _servers()
-    with pytest.raises(NotImplementedError, match="A13"):
-        ContinuousBatcher(tsrv, slots=2, capacity=64, **kw)
-
-
 def test_validation_matches_jax():
     jsrv, tsrv = _servers()
     for cls, srv, err in ((JaxBatcher, jsrv, eg.ModelRuntimeError),

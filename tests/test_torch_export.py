@@ -17,8 +17,11 @@ extern-attention predict), run on the port on the CPU:
 * RANDOM tensors are fixed to the export's ``seed``;
 * ``profile`` writes a Chrome trace into ``logdir``;
 * refusals: a weight-quantized model and a target with no output (as
-  the JAX package), and a target whose plan launches a generated kernel
-  (B5, B6: ROADMAP C).
+  the JAX package);
+* a plan that launches a generated kernel (B6, B5) exports: the graph
+  holds ``exprgrad_torch::rowchain`` or ``exprgrad_torch::mapreduce``,
+  ``save_hlo`` names it, and the artifact equals ``model.call`` here and
+  in a fresh process that imports only exprgrad_torch.
 """
 
 import io
@@ -186,37 +189,72 @@ def test_refusals(flash_pair):
         port.export_compiled("nope", {"tokens": [2, 8]})
 
 
-def test_generated_kernels_are_refused_by_name():
-    """A plan that launches B5 or B6 is refused, naming the kernels
-    (ROADMAP C); the same program under ``schedule_mode="ignore"``
-    exports its plain lowering."""
-    def softmax_rows(m):
-        x = m.input("x")
-        return m.layers.softmax(x, rank=2, row_tile=8).target("out")
+def _softmax_rows(m):
+    """One B6 launch: softmax over rows, a chain of three kernels."""
+    x = m.input("x")
+    return m.layers.softmax(x, rank=2, row_tile=8).target("out")
+
+
+def _rowsum(m):
+    """One B5 launch: a scheduled reduction."""
+    y, c = m.iters("y", "c")
+    out = m.Fun("out")
+    out[y] = m.exp(m.input("x")[y, c])
+    out.schedule(tile={"y": 8})
+    return out.target("out")
+
+
+_LOAD_IN_CHILD = """
+import sys
+import numpy as np
+import exprgrad_torch as egt
+args = dict(np.load(sys.argv[2]))
+got = egt.load_compiled(sys.argv[1])(args)
+np.save(sys.argv[3], got.numpy())
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "exprgrad_tpu")))
+"""
+
+
+@pytest.mark.parametrize("build,stat,op", [
+    (_softmax_rows, "rowchain", "exprgrad_torch.rowchain"),
+    (_rowsum, "mapreduce", "exprgrad_torch.mapreduce"),
+], ids=["B6 softmax", "B5 reduction"])
+def test_generated_kernels_export(build, stat, op, tmp_path):
+    """A plan that launches B5 or B6 exports (ROADMAP A15): the graph
+    holds the op ``exprgrad_torch::rowchain`` or ``::mapreduce`` (the
+    generated kernel on the card, its plain version here), ``save_hlo``
+    names it, and the artifact equals ``model.call`` in this process and
+    in a fresh one that imports only exprgrad_torch."""
+    import subprocess
+    import sys
 
     x = np.random.default_rng(1).normal(size=(16, 32)).astype(np.float32)
-    forced = egt.compile(softmax_rows(egt), device="cpu",
-                         schedule_mode="force")
-    forced.call("out", {"x": x})
-    assert forced.lowering_stats("out").get("rowchain") == 1
-    with pytest.raises(ModelRuntimeError, match="B6"):
-        forced.export_compiled("out", {"x": [16, 32]})
-
-    def rowsum(m):
-        y, c = m.iters("y", "c")
-        out = m.Fun("out")
-        out[y] = m.exp(m.input("x")[y, c])
-        out.schedule(tile={"y": 8})
-        return out.target("out")
-
-    b5 = egt.compile(rowsum(egt), device="cpu", schedule_mode="force")
-    b5.call("out", {"x": x})
-    assert b5.lowering_stats("out") == {"mapreduce": 1}
-    with pytest.raises(ModelRuntimeError, match="B5"):
-        b5.export_compiled("out", {"x": [16, 32]})
-    plain = egt.compile(softmax_rows(egt), device="cpu",
-                        schedule_mode="ignore")
-    got = egt.load_compiled(plain.export_compiled("out", {"x": [16, 32]}))
-    np.testing.assert_allclose(_np(got({"x": x})),
-                               forced.call("out", {"x": x}), rtol=1e-5,
-                               atol=1e-6)
+    model = egt.compile(build(egt), device="cpu", schedule_mode="force")
+    want = model.call("out", {"x": x})
+    assert model.lowering_stats("out") == {stat: 1}
+    (ex,) = model._executors.values()
+    assert len(ex.generated_kernels()) == 1
+    path = tmp_path / "out.egc"
+    data = model.export_compiled("out", {"x": [16, 32]}, path=str(path))
+    program = torch.export.load(io.BytesIO(data))
+    ops = {str(n.target) for n in program.graph.nodes
+           if n.op == "call_function"}
+    assert f"{op}.default" in ops, ops
+    np.testing.assert_allclose(_np(egt.load_compiled(data)({"x": x})), want,
+                               rtol=1e-5, atol=1e-6)
+    hlo = tmp_path / "out.txt"
+    model.save_hlo(str(hlo), "out", {"x": [16, 32]})
+    assert f"torch.ops.{op}.default" in hlo.read_text()
+    np.savez(tmp_path / "args.npz", x=x)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.dirname(egt.__file__))]
+        + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    run = subprocess.run(
+        [sys.executable, "-c", _LOAD_IN_CHILD, str(path),
+         str(tmp_path / "args.npz"), str(tmp_path / "got.npy")],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert run.returncode == 0, run.stderr
+    assert run.stdout.strip() == "[]", run.stdout
+    np.testing.assert_allclose(np.load(tmp_path / "got.npy"), want,
+                               rtol=1e-5, atol=1e-6)
