@@ -45,17 +45,28 @@ Phases (any failed check raises and the script exits non-zero):
    4096^3, ragged 30x50x70 and 1000^3, a transposed store, each extra
    operand pattern of the epilogue (row bias, col broadcast, full
    residual, with relu and select; the residual also at 4095x4097x33)
-   and bfloat16 inputs, and time it at 4096^3 beside torch.matmul (TF32
-   off);
+   and bfloat16 inputs, at its default block, and at every other block
+   of its lattice (exprgrad_torch.ops.matmul.BLOCKS) against the default
+   block's bits; time it at 4096^3 beside torch.matmul (TF32 off), and
+   each block at 4096^3 float32 and 1024^3 bfloat16 beside torch.matmul
+   and the bound;
 7. path (a): c[y,x] = a[y,it]*b[it,x] at 4096^3 float32 with
-   schedule(tile 512), compiled with schedule_mode="force": one kernel
-   launch per call, lowering {"matmul": 1}, the product against
-   torch.matmul in float64;
+   schedule(tile 512) and with schedule(tile 128), compiled with
+   schedule_mode="force": one kernel launch per call at the block
+   block_for gives, lowering {"matmul": 1}, the product against
+   torch.matmul in float64; then Model.autotune of the tile-512 model:
+   its TuneReport, the tuned call against float64 (B1 once a call at
+   the tuned block, or never where the plain lowering won), and
+   export_tuning -> apply_tuning on a fresh compile giving the same
+   blocks and bits;
 8. path (b): a scheduled MLP at the flash_transformer FFN width (dense
    512->2048, relu, dense 2048->512, residual add, squared error, adam)
    on [2048, 512] rows: predict folds bias, relu and the residual into
    two kernel launches (matmul-fused 2) and matches the CPU port; three
-   fit steps agree with the CPU port; the time of a train step;
+   fit steps agree with the CPU port; the time of a train step; then
+   Model.autotune of the train step: the parameters unchanged, B1 on
+   the kernels that kept a schedule, and two tuned steps against two
+   untuned ones from the same state by phase 5's rule;
 9. hold the generated map/reduce kernel (B5) and fused row chain (B6)
    against their plain versions (the port's own lowering of the same
    IR, schedule_mode="ignore") on the card: one program per family of
@@ -275,6 +286,7 @@ MATMUL_BF16_OUT = dict(rtol=1e-2, atol=1e-2)
 # float32 outside the tensor cores, TF32 on the tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # float32 products at float32's accuracy on the tensor cores: split TF32
 # runs three TF32 products per product (csrc/tf32x3.cuh), so the bound of
@@ -288,6 +300,10 @@ TRAIN_SEQS, TRAIN_EPOCHS, TIMED_STEPS = 32, 3, 5
 # the scheduled paths: the repo's matmul cell (bench.py) and an MLP at
 # the serving model's FFN width on 8 x 256 token rows
 MATMUL_N, MATMUL_TILE = 4096, 512
+# path (a) also at the tile of the kernel's default block; phase 6 times
+# every block at 4096^3 float32 and at this bfloat16 size
+MATMUL_TILE_SMALL = 128
+BLOCK_BF16_N = 1024
 MLP = dict(dim=512, hidden=2048, tile=128)
 MLP_ROWS, MLP_STEPS = 2048, 3
 # the map/reduce cells of bench.py, and the flash_transformer head at the
@@ -1429,8 +1445,11 @@ def transformer_head(m, dim, vocab, eta=1e-3):
 
 
 def check_matmul_kernel(gen, dev) -> float:
-    """Phase 6: the kernel against its plain version at every case;
-    returns the max |error| at 4096^3."""
+    """Phase 6: the kernel at its default block against its plain version
+    at every case, and at every other block of its lattice against the
+    default block's bits (each block sums every output element's k terms
+    in the same order, csrc/matmul.cuh); returns the max |error| at
+    4096^3."""
     from exprgrad_torch.ops import matmul
 
     relu_row = epilogue([("extra", 1, 0, 0, 0), ("add", 2, 0, 1, 0),
@@ -1480,8 +1499,15 @@ def check_matmul_kernel(gen, dev) -> float:
         torch.testing.assert_close(got.double(), want.double(), **tol,
                                    msg=lambda msg: f"matmul {name}: {msg}")
         err = (got.double() - want.double()).abs().max().item()
+        for block in matmul.BLOCKS:
+            other = matmul.matmul_impl(a, b, out_dt, prog, extra, transposed,
+                                       block)
+            torch.cuda.synchronize()
+            assert torch.equal(other, got), (name, block, (
+                other.double() - got.double()).abs().max().item())
         print(f"kernel check matmul {name}: max |err| {err:.3e} "
-              f"(rtol {tol['rtol']}, atol {tol['atol']:.3e})")
+              f"(rtol {tol['rtol']}, atol {tol['atol']:.3e}); the "
+              f"{len(matmul.BLOCKS)} blocks give the same bits")
         if worst is None:
             worst = err
     return worst
@@ -1511,37 +1537,164 @@ def time_matmul(gen, dev, n, gpu) -> dict:
     return out
 
 
-def path_a(egt, matmul, gpu) -> int:
-    """Phase 7: the matmul cell through compile(schedule_mode="force")."""
-    model = egt.compile(matmul_graph(egt, MATMUL_TILE), seed=0,
-                        schedule_mode="force", device="cuda")
+def time_matmul_blocks(gen, dev, gpu) -> dict:
+    """Phase 6: the kernel at every block of its lattice at 4096^3 float32
+    and 1024^3 bfloat16 (bfloat16 out), beside torch.matmul (TF32 off)
+    and the bound, in turns: {shape: {"blocks": {block: ms}, "library":
+    ms, "bound": (ms, by)}}."""
+    from exprgrad_torch.ops import matmul
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for n, dtype in ((MATMUL_N, torch.float32),
+                     (BLOCK_BF16_N, torch.bfloat16)):
+        a = torch.randn(n, n, generator=gen, device=dev).to(dtype)
+        b = torch.randn(n, n, generator=gen, device=dev).to(dtype)
+        iters = 10 if n > 2048 else 50
+        times = {block: [] for block in matmul.BLOCKS}
+        library = []
+        for turn in range(2):
+            library.append(cuda_ms(lambda: torch.matmul(a, b), iters=iters,
+                                   warmup=2))
+            order = matmul.BLOCKS if turn == 0 else matmul.BLOCKS[::-1]
+            for block in order:
+                times[block].append(cuda_ms(
+                    lambda: matmul.matmul_impl(a, b, block=block),
+                    iters=iters, warmup=2))
+        size = 4 if dtype == torch.float32 else 2
+        rate = (SPLIT_TF32 if dtype == torch.float32
+                else dict(rate=PEAK_BF16_FLOPS))
+        name = f"{n}^3 {'f32' if size == 4 else 'bf16'}"
+        out[name] = {
+            "blocks": {"x".join(map(str, block)): sum(v) / len(v)
+                       for block, v in times.items()},
+            "library": sum(library) / len(library),
+            "bound": bound(2.0 * n ** 3, 3 * n * n * size, **rate)}
+        best = min(out[name]["blocks"], key=out[name]["blocks"].get)
+        print(f"matmul {name} by block (ms, mean of 2 turns): "
+              f"{ {k: round(v, 4) for k, v in out[name]['blocks'].items()} }"
+              f"; fastest {best}; torch.matmul {out[name]['library']:.4f} "
+              f"ms (runs {library}); bound {out[name]['bound'][0]:.4f} ms "
+              f"({out[name]['bound'][1]}) on {gpu}")
+    return out
+
+
+def b1_blocks(model, target) -> dict:
+    """{kernel index: the block ``(bm, bn, bk)``} of every kernel of
+    ``target`` that the model's executors launch kernel B1 for."""
+    out = {}
+    for (name, _), ex in model._executors.items():
+        if name != target:
+            continue
+        for i, kernel in enumerate(ex.target.kernels):
+            if i in ex.fused:
+                sm = ex.fused[i][0]
+            elif (i not in ex._skip_kernels and i in ex._lowerings
+                  and ex._lowerings[i].scheduled_route() == "matmul"):
+                sm = ex._lowerings[i].scheduled_matmul()
+            else:
+                continue
+            out[i] = (sm.bm, sm.bn, sm.bk)
+    return out
+
+
+def stripped(report) -> set:
+    """The kernels for which a TuneReport chose the plain lowering (no
+    schedule left); B1 still runs the others it ran before tuning."""
+    from exprgrad_torch.autotune import STRIP_LABEL
+
+    return {e.kernel_index for e in report.entries
+            if e.chosen["label"] == STRIP_LABEL}
+
+
+def path_a(egt, matmul, gpu) -> dict:
+    """Phase 7: the matmul cell through compile(schedule_mode="force") at
+    tile 512 (bench.py's) and at tile 128, each launching B1 once a call
+    at the block block_for gives; then Model.autotune of the tile-512
+    model, its tuned call, and its tuning exported and applied to a fresh
+    compile of the same source."""
+    from exprgrad_torch.autotune import apply_tuning, export_tuning
+    from exprgrad_torch.backend.scheduled import block_for
+
     rng = np.random.default_rng(0)
     n = MATMUL_N
     args = {"a": rng.standard_normal((n, n), dtype=np.float32),
             "b": rng.standard_normal((n, n), dtype=np.float32)}
-    matmul.launches = 0
-    t0 = time.perf_counter()
-    out = model.call("c", args)
-    first_ms = (time.perf_counter() - t0) * 1e3
-    launches = matmul.launches
-    assert launches == 1, launches
-    stats = model.lowering_stats("c")
-    assert stats == {"matmul": 1}, stats
     want = (torch.from_numpy(args["a"]).double().cuda()
             @ torch.from_numpy(args["b"]).double().cuda()).cpu().numpy()
-    assert out.shape == (n, n) and np.isfinite(out).all()
+    matmul.launches = 0
+    models, res = {}, {"ms": {}}
+    for tile in (MATMUL_TILE, MATMUL_TILE_SMALL):
+        model = models[tile] = egt.compile(
+            matmul_graph(egt, tile), seed=0, schedule_mode="force",
+            device="cuda")
+        before = matmul.launches
+        t0 = time.perf_counter()
+        out = model.call("c", args)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        assert matmul.launches - before == 1, matmul.launches - before
+        stats = model.lowering_stats("c")
+        assert stats == {"matmul": 1}, stats
+        blocks = b1_blocks(model, "c")
+        assert blocks == {0: block_for(tile, tile, tile)}, blocks
+        assert out.shape == (n, n) and np.isfinite(out).all()
+        err = float(np.abs(out - want).max())
+        np.testing.assert_allclose(out, want, **matmul_f32_tol(n))
+        t0 = time.perf_counter()
+        for _ in range(3):
+            model.call("c", args)
+        call_ms = (time.perf_counter() - t0) * 1e3 / 3
+        assert matmul.launches - before == 4, matmul.launches - before
+        res["ms"][tile] = call_ms
+        print(f"path (a) matmul {n}^3 schedule(tile {tile}) force: 1 launch "
+              f"per call at block {blocks[0]}, lowering {stats}, max |err| "
+              f"vs torch.matmul float64 {err:.3e}; call (host arrays in and "
+              f"out) {call_ms:.2f} ms warm, {first_ms:.2f} ms first, on "
+              f"{gpu}")
+
+    # the tile-512 model tuned on the card
+    model = models[MATMUL_TILE]
+    t0 = time.perf_counter()
+    report = model.autotune("c", args)
+    tune_s = time.perf_counter() - t0
+    print(f"path (a) autotune {n}^3 ({tune_s:.1f} s) on {gpu}:\n{report}")
+    before = matmul.launches
+    out = model.call("c", args)
+    launched = matmul.launches - before
+    blocks = b1_blocks(model, "c")
+    stats = model.lowering_stats("c")
+    if stripped(report):
+        assert stats == {"einsum": 1} and not blocks and not launched, (
+            stats, blocks, launched)
+    else:
+        (kernel,) = model.program.targets["c"].kernels
+        tiles = [loop.schedule.tile_size for loop in kernel.loops]
+        assert stats == {"matmul": 1} and launched == 1, (stats, launched)
+        assert blocks == {0: block_for(*tiles)}, (blocks, tiles)
+    assert np.isfinite(out).all()
     err = float(np.abs(out - want).max())
     np.testing.assert_allclose(out, want, **matmul_f32_tol(n))
     t0 = time.perf_counter()
     for _ in range(3):
         model.call("c", args)
-    call_ms = (time.perf_counter() - t0) * 1e3 / 3
-    assert matmul.launches == 4, matmul.launches
-    print(f"path (a) matmul {n}^3 schedule(tile {MATMUL_TILE}) force: "
-          f"{launches} launch per call, lowering {stats}, max |err| vs "
-          f"torch.matmul float64 {err:.3e}; call (host arrays in and out) "
-          f"{call_ms:.2f} ms warm, {first_ms:.2f} ms first, on {gpu}")
-    return launches
+    res["ms"]["tuned"] = (time.perf_counter() - t0) * 1e3 / 3
+
+    # the tuning, as a file would hold it, on a fresh compile
+    tuning = json.loads(json.dumps(export_tuning(model, "c")))
+    fresh = egt.compile(matmul_graph(egt, MATMUL_TILE), seed=0,
+                        schedule_mode="force", device="cuda")
+    apply_tuning(fresh, tuning)
+    again = fresh.call("c", args)
+    assert b1_blocks(fresh, "c") == blocks, b1_blocks(fresh, "c")
+    assert np.array_equal(again, out)
+    assert export_tuning(fresh, "c") == tuning
+    res.update(launches=matmul.launches, report=report, blocks=blocks)
+    print(f"path (a) tuned: B1 {launched} launch per call at {blocks}, "
+          f"lowering {stats}, max |err| vs torch.matmul float64 {err:.3e}; "
+          f"call {res['ms']['tuned']:.2f} ms warm; export_tuning -> "
+          f"apply_tuning on a fresh compile: the same blocks and bits; "
+          f"{matmul.launches} B1 launches in the path, on {gpu}")
+    return res
 
 
 def path_b(egt, matmul, gpu) -> dict:
@@ -1606,7 +1759,54 @@ def path_b(egt, matmul, gpu) -> dict:
     print(f"path (b) train step [{MLP_ROWS},{dim}]: {step_ms:.2f} ms (mean "
           f"of {TIMED_STEPS} warm steps), {per_step} kernel launches per "
           f"step, on {gpu}")
-    return {"predict": predict_launches, "fit": fit_launches}
+
+    # the train step tuned on the card: the parameters stay, B1 runs the
+    # kernels that kept a schedule, and two tuned steps agree with two
+    # untuned ones from the same state by phase 5's rule
+    twin = egt.from_state(
+        graph, {t: x.cpu().numpy() for t, x in model.params.items()},
+        {t: x.cpu().numpy() for t, x in model.caches.items()}, model.epoch,
+        model._rng.bit_generator.state, schedule_mode="force",
+        device="cuda")
+    start = {t: x.clone() for t, x in model.params.items()}
+    untuned = set(b1_blocks(model, "train"))  # the step's B1 kernels
+    matmul.launches = 0
+    t0 = time.perf_counter()
+    report = model.autotune("train", first, chain=2)
+    tune_s = time.perf_counter() - t0
+    tune_launches = matmul.launches
+    print(f"path (b) autotune train [{MLP_ROWS},{dim}] ({tune_s:.1f} s, "
+          f"{tune_launches} B1 launches) on {gpu}:\n{report}")
+    for t, x in model.params.items():
+        assert torch.equal(x, start[t]), f"autotune moved t{t}"
+    kept = untuned - stripped(report)
+    matmul.launches = 0
+    for m in (model, twin):
+        for _ in range(2):
+            m.epoch += 1
+            m.apply("train", first)
+        torch.cuda.synchronize()
+        if m is model:
+            tuned_launches = matmul.launches
+    tuned_stats = model.lowering_stats("train")
+    tuned_per_step = tuned_stats.get("matmul", 0) + tuned_stats.get(
+        "matmul-fused", 0)
+    blocks = b1_blocks(model, "train")
+    assert set(blocks) == kept, (blocks, kept)
+    assert tuned_per_step == len(kept), (tuned_stats, kept)
+    assert tuned_launches == 2 * len(kept), (tuned_launches, kept)
+    loss = float(model.call("loss", first)[0])
+    twin_loss = float(twin.call("loss", first)[0])
+    rel, worst = update_err(model.params, twin.params, start)
+    print(f"path (b) 2 tuned steps: B1 {tuned_launches} launches "
+          f"({tuned_per_step} per step, at {blocks}; untuned {per_step} "
+          f"per step at {b1_blocks(twin, 'train')}); loss {loss:.6f} vs "
+          f"untuned {twin_loss:.6f}; parameters vs untuned: |diff| / "
+          f"|update| {rel:.3e}, max |diff| {worst:.3e}")
+    np.testing.assert_allclose(loss, twin_loss, **TRAIN_LOSS)
+    assert rel <= TRAIN_UPDATE_RTOL, rel
+    return {"predict": predict_launches, "fit": fit_launches,
+            "tune": tune_launches, "tuned": tuned_launches}
 
 
 def executor_of(model):
@@ -4800,15 +5000,18 @@ def main() -> int:
 
     t_phase = phase_done("5 (train)", t_phase)
 
-    # 6. the scheduled matmul kernel against its plain version -----------
+    # 6. the scheduled matmul kernel against its plain version, every
+    # block against the default block -----------------------------------
     mm_err = check_matmul_kernel(gen, dev)
     mm_times = time_matmul(gen, dev, MATMUL_N, gpu)
+    mm_blocks = time_matmul_blocks(gen, dev, gpu)
 
     t_phase = phase_done("6 (matmul kernel)", t_phase)
 
     # 7. and 8. the scheduled paths, each with the counters at 0 ---------
     attention.launches = attention.dq_launches = attention.dkv_launches = 0
-    path_a_launches = path_a(egt, matmul, gpu)
+    path_a_run = path_a(egt, matmul, gpu)
+    path_a_launches = path_a_run["launches"]
     path_b_launches = path_b(egt, matmul, gpu)
     mm_launches = path_a_launches + sum(path_b_launches.values())
     print(f"scheduled paths: matmul kernel launches path (a) "
@@ -4986,10 +5189,17 @@ def main() -> int:
             "exprgrad_tpu/ops/attention.py:444", flash_launches["dkv"],
             bwd_err[1], bwd_times["dkv"], bwd_times["plain"], sdpa_bwd_ms,
             att_bounds["dkv"]),
-        row("scheduled_matmul", "exprgrad_torch/csrc/matmul.cu",
-            "exprgrad_tpu/ops/matmul.py:24", mm_launches, mm_err,
-            mm_times["kernel"], mm_times["plain"], mm_times["library"],
-            mm_times["bound"]),
+        dict(row("scheduled_matmul", "exprgrad_torch/csrc/matmul.cuh",
+                 "exprgrad_tpu/ops/matmul.py:24", mm_launches, mm_err,
+                 mm_times["kernel"], mm_times["plain"], mm_times["library"],
+                 mm_times["bound"]),
+             blocks={shape: {"ms": res["blocks"],
+                             "library_ms": res["library"],
+                             "bound_ms": res["bound"][0],
+                             "bound_by": res["bound"][1]}
+                     for shape, res in mm_blocks.items()},
+             path_a={"tile_ms": path_a_run["ms"],
+                     "tuned_blocks": path_a_run["blocks"]}),
         row("scheduled_mapreduce", "exprgrad_torch/ops/mapreduce.py",
             "exprgrad_tpu/backend/pallasgen.py:1804", gen_launches[
                 "mapreduce"], max(gen_err["mapreduce"],

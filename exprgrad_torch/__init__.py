@@ -82,6 +82,7 @@ from .model import Model, compile, from_state, load_compiled
 from .quant import QuantW, dequantize, quantize_weight
 from .registry import register_extern
 from .train import classification_accuracy, evaluate, train
+from .autotune import TuneReport
 from .tensor import (
     Tensor,
     concat_first,
@@ -95,7 +96,8 @@ from .tensor import (
 )
 
 __all__ = [
-    "Boolean", "Index", "Scalar", "Fun", "Model", "Tensor", "array", "cache",
+    "Boolean", "Index", "Scalar", "Fun", "Model", "Tensor", "TuneReport",
+    "array", "cache",
     "classification_accuracy", "compile", "concat_first", "cond", "cos",
     "debug_index", "debug_scalar", "epoch", "evaluate", "exp",
     "extern", "extern_grads", "from_state", "grad", "input", "input_",

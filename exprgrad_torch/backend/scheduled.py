@@ -7,15 +7,17 @@ the same declines and ``why`` strings), ``_EpilogueStep``,
 ``_classify_step``, ``PallasEpilogueChain`` (here :class:`EpilogueChain`)
 and ``plan_epilogue_fusions``.  A kernel ``out[y, x] += a[y, k] * b[k, x]``
 (or the transposed store ``out[x, y]``) that carries a schedule runs
-``exprgrad_torch/csrc/matmul.cu``, with the chain of single-consumer
+``exprgrad_torch/csrc/matmul.cuh``, with the chain of single-consumer
 elementwise kernels after it folded into the kernel's epilogue.
 
 What differs from the TPU emitter:
 
-* The block is the kernel's own (128x128, 32-deep k slices), not the user's
-  tile: ``tile_for``'s sublane/lane alignment and VMEM budget are TPU
-  rules.  The JAX emitter accepts every tile (it pads), and so does this
-  one.
+* The user's tile chooses the block as on the TPU, but from the lattice
+  the kernel is built for (:data:`~exprgrad_torch.ops.matmul.BLOCKS`):
+  :func:`block_for` is the Hopper counterpart of ``tile_for``, whose
+  sublane/lane alignment, extent clamp and VMEM budget are TPU rules.
+  Every block gives the same bits, so a tile moves time, not values.
+  The JAX emitter accepts every tile (it pads), and so does this one.
 * The kernel guards ragged edges itself, so no operand is zero-padded
   and no product is sliced back.
 * The epilogue is a register program (:class:`~exprgrad_torch.ops.matmul.
@@ -35,8 +37,50 @@ import torch
 
 from .. import ir
 from ..ir import Kernel, Op
-from ..ops.matmul import OPCODE, Epilogue, matmul_impl
+from ..ops.matmul import BLOCKS, DEFAULT_BLOCK, OPCODE, Epilogue, matmul_impl
 from ..utils import kernels as _limits
+
+# the lattice's sizes on each axis, and its (bm, bn) pairs
+_SIZES = tuple(sorted({block[axis] for block in BLOCKS}) for axis in range(3))
+_PAIRS = {(bm, bn) for bm, bn, _ in BLOCKS}
+
+
+def block_for(tile_m: Optional[int] = None, tile_n: Optional[int] = None,
+              tile_k: Optional[int] = None, share_m: bool = False,
+              share_n: bool = False, share_k: bool = False) -> tuple:
+    """Kernel B1's block ``(bm, bn, bk)`` for a contraction whose loops
+    over m, n and k carry ``tile_*`` (None: the loop is not tiled) and
+    ``share_cache`` (``share_*``): the Hopper counterpart of the JAX
+    emitter's ``tile_for``.  Always a member of
+    :data:`~exprgrad_torch.ops.matmul.BLOCKS`.
+
+    * A tile rounds down to the nearest size of the lattice on its axis,
+      or up to the smallest (m, n: 64, 128, 256; k: 32, 64).
+    * ``share_cache`` takes the largest size on its axis (the TPU keeps
+      the whole extent resident).
+    * A loop with no tile takes the default block's size (128, 128, 32).
+    * A (bm, bn) pair the kernel is not built for (256 x 256, 64 x 256,
+      256 x 64) steps down on its larger axis, m on a tie.
+
+    The extent does not enter: the kernel guards ragged edges at every
+    block, where the TPU emitter clamps a tile to the extent and pads."""
+    def pick(axis, tile, share):
+        sizes = _SIZES[axis]
+        if share:
+            return sizes[-1]
+        if tile is None:
+            return DEFAULT_BLOCK[axis]
+        fits = [size for size in sizes if size <= tile]
+        return fits[-1] if fits else sizes[0]
+
+    bm, bn, bk = (pick(0, tile_m, share_m), pick(1, tile_n, share_n),
+                  pick(2, tile_k, share_k))
+    while (bm, bn) not in _PAIRS:
+        if bm >= bn:
+            bm = _SIZES[0][_SIZES[0].index(bm) - 1]
+        else:
+            bn = _SIZES[1][_SIZES[1].index(bn) - 1]
+    return bm, bn, bk
 
 
 def is_scheduled(kernel: Kernel) -> bool:
@@ -152,6 +196,18 @@ class ScheduledMatmul:
         self.m, self.n, self.k = (
             low.sizes[y_axis], low.sizes[x_axis], low.sizes[k]
         )
+
+        def schedule_of(axis):
+            loop = next(l for l in kernel.loops
+                        if low.axis_of_reg[l.iter_reg] == axis)
+            return ((loop.schedule.tile_size if loop.schedule.tile
+                     else None), loop.schedule.share_cache)
+
+        (tile_m, share_m), (tile_n, share_n), (tile_k, share_k) = (
+            schedule_of(y_axis), schedule_of(x_axis), schedule_of(k))
+        # the attribute names of the JAX package's PallasMatmul
+        self.bm, self.bn, self.bk = block_for(tile_m, tile_n, tile_k,
+                                              share_m, share_n, share_k)
         return True
 
     def _operands(self, tensors: dict):
@@ -172,7 +228,8 @@ class ScheduledMatmul:
     def lower(self, tensors: dict):
         a, b = self._operands(tensors)
         value = matmul_impl(a, b, self.low.dtype,
-                            transpose_out=self.transposed)
+                            transpose_out=self.transposed,
+                            block=(self.bm, self.bn, self.bk))
         return self._add_into(tensors[self.kernel.write.tensor], value)
 
     def lower_fused(self, tensors: dict, chain: "EpilogueChain"):
@@ -184,7 +241,8 @@ class ScheduledMatmul:
         extra = [chain.prepare(tensors[tid], pat).contiguous()
                  for tid, pat in chain.extra]
         return matmul_impl(a, b, self.low.dtype, epilogue=chain.program,
-                           extra=extra, transpose_out=self.transposed)
+                           extra=extra, transpose_out=self.transposed,
+                           block=(self.bm, self.bn, self.bk))
 
 
 class _EpilogueStep:

@@ -1,4 +1,4 @@
-// Tensor-core products for the port's kernels (flash_fwd.cu, matmul.cu):
+// Tensor-core products for the port's kernels (flash_fwd.cu, matmul.cuh):
 // mma.sync wrappers, bfloat16 packing, cp.async, and float32 as split
 // TF32 ("3xTF32", CUTLASS's OpMultiplyAddFastF32).
 //

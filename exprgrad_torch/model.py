@@ -777,11 +777,23 @@ class Model:
         prof.export_chrome_trace(
             os.path.join(logdir, f"{target_name}.pt.trace.json"))
 
-    def autotune(self, *args, **kwargs):
-        raise NotImplementedError(
-            "autotune is not ported to exprgrad_torch yet (ROADMAP.md, "
-            "queue A)"
-        )
+    def autotune(self, target_name: str, args: Optional[dict] = None, **kw):
+        """Search tile sizes for this target's scheduled kernels by
+        MEASURING candidates end-to-end on the model's device, install
+        the fastest, and return the :class:`~exprgrad_torch.autotune.
+        TuneReport` (str() it for the table).
+
+        The schedule-stripped plain lowering is always a candidate, so the
+        result can only match or beat both the hand schedule and the plain
+        lowering on this device.  Pins ``schedule_mode="force"`` so later
+        calls honor the tuned schedule (a kernel whose winner was the
+        plain lowering simply has no schedule left to force)."""
+        from .autotune import tune
+
+        report = tune(self, target_name, args, **kw)
+        self.schedule_mode = "force"
+        self._executors.clear()
+        return report
 
 
 def _source(graphs, dtype: str) -> ir.Program:

@@ -1,8 +1,11 @@
 """Scheduled matmul with a fused elementwise epilogue (kernel B1).
 
 Counterpart of ``exprgrad_tpu/ops/matmul.py``.  The kernel is
-``exprgrad_torch/csrc/matmul.cu``: ``C = epilogue(A @ B)`` with float32
-accumulation, stored as ``[m, n]`` or transposed ``[n, m]``.
+``exprgrad_torch/csrc/matmul.cuh``: ``C = epilogue(A @ B)`` with float32
+accumulation, stored as ``[m, n]`` or transposed ``[n, m]``, at one block
+``(bm, bn, bk)`` of the lattice :data:`BLOCKS` (the TPU kernel's
+``block_m``, ``block_n``, ``block_k``; :data:`DEFAULT_BLOCK` when none is
+given).  Every block gives the same bits.
 :func:`matmul_impl` launches it for CUDA tensors and raises on anything
 it cannot take; for CPU tensors, and only for them, it runs
 :func:`matmul_plain`, a float64 product followed by the same epilogue
@@ -21,7 +24,8 @@ a fake implementation gives the output's shape and dtype), so
 ``torch.export`` keeps kernel B1 in an exported program.  The epilogue
 program travels as the op's ``int[]`` and ``float[]`` arguments (the
 steps five ints each, the constants, the extras' pattern indices) and
-its extra operands as ``Tensor[]``, all None without an epilogue.
+its extra operands as ``Tensor[]``, all None without an epilogue; the
+block as ``int[]``, None for the default.
 """
 
 from __future__ import annotations
@@ -42,12 +46,26 @@ launches = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/matmul.cu's MatmulArgs: a, b, c; m, n, k, transpose, in_dtype,
-# out_dtype
-_MATMUL_ARGS = struct.Struct("<3Q6i")
+# out_dtype, bm, bn, bk; padded to the struct's 64 bytes
+_MATMUL_ARGS = struct.Struct("<3Q9i4x")
+# its fields' byte offsets and its size, which egt_matmul_args_offset
+# must report before the first launch
+_MATMUL_OFFSETS = (0, 8, 16, *range(24, 60, 4), _MATMUL_ARGS.size)
+_layout_checked = False
+
+# The blocks (bm, bn, bk) the kernel is built for: csrc/matmul.cuh's
+# EGT_MATMUL_BLOCKS, in its order.  Warps of 64x32 output elements, so a
+# block runs (bm / 64) * (bn / 32) warps.
+BLOCKS = (
+    (64, 64, 32), (64, 64, 64), (64, 128, 32), (64, 128, 64),
+    (128, 64, 32), (128, 64, 64), (128, 128, 32), (128, 128, 64),
+    (128, 256, 32), (128, 256, 64), (256, 128, 32), (256, 128, 64),
+)
+DEFAULT_BLOCK = (128, 128, 32)
 _NO_EPILOGUE = kernels.EpiProgram()  # all zeros; the kernel only reads it
 PATTERNS = ("row", "col", "full")
 
-# Opcodes of the epilogue program (csrc/matmul.cu ``enum Op``): the ops
+# Opcodes of the epilogue program (csrc/matmul.cuh ``enum Op``): the ops
 # of the JAX package's ``eval_elementwise``, plus moves and loads.
 OPS = (
     "mov", "const", "extra",
@@ -229,13 +247,38 @@ def _program(code: tuple, consts: tuple,
     return prog
 
 
+def _block(block) -> tuple:
+    """The op's ``block`` argument as a member of :data:`BLOCKS` (None is
+    :data:`DEFAULT_BLOCK`); raises on any other."""
+    if block is None:
+        return DEFAULT_BLOCK
+    block = tuple(block)
+    if block not in BLOCKS:
+        raise ValueError(f"the matmul kernel has no block {block}; it is "
+                         f"built for {BLOCKS}")
+    return block
+
+
+def _check_layout() -> None:
+    """Hold ``_MATMUL_ARGS`` to the C struct's offsets and size."""
+    global _layout_checked
+    fn = kernels.load().egt_matmul_args_offset
+    got = tuple(fn(i) for i in range(len(_MATMUL_OFFSETS)))
+    if got != _MATMUL_OFFSETS:
+        raise RuntimeError(f"MatmulArgs is laid out at {got} in the built "
+                           f"kernels, the wrapper packs {_MATMUL_OFFSETS}")
+    _layout_checked = True
+
+
 def _matmul_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype, code,
-                 consts, patterns, extra, transpose_out) -> torch.Tensor:
+                 consts, patterns, extra, transpose_out,
+                 block=None) -> torch.Tensor:
     """The CUDA implementation of ``exprgrad_torch::matmul`` (the op's flat
-    arguments, None for an empty program): checks what the kernel takes,
-    or raises, then launches it."""
+    arguments, None for an empty program or the default block): checks
+    what the kernel takes, or raises, then launches it."""
     code, consts, patterns, extra = (code or (), consts or (),
                                      patterns or (), extra or ())
+    bm, bn, bk = _block(block)
     _check(a, b, len(patterns), extra)
     out_dtype = out_dtype or a.dtype
     if a.dtype not in _KERNEL_DTYPES or b.dtype != a.dtype:
@@ -271,19 +314,23 @@ def _matmul_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype, code,
             prog.extra[i] = arr.data_ptr()
     else:
         prog = _NO_EPILOGUE
+    if not _layout_checked:
+        _check_layout()
     kernels.call("egt_matmul_packed", dev, _MATMUL_ARGS.pack(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
         int(transpose_out), _KERNEL_DTYPES[a.dtype],
-        _KERNEL_DTYPES[out_dtype]), ctypes.addressof(prog))
+        _KERNEL_DTYPES[out_dtype], bm, bn, bk), ctypes.addressof(prog))
     global launches
     launches += 1
     return out
 
 
 def _matmul_cpu(a, b, out_dtype, code, consts, patterns, extra,
-                transpose_out):
+                transpose_out, block=None):
     """The CPU implementation of ``exprgrad_torch::matmul``:
-    :func:`matmul_plain`."""
+    :func:`matmul_plain`, the same at every block (checked, then
+    unused)."""
+    _block(block)
     return matmul_plain(a, b, out_dtype,
                         Epilogue.from_flat(code or (), consts or (),
                                            patterns or ()), extra or (),
@@ -291,7 +338,7 @@ def _matmul_cpu(a, b, out_dtype, code, consts, patterns, extra,
 
 
 def _matmul_fake(a, b, out_dtype, code, consts, patterns, extra,
-                 transpose_out):
+                 transpose_out, block=None):
     shape = ((b.shape[1], a.shape[0]) if transpose_out
              else (a.shape[0], b.shape[1]))
     return a.new_empty(shape, dtype=out_dtype or a.dtype)
@@ -300,7 +347,7 @@ def _matmul_fake(a, b, out_dtype, code, consts, patterns, extra,
 _LIB = torch.library.Library("exprgrad_torch", "FRAGMENT")
 _LIB.define("matmul(Tensor a, Tensor b, ScalarType? out_dtype, int[]? code, "
             "float[]? consts, int[]? patterns, Tensor[]? extra, "
-            "bool transpose_out) -> Tensor")
+            "bool transpose_out, int[]? block=None) -> Tensor")
 _LIB.impl("matmul", _matmul_cpu, "CPU")
 _LIB.impl("matmul", _matmul_cuda, "CUDA")
 torch.library.register_fake("exprgrad_torch::matmul", _matmul_fake, lib=_LIB)
@@ -311,25 +358,30 @@ _MATMUL = torch.ops.exprgrad_torch.matmul.default._op
 def matmul_impl(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
                 epilogue: Optional[Epilogue] = None,
                 extra: Sequence[torch.Tensor] = (),
-                transpose_out: bool = False) -> torch.Tensor:
+                transpose_out: bool = False,
+                block: Optional[Sequence[int]] = None) -> torch.Tensor:
     """``epilogue(a @ b)`` as ``[m, n]``, or ``[n, m]`` when
-    ``transpose_out`` (the DSL's ``c[x, y] += a[y, k] * b[k, x]``).
+    ``transpose_out`` (the DSL's ``c[x, y] += a[y, k] * b[k, x]``), by the
+    kernel at ``block`` ``(bm, bn, bk)``, a member of :data:`BLOCKS`
+    (None: :data:`DEFAULT_BLOCK`).
 
     CUDA tensors launch the kernel or raise: ``a`` and ``b`` contiguous,
     float32 or bfloat16 and of one dtype; ``out_dtype`` and every extra
     operand float32 or bfloat16, extras contiguous in ``out_dtype`` with
     the element count of their pattern.  CPU tensors run
     :func:`matmul_plain`.  Both go through the op
-    ``exprgrad_torch::matmul``."""
+    ``exprgrad_torch::matmul``, and both raise on a block outside
+    :data:`BLOCKS`."""
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no matmul kernel for {a.device}")
+    block = list(block) if block is not None else None
     if epilogue is None and not extra:  # None boxes cheaper than []
         return _MATMUL(a, b, out_dtype, None, None, None, None,
-                       transpose_out)
+                       transpose_out, block)
     code, consts, patterns = (epilogue.flat if epilogue is not None
                               else ((), (), ()))
     return _MATMUL(a, b, out_dtype, code, consts, patterns, list(extra),
-                   transpose_out)
+                   transpose_out, block)
 
 
 class _ScheduledMatmul(torch.autograd.Function):
@@ -339,9 +391,9 @@ class _ScheduledMatmul(torch.autograd.Function):
     operands)."""
 
     @staticmethod
-    def forward(ctx, a, b, out_dtype):
+    def forward(ctx, a, b, out_dtype, block):
         ctx.save_for_backward(a, b)
-        return matmul_impl(a, b, out_dtype)
+        return matmul_impl(a, b, out_dtype, block=block)
 
     @staticmethod
     def backward(ctx, g):
@@ -350,12 +402,12 @@ class _ScheduledMatmul(torch.autograd.Function):
         g = g.to(acc)
         da = torch.matmul(g, b.to(acc).T).to(a.dtype)
         db = torch.matmul(a.to(acc).T, g).to(b.dtype)
-        return da, db, None
+        return da, db, None, None
 
 
-def scheduled_matmul(a: torch.Tensor, b: torch.Tensor,
-                     out_dtype=None) -> torch.Tensor:
-    """``out[m, n] = a[m, k] @ b[k, n]`` through the kernel (its plain
-    version on the CPU), differentiable in ``a`` and ``b``.  The kernel
-    picks its own block and guards ragged shapes."""
-    return _ScheduledMatmul.apply(a, b, out_dtype)
+def scheduled_matmul(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
+                     block: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``out[m, n] = a[m, k] @ b[k, n]`` through the kernel at ``block``
+    (its plain version on the CPU), differentiable in ``a`` and ``b``.
+    The kernel guards ragged shapes at every block."""
+    return _ScheduledMatmul.apply(a, b, out_dtype, block)

@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# Limits of the matmul epilogue program (csrc/matmul.cu kMax*).
+# Limits of the matmul epilogue program (csrc/matmul.cuh kMax*).
 EPI_MAX_CODE = 64
 EPI_MAX_REGS = 32
 EPI_MAX_CONSTS = 32
@@ -47,7 +47,7 @@ EPI_MAX_EXTRA = 8
 
 
 class EpiProgram(ctypes.Structure):
-    """``struct EpiProgram`` of csrc/matmul.cu, passed by value."""
+    """``struct EpiProgram`` of csrc/matmul.cuh, passed by value."""
 
     _fields_ = [
         ("n_code", _I),
@@ -75,10 +75,13 @@ _SIGNATURES = {
                           _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _P],
     # FlashFwdArgs (egt_flash_fwd's arguments but the stream), stream
     "egt_flash_fwd_packed": [_P, _P],
-    # a, b, c, m, n, k, transpose, in_dtype, out_dtype, program, stream
-    "egt_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, EpiProgram, _P],
-    # MatmulArgs (a .. out_dtype), &program, stream
+    # a, b, c, m, n, k, transpose, in_dtype, out_dtype, bm, bn, bk,
+    # program, stream
+    "egt_matmul": [_P, _P, _P] + [_I] * 9 + [EpiProgram, _P],
+    # MatmulArgs (a .. bk), &program, stream
     "egt_matmul_packed": [_P, _P, _P],
+    # field index -> MatmulArgs' byte offset (its size past the last)
+    "egt_matmul_args_offset": [_I],
     # q, k, v, k_scale, v_scale, table, key_pos, q_pos, out, part, b, h,
     # hkv, n_pages, t, d, page, n_tbl, scale, window, vec, n_split, pps,
     # q_dtype, kv_dtype, stream

@@ -10,7 +10,7 @@ seed 0:
    backward's dq (B3) and dk/dv (B4) kernels (csrc/flash_bwd.cu) at the
    serving shape [8, 4, 256, 128] causal, float32 and bfloat16, beside
    scaled_dot_product_attention and its backward; the scheduled matmul
-   (B1, csrc/matmul.cu) at 4096^3 float32 beside torch.matmul (TF32
+   (B1, csrc/matmul.cuh) at 4096^3 float32 beside torch.matmul (TF32
    off).  For each: the host us per call of the Python entry point
    (enqueue rate, no synchronize) and chip_smoke.py's CUDA-event ms per
    call, both before the first profiler session, then the kernels'

@@ -3,7 +3,7 @@
     python3 scripts/profile_torch_scheduled.py [--out FILE]
 
 Builds the programs that chip_smoke.py runs through kernel B1
-(exprgrad_torch/csrc/matmul.cu) and the generated kernels B5 and B6
+(exprgrad_torch/csrc/matmul.cuh) and the generated kernels B5 and B6
 (exprgrad_torch/ops/mapreduce.py, rowchain.py), compiled with
 schedule_mode="force" on the card, random data from seed 0:
 

@@ -415,12 +415,20 @@ def test_schedule_falls_back_with_warning():
 
 
 def test_jax_only_methods_raise():
-    """Of the JAX package's model extras only ``autotune`` is not ported
-    (ROADMAP A7); export, save_hlo and profile are held by
+    """No model extra of the JAX package raises in the port any more:
+    ``autotune``, the last, returns a ``TuneReport`` and installs its
+    schedule (tests/test_torch_autotune.py holds it against the JAX
+    package); export, save_hlo and profile are held by
     tests/test_torch_export.py."""
     port = egt.compile(_scheduled_matmul(egt), device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port.autotune("out")
+    a = np.random.default_rng(0).standard_normal((8, 4)).astype(np.float32)
+    want = port.call("out", {"a": a})
+    report = port.autotune("out", {"a": a}, tile_sizes=(64,), reps=1,
+                           chain=1)
+    assert isinstance(report, egt.TuneReport)
+    assert [e.writes for e in report.entries] == ["out"]
+    assert port.schedule_mode == "force" and not port._executors
+    np.testing.assert_allclose(port.call("out", {"a": a}), want, **F32)
 
 
 def test_astype_executable_and_precision():

@@ -16,6 +16,10 @@
   equal), as do the classifiers' decline reasons.
 * ``scheduled_matmul``'s gradients against ``jax.grad`` of
   ``pallas_matmul``, and two train steps of the scheduled MLP.
+* The block a schedule gives kernel B1: ``block_for``'s table beside the
+  JAX ``PallasMatmul``'s ``(bm, bn, bk)`` for the same program, the
+  lattice against the CUDA sources, the op's ``block`` argument, and the
+  block reaching the op from the lowering, also after ``apply_tuning``.
 """
 
 import jax
@@ -29,10 +33,11 @@ import exprgrad_torch.layers
 import exprgrad_tpu
 import exprgrad_tpu.layers
 from chip_smoke import epilogue as _prog, scheduled_mlp
-from exprgrad_torch.backend.scheduled import ScheduledMatmul
+from exprgrad_torch.backend.scheduled import ScheduledMatmul, block_for
 from exprgrad_torch.backend.torcheval import KernelLowering
-from exprgrad_torch.ops.matmul import (matmul_impl, matmul_plain,
-                                       scheduled_matmul)
+from exprgrad_torch.ops.matmul import (BLOCKS, DEFAULT_BLOCK, matmul_impl,
+                                       matmul_plain, scheduled_matmul)
+from exprgrad_torch.passes import infer_shapes
 from exprgrad_tpu import compile
 from exprgrad_tpu.backend.jaxeval import KernelLowering as JaxLowering
 from exprgrad_tpu.backend.pallasgen import PallasMatmul
@@ -554,3 +559,177 @@ def test_auto_takes_the_kernel_where_jax_falls_back():
                                np.asarray(ref.call("d", args)), **F32)
     assert port.lowering_stats("d") == {"matmul-fused": 1}
     assert ref.lowering_stats("d")["schedule-fallback"] == 1
+
+
+# --- the block a schedule gives kernel B1 ---------------------------------
+
+def _tiled(m, **sched):
+    y, x, it = m.iters("y", "x", "it")
+    c = m.Fun("c")
+    c[y, x] = m.input("a")[y, it] * m.input("b")[it, x]
+    c.schedule(**sched)
+    return c.target("c")
+
+
+def _blocks(sched, n=512):
+    """The port's ScheduledMatmul block and the JAX package's PallasMatmul
+    (bm, bn, bk) for ``c[y, x] = a[y, it] * b[it, x]`` at n^3 under
+    ``schedule(**sched)``."""
+    port = egt.compile(_tiled(egt, **sched), device="cpu")
+    ref = compile(_tiled(exprgrad_tpu, **sched), backend="jax")
+    shapes = {port.program.inputs["a"]: [n, n],
+              port.program.inputs["b"]: [n, n]}
+    shapes = infer_shapes(port.program, "c", list(shapes.items()))
+    (kernel,) = port.program.targets["c"].kernels
+    (jax_kernel,) = ref.program.targets["c"].kernels
+    sm = ScheduledMatmul(KernelLowering(port.program, kernel, shapes,
+                                        torch.float32, torch.device("cpu")),
+                         kernel)
+    pm = PallasMatmul(JaxLowering(ref.program, jax_kernel, shapes,
+                                  np.float32, jax.lax.Precision.HIGHEST),
+                      jax_kernel)
+    assert sm.ok and pm.ok
+    return (sm.bm, sm.bn, sm.bk), (pm.bm, pm.bn, pm.bk)
+
+
+def _all(t):
+    return {"tile": {"y": t, "x": t, "it": t}, "parallel": ["y", "x"]}
+
+
+# (schedule, block_for's arguments, the port's block, the JAX package's
+# (bm, bn, bk) at 512^3).  They differ by design: the TPU block is the
+# tile itself, clamped to the extent, aligned to the (8, 128) layout (k
+# and n to 128) and zero-padded; the port's is the nearest block of the
+# lattice it is built for (m and n 64, 128, 256; k 32, 64), whose ragged
+# edges the kernel guards.  A loop without a tile takes the TPU's
+# 512-wide default there and 128 x 128 x 32 here.
+BLOCK_TABLE = {
+    "no tile": ({"parallel": ["y", "x"]}, (), (128, 128, 32),
+                (512, 512, 512)),
+    "tile 16": (_all(16), (16, 16, 16), (64, 64, 32), (16, 128, 128)),
+    "tile 64": (_all(64), (64, 64, 64), (64, 64, 64), (64, 128, 128)),
+    "tile 100": (_all(100), (100, 100, 100), (64, 64, 64), (104, 128, 128)),
+    "tile 128": (_all(128), (128, 128, 128), (128, 128, 64),
+                 (128, 128, 128)),
+    # (256, 256) is not built: m, the larger on a tie, steps down
+    "tile 256": (_all(256), (256, 256, 256), (128, 256, 64),
+                 (256, 256, 256)),
+    "tile 512": (_all(512), (512, 512, 512), (128, 256, 64),
+                 (512, 512, 512)),
+    "share_cache": ({"tile": {"y": 64}, "share_cache": ["y", "x", "it"]},
+                    (64, None, None, True, True, True), (128, 256, 64),
+                    (512, 512, 512)),
+    # (64, 256) is not built: n, the larger, steps down
+    "pair not built": ({"tile": {"y": 64, "x": 512, "it": 32}},
+                       (64, 512, 32), (64, 128, 32), (64, 512, 128)),
+    "y only": ({"tile": {"y": 256}}, (256,), (256, 128, 32),
+               (256, 512, 512)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BLOCK_TABLE))
+def test_block_for_maps_the_schedule_onto_the_lattice(case):
+    sched, args, want, want_jax = BLOCK_TABLE[case]
+    assert block_for(*args) == want
+    assert want in BLOCKS
+    assert _blocks(sched) == (want, want_jax)
+
+
+def test_block_for_gives_a_built_block_for_every_tile():
+    sizes = (None, 1, 16, 32, 48, 64, 100, 128, 200, 256, 512, 4096)
+    for tm in sizes:
+        for tn in sizes:
+            for tk in sizes:
+                assert block_for(tm, tn, tk) in BLOCKS, (tm, tn, tk)
+    assert block_for() == DEFAULT_BLOCK == (128, 128, 32)
+
+
+def test_blocks_are_the_sources_lattice():
+    """``BLOCKS`` is csrc/matmul.cuh's EGT_MATMUL_BLOCKS in order, and each
+    block is instantiated in exactly one matmul_<BM>x<BN>.cu; the lattice
+    has three sizes on m and on n."""
+    import re
+
+    from exprgrad_torch.utils import kernels
+
+    header = (kernels._CSRC / "matmul.cuh").read_text()
+    body = header[header.index("#define EGT_MATMUL_BLOCKS(X)"):]
+    body = body[:body.index("\n\n")]
+    lattice = tuple(tuple(map(int, x)) for x in
+                    re.findall(r"X\((\d+), (\d+), (\d+)\)", body))
+    assert lattice == BLOCKS
+    built = []
+    for src in sorted(kernels._CSRC.glob("matmul_*.cu")):
+        found = [tuple(map(int, x)) for x in re.findall(
+            r"^EGT_MATMUL_INSTANTIATE\((\d+), (\d+), (\d+)\)",
+            src.read_text(), re.M)]
+        assert {f"matmul_{bm}x{bn}.cu" for bm, bn, _ in found} == {src.name}
+        built += found
+    assert sorted(built) == sorted(BLOCKS)
+    assert {b[0] for b in BLOCKS} == {b[1] for b in BLOCKS} == {64, 128, 256}
+
+
+def test_the_op_takes_the_block():
+    """``exprgrad_torch::matmul`` takes ``int[]? block=None``; the CPU
+    implementation runs the plain version at every block of the lattice
+    and the fake one gives the output's shape; a block outside the
+    lattice raises on the CPU, as the kernel's entry refuses it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    schema = torch.ops.exprgrad_torch.matmul.default._schema
+    assert schema.arguments[-1].name == "block"
+    assert str(schema.arguments[-1].type) == "Optional[List[int]]"
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.normal(size=(30, 50)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(50, 70)).astype(np.float32))
+    want = matmul_plain(a, b)
+    for block in BLOCKS:
+        assert torch.equal(matmul_impl(a, b, block=block), want)
+        assert torch.equal(torch.ops.exprgrad_torch.matmul(
+            a, b, None, None, None, None, None, False, list(block)), want)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.exprgrad_torch.matmul(
+            mode.from_tensor(a), mode.from_tensor(b), None, None, None,
+            None, None, True, [64, 128, 32])
+    assert tuple(fake.shape) == (70, 30)
+    with pytest.raises(ValueError, match="no block"):
+        matmul_impl(a, b, block=(32, 32, 32))
+    with pytest.raises(ValueError, match="no block"):
+        scheduled_matmul(a, b, block=(128, 128, 16))
+
+
+def test_the_block_follows_the_schedule_and_its_tuning(monkeypatch):
+    """The lowering hands ``matmul_impl`` the block of the kernel's
+    schedule, with and without an epilogue, and a tuning applied from
+    ``export_tuning`` moves it."""
+    from exprgrad_torch.autotune import apply_tuning, export_tuning
+    from exprgrad_torch.backend import scheduled
+
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append(kw.get("block"))
+        return matmul_impl(*args, **kw)
+
+    monkeypatch.setattr(scheduled, "matmul_impl", spy)
+    rng = np.random.default_rng(2)
+    args = {"a": rng.normal(size=(40, 24)).astype(np.float32),
+            "b": rng.normal(size=(24, 72)).astype(np.float32)}
+    port = egt.compile(_tiled(egt, **_all(128)), device="cpu",
+                       schedule_mode="force")
+    want = port.call("c", args)
+    (ex,) = port._executors.values()
+    sm = ex._lowerings[0].scheduled_matmul()
+    assert seen == [(sm.bm, sm.bn, sm.bk)] == [(128, 128, 64)]
+    tuning = export_tuning(port, "c")
+    tuning["kernels"][0]["loops"][0]["tile_size"] = 64  # y
+    tuning["kernels"][0]["loops"][1]["tile_size"] = 256  # x
+    apply_tuning(port, tuning)
+    np.testing.assert_allclose(port.call("c", args), want, **F32)
+    assert seen[1:] == [(64, 128, 64)]
+
+    port, ref, args, out = _both("dense_bias_relu")
+    port.call(out, args)
+    (ex,) = port._executors.values()
+    ((sm, _),) = ex.fused.values()
+    assert seen[2:] == [(sm.bm, sm.bn, sm.bk)]

@@ -1,6 +1,6 @@
 """Split TF32, the float32 arithmetic of kernels B1-B4, on the CPU.
 
-``chip_smoke.py`` holds B1 (``csrc/matmul.cu``), B2
+``chip_smoke.py`` holds B1 (``csrc/matmul.cuh``), B2
 (``csrc/flash_fwd.cu``) and B3/B4 (``csrc/flash_bwd.cu``) against their
 plain versions at the float32 tolerances the FP32-FMA kernels before them
 met: ``matmul_f32_tol(k)`` (``atol = 1e-5 * sqrt(k)``),
