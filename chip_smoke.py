@@ -85,7 +85,11 @@ Phases (any failed check raises and the script exits non-zero):
    512->2048 scheduled as path (b)'s, softmax(row_tile=32), the
    cross-entropy, adam) on [2048, 512] rows: predict (two row chains,
    one B1 launch) and three fit steps launch the kernels as the stats
-   say and agree with the CPU port; the time of a train step;
+   say and agree with the CPU port; the time of a train step; each of
+   the step's B5 kernels (none a scatter) timed alone beside its bound
+   (bytes over 3.35 TB/s) and a torch call of the same traffic
+   (torch.sum of its largest operand over the dims it reduces, or
+   torch.mul);
 12. hold the paged decode-attention kernel (B7) against its plain
    version (decode_attention over gather_view) on the seven cases of
    tests/test_paged_attention.py, path (e)'s decode step, bench.py's
@@ -209,6 +213,21 @@ Phases (any failed check raises and the script exits non-zero):
    from the 2 x 2 world, load_sharded on (a)'s world of one, predict
    the same.  The times printed beside the card's name and power limit
    show the cost of staging through the host, not a gain.
+22. the cost model on the card (exprgrad_torch/backend/policy.py): the
+   loaded constants with the card they were measured on; a short run of
+   scripts/calibrate_torch.py's calibrate (3 walls a case), each fresh
+   constant beside the committed one (printed, not a bound); then under
+   schedule_mode="auto" and "force", each from a fresh executor on the
+   same device tensors: path (a) at 4096^3 float32, the same contraction
+   at 1024^3 and 4096^3 bfloat16, path (b)'s MLP predict, path (c)'s softmax 8192^2
+   and scatter-add, path (d)'s head predict and the serving predict.  For
+   each, every kernel's decision and reason; the routed program's output
+   equal to force's within the path's tolerance; each kernel launched as
+   often as the decisions say (B1 once a matmul the model keeps, B5 once
+   a kernel, B6 once a chain, B2 twice in the serving predict); every
+   routing away a ScheduleWarning and a schedule-fallback stat; the auto
+   call's time beside force's (CUDA events, 10 calls, the median of 4
+   turns of the two, alternating which goes first).
 
 B1-B4 compute float32 on the tensor cores as split TF32 and are held
 to the same tolerances as the float32 kernels before them
@@ -231,6 +250,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1842,7 +1862,8 @@ def bf16_kernel_vs_plain(egt, graph, args, epoch=3):
     from exprgrad_torch.backend.executor import TorchExecutor
     from exprgrad_torch.passes import infer_shapes
 
-    model = egt.compile(graph, seed=0, device="cuda")
+    model = egt.compile(graph, seed=0, schedule_mode="force",
+                        device="cuda")
     prog = model.program.copy()
     prog.scalar_type = egt.ir.ScalarType.BF16
     shapes = infer_shapes(prog, "out", [(prog.inputs[n], list(v.shape))
@@ -2273,7 +2294,79 @@ def path_d(egt, gpu) -> dict:
     step_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
     print(f"path (d) train step [{rows},{dim}]: {step_ms:.2f} ms (mean of "
           f"{TIMED_STEPS} warm steps) on {gpu}")
-    return {"predict": predict_launches, "fit": fit_launches}
+    step_kernels = time_step_kernels(model, batch, gpu)
+    return {"predict": predict_launches, "fit": fit_launches,
+            "step_kernels": step_kernels}
+
+
+def _library_twin(mr, tensors):
+    """(label, fn) of one torch call of a B5 kernel's traffic: torch.sum
+    of its largest operand over the dims the kernel reduces, or torch.mul
+    of its two largest operands of the same shape."""
+    reads = sorted(mr.kernel.reads, key=lambda r: tensors[r.tensor].numel(),
+                   reverse=True)
+    x = tensors[reads[0].tensor]
+    if mr.red_axes:
+        dims = [d for d, a in enumerate(mr.read_axes[reads[0].data])
+                if a in mr.red_axes]
+        return (f"torch.sum(dim={tuple(dims)})",
+                lambda: torch.sum(x, dim=dims))
+    same = [tensors[r.tensor] for r in reads[1:]
+            if tensors[r.tensor].shape == x.shape]
+    y = same[0] if same else x
+    return "torch.mul", lambda: torch.mul(x, y)
+
+
+def time_step_kernels(model, batch, gpu) -> list:
+    """Phase 11: each B5 kernel of path (d)'s train step alone, on the
+    tensors one step hands it (CUDA events, 50 calls), beside its bound
+    (its bytes, every read tensor and the output once, over 3.35 TB/s)
+    and a torch call of the same traffic.  These launches are not the
+    main path's: the counters are read before."""
+    from exprgrad_torch.ops import mapreduce
+
+    (ex,) = [ex for (name, _), ex in model._executors.items()
+             if name == "train"]
+    lows = {}
+    for i, low in ex._lowerings.items():
+        if (i in ex._skip_kernels or i in ex.fused or i in ex.row_fused
+                or low.kernel.extern is not None or not low._bounds_ok
+                or low.scheduled_route() != "mapreduce"):
+            continue
+        lows[id(low.scheduled_mapreduce().compiled())] = low
+    seen = {}
+    real = mapreduce.mapreduce_impl
+
+    def spy(kern, tensors, epoch):
+        if id(kern) in lows and id(kern) not in seen:
+            seen[id(kern)] = (kern, {t: tensors[t] for t in kern.args},
+                              epoch)
+        return real(kern, tensors, epoch)
+
+    mapreduce.mapreduce_impl = spy
+    try:
+        model.apply("train", batch)
+    finally:
+        mapreduce.mapreduce_impl = real
+    torch.cuda.synchronize()
+    rows = []
+    for key, (kern, tensors, epoch) in seen.items():
+        low = lows[key]
+        mr = low.scheduled_mapreduce()
+        ms = cuda_ms(lambda: real(kern, tensors, epoch), iters=50)
+        label, fn = _library_twin(mr, tensors)
+        library = cuda_ms(fn, iters=50)
+        bound_ms = mr.total_bytes / PEAK_HBM_BYTES * 1e3
+        rows.append({"kernel": low._kernel_desc(), "ms": ms,
+                     "bound_ms": bound_ms, "bytes": mr.total_bytes,
+                     "library": label, "library_ms": library})
+        print(f"path (d) step B5 {low._kernel_desc()} "
+              f"{[tuple(low.shapes[r.tensor]) for r in low.kernel.reads]} "
+              f"-> {tuple(low.shapes[low.kernel.write.tensor])}: {ms:.5f} "
+              f"ms, bound {bound_ms:.5f} ms ({mr.total_bytes} bytes), "
+              f"{label} {library:.5f} ms on {gpu}")
+    assert len(rows) == len(lows), (len(rows), len(lows))
+    return rows
 
 
 # --- paged serving: kernel B7 and the continuous batcher (phase 12) -------
@@ -4760,6 +4853,210 @@ def path_m(egt, model, gpu) -> dict:
     return totals
 
 
+# --- the cost model on the card (phase 22) -------------------------------
+
+def calibrate_module():
+    """scripts/calibrate_torch.py of this checkout, as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / "calibrate_torch.py"
+    spec = importlib.util.spec_from_file_location("calibrate_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ran(ex, i) -> bool:
+    """Whether kernel ``i`` of an executor runs through its own lowering
+    (not folded into B1's epilogue or a row chain, not an extern)."""
+    low = ex._lowerings.get(i)
+    return (low is not None and i not in ex._skip_kernels
+            and i not in ex.fused and i not in ex.row_fused
+            and low.kernel.extern is None and low._bounds_ok)
+
+
+def routed(egt, name, graph, target, args, tol, dtype="float32") -> dict:
+    """One program under schedule_mode="auto" and "force", each a fresh
+    executor on the same device tensors: the decisions, the launches
+    against them, the outputs against each other and the two times."""
+    from exprgrad_torch.backend.executor import TorchExecutor
+    from exprgrad_torch.model import matmul_precision
+    from exprgrad_torch.ops import attention, mapreduce, matmul, rowchain
+    from exprgrad_torch.passes import infer_shapes
+
+    base = egt.compile(graph, seed=0, schedule_mode="force", device="cuda")
+    prog = base.program
+    if dtype == "bfloat16":  # the compiled program in bfloat16
+        prog = prog.copy()
+        prog.scalar_type = egt.ir.ScalarType.BF16
+    tdt = getattr(torch, dtype)
+    shapes = infer_shapes(prog, target, base._input_shapes(args))
+    tensors = {prog.inputs[n]: torch.from_numpy(v).to(base.device, tdt)
+               for n, v in args.items()}
+    tensors.update({t: p.to(tdt) for t, p in base.params.items()})
+    out_tid = prog.targets[target].output
+    counters = {"B1": matmul, "B2": attention, "B5": mapreduce,
+                "B6": rowchain}
+    runs = {}
+    for mode in ("auto", "force"):
+        ex = TorchExecutor(prog, target, shapes, base.device,
+                           schedule_mode=mode)
+        for c in counters.values():
+            c.launches = 0
+        with warnings.catch_warnings(record=True) as caught, \
+                matmul_precision(base.precision):
+            warnings.simplefilter("always")
+            out = ex.run(dict(tensors), shapes, 1, 0)[out_tid]
+            torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        runs[mode] = dict(ex=ex, out=out, launches=launches, ms=[],
+                          warned=[str(w.message) for w in caught
+                                  if issubclass(w.category,
+                                                egt.ScheduleWarning)])
+    # the two in turns, each turn's first side alternating; the medians
+    with matmul_precision(base.precision):
+        for turn in range(4):
+            for mode in (("auto", "force") if turn % 2 == 0
+                         else ("force", "auto")):
+                ex = runs[mode]["ex"]
+                runs[mode]["ms"].append(cuda_ms(
+                    lambda: ex.run(dict(tensors), shapes, 1, 0),
+                    iters=10, warmup=2))
+    for run in runs.values():
+        run["ms"] = float(np.median(run["ms"]))
+    ex, fex = runs["auto"]["ex"], runs["force"]["ex"]
+    pol = ex.policy
+    lines = []
+    for i, (sm, _) in sorted(fex.fused.items()):
+        d = pol.contraction(sm.m, sm.n, sm.k, ex.dtype)
+        lines.append(f"B1 {fex._lowering(i)._kernel_desc()} "
+                     f"{sm.m}x{sm.n}x{sm.k} (with its epilogue): "
+                     f"{'kernel' if d.use_pallas else 'plain'}, {d.reason}")
+        assert (i in ex.fused) == d.use_pallas, (name, i, d)
+    for i, chain in sorted(fex.row_fused.items()):
+        d = pol.rowchain(chain.operand_bytes, chain.out_bytes,
+                         len(chain.members))
+        lines.append(f"B6 chain at {chain.members[0].low._kernel_desc()} "
+                     f"({len(chain.members)} members, "
+                     f"{chain.operand_bytes} + {chain.out_bytes} bytes): "
+                     f"{'kernel' if d.use_pallas else 'plain'}, {d.reason}")
+        assert (i in ex.row_fused) == d.use_pallas, (name, i, d)
+    away = 0
+    for i in sorted(ex._lowerings):
+        if not _ran(ex, i):
+            continue
+        low = ex._lowerings[i]
+        route, reason = low.scheduled_decision()
+        if route is None and reason is None:
+            continue
+        sm = low.scheduled_matmul()
+        b1 = not low._general_only() and sm.ok
+        if reason is None or reason.startswith("cost model"):
+            # the model's decision: kept (no fallback reason) or routed away
+            mr = low.scheduled_mapreduce()
+            reason = (pol.contraction(sm.m, sm.n, sm.k, ex.dtype) if b1 else
+                      pol.mapreduce(mr.total_bytes, mr.gather_work * 4)
+                      ).reason
+            away += route is None
+        lines.append(f"{'B1' if b1 else 'B5'} {low._kernel_desc()}: "
+                     f"{route or 'plain'}, {reason}")
+    for i, low in sorted(ex._lowerings.items()):
+        ext = low.kernel.extern
+        if ext is not None and ext.name == "attention":
+            q, k = (low.shapes[t] for t in ext.inputs[:2])
+            d = pol.attention(q[0], q[1], q[2], k[2], q[3])
+            lines.append(f"B2 attention {q} x {k}: "
+                         f"{'flash' if d.use_pallas else 'plain'}, "
+                         f"{d.reason}")
+            break
+    gens = ex.generated_kernels()
+    want = {"B1": len(ex.fused) + sum(
+                _ran(ex, i) and ex._lowerings[i].scheduled_route()
+                == "matmul" for i in ex._lowerings),
+            "B2": ex.stats.get("attention-impl:flash", 0),
+            "B5": sum(g.startswith("B5 ") for g in gens),
+            "B6": sum(g.startswith("B6 ") for g in gens)}
+    got = runs["auto"]["launches"]
+    stats = ex.stats
+    cost_warned = sum("cost model" in w for w in runs["auto"]["warned"])
+    err = assert_same(f"phase 22 {name}", runs["auto"]["out"].float().cpu(),
+                      runs["force"]["out"].float().cpu(), tol)
+    print(f"cost model, {name}:")
+    for line in lines:
+        print(f"  {line}")
+    print(f"  auto: launches {got}, stats {stats}, {cost_warned} "
+          f"ScheduleWarning(s) naming the cost model; force: launches "
+          f"{runs['force']['launches']}; auto vs force max |err| "
+          f"{err:.3e}; a call {runs['auto']['ms']:.4f} ms auto, "
+          f"{runs['force']['ms']:.4f} ms force (CUDA events) on {gpu_line()}")
+    assert got == want, (name, got, want)
+    assert cost_warned == away, (name, cost_warned, away)
+    assert stats.get("schedule-fallback", 0) >= away, (name, stats, away)
+    return {"launches": got, "auto_ms": runs["auto"]["ms"],
+            "force_ms": runs["force"]["ms"], "away": away, "err": err}
+
+
+def phase_cost_model(egt, gpu) -> dict:
+    """Phase 22: the loaded constants, a short calibration beside them,
+    then the paths' programs under auto against force."""
+    from exprgrad_torch.backend import policy
+    from exprgrad_torch.models import flash_transformer
+
+    constants = policy._load_constants()
+    print(f"cost model: constants measured on {constants['card']} "
+          f"(calibrated: {constants['calibrated']}), this card {gpu}: "
+          f"{ {k: round(v, 4) for k, v in constants.items() if k in policy._DEFAULTS} }")
+    calib = calibrate_module()
+    fresh = calib.calibrate(reps=3, quick=True)
+    print(calib.table(fresh))
+    for key in sorted(policy._DEFAULTS):
+        print(f"cost model constant {key}: fresh {fresh['constants'][key]:.6g}"
+              f", committed {constants[key]:.6g}")
+
+    rng = np.random.default_rng(22)
+
+    def mats(n):
+        return {"a": rng.standard_normal((n, n), dtype=np.float32),
+                "b": rng.standard_normal((n, n), dtype=np.float32)}
+
+    out = {}
+    out["path (a) 4096^3 float32"] = routed(
+        egt, "path (a) 4096^3 float32", matmul_graph(egt, MATMUL_TILE), "c",
+        mats(MATMUL_N), matmul_f32_tol(MATMUL_N))
+    out["1024^3 bfloat16"] = routed(
+        egt, "1024^3 bfloat16", matmul_graph(egt, MATMUL_TILE), "c",
+        mats(BLOCK_BF16_N), MATMUL_BF16_OUT, dtype="bfloat16")
+    out["path (a) 4096^3 bfloat16"] = routed(
+        egt, "path (a) 4096^3 bfloat16", matmul_graph(egt, MATMUL_TILE),
+        "c", mats(MATMUL_N), MATMUL_BF16_OUT, dtype="bfloat16")
+    out["path (b) MLP predict"] = routed(
+        egt, "path (b) MLP predict", scheduled_mlp(egt, **MLP), "predict",
+        {"v": rng.standard_normal((MLP_ROWS, MLP["dim"]), dtype=np.float32)},
+        matmul_f32_tol(MLP["hidden"]))
+    for name, graph, target, args, _ in path_c_programs(egt)[:2]:
+        tol = SOFTMAX_TOL if name.startswith("softmax") else GEN_SCATTER
+        out[f"path (c) {name}"] = routed(egt, f"path (c) {name}", graph,
+                                         target, args, tol)
+    out["path (d) head predict"] = routed(
+        egt, "path (d) head predict",
+        transformer_head(egt, HEAD["dim"], HEAD["vocab"]), "predict",
+        {"x": rng.standard_normal((HEAD["rows"], HEAD["dim"]),
+                                  dtype=np.float32)}, PREDICT)
+    tokens = rng.integers(0, SERVING["vocab"], (BATCH, SEQ)).astype(
+        np.float32)
+    out["serving predict"] = routed(
+        egt, "serving predict", flash_transformer(**SERVING), "predict",
+        {"tokens": tokens}, PREDICT)
+    assert out["serving predict"]["launches"]["B2"] == 2, out
+    launches = {k: sum(r["launches"][k] for r in out.values())
+                for k in ("B1", "B2", "B5", "B6")}
+    print(f"cost model: under auto {sum(r['away'] for r in out.values())} "
+          f"kernel(s) routed away by the cost model; launches {launches}")
+    return {"programs": out, "launches": launches,
+            "constants": {k: constants[k] for k in policy._DEFAULTS},
+            "fresh": fresh["constants"]}
+
+
 def phase_done(name, since) -> float:
     """Print a phase's seconds; returns the time it ended."""
     now = time.perf_counter()
@@ -4897,7 +5194,8 @@ def main() -> int:
     print("serve checks: prefill matches predict, greedy matches predict")
 
     # a length the TPU kernels' block rule sends to plain attention: on
-    # the port "auto" still launches the kernel, once per block
+    # the port "auto" asks the cost model, whose H100 constants choose
+    # the kernel here, once per block
     before = attention.launches
     ragged = model.call("predict", {"tokens": tokens[:2, :200]})
     assert attention.launches - before == 2, attention.launches - before
@@ -5030,6 +5328,7 @@ def main() -> int:
     path_c_launches = path_c(egt, gpu)
     t_phase = phase_done("10 (path (c))", t_phase)
     path_d_launches = path_d(egt, gpu)
+    step_kernels = path_d_launches.pop("step_kernels")
     t_phase = phase_done("11 (path (d))", t_phase)
     gen_launches = {
         kind: path_c_launches[kind] + sum(
@@ -5101,9 +5400,16 @@ def main() -> int:
     # gloo worlds of 2 and 4 spawned ranks on this card, each drive with
     # the counters at 0 just before it ---------------------------------
     path_m_run = path_m(egt, model, gpu)
-    phase_done("21 (path (m): tensor-parallel serving and batching, "
-               "sharded training, sequence-parallel attention, sharded "
-               "checkpoints)", t_phase)
+    t_phase = phase_done("21 (path (m): tensor-parallel serving and "
+                         "batching, sharded training, sequence-parallel "
+                         "attention, sharded checkpoints)", t_phase)
+
+    # 22. the cost model on the card: a short calibration, then the
+    # paths' programs under schedule_mode="auto" against "force", each
+    # with the counters at 0 just before it ---------------------------
+    cost_model = phase_cost_model(egt, gpu)
+    phase_done("22 (the cost model: calibration, auto against force)",
+               t_phase)
     j_launches = path_j_run["launches"]
     flash_launches = {"forward": launches + path_g_run["launches"]["forward"]
                       + path_i_run["b2"] + j_launches["forward"]
@@ -5115,10 +5421,13 @@ def main() -> int:
                       + path_g_run["launches"]["dkv"] + j_launches["dkv"]
                       + path_m_run["dkv"]}
     mm_launches += (extras["launches"]["B1"] + exported["matmul"]
-                    + path_m_run["b1"])
+                    + path_m_run["b1"] + cost_model["launches"]["B1"])
+    flash_launches["forward"] += cost_model["launches"]["B2"]
     print(f"path (m) (phase 21) launches, every rank's: {path_m_run}")
-    gen_launches["mapreduce"] += path_m_run["b5"]
-    gen_launches["rowchain"] += path_m_run["b6"]
+    gen_launches["mapreduce"] += (path_m_run["b5"]
+                                  + cost_model["launches"]["B5"])
+    gen_launches["rowchain"] += (path_m_run["b6"]
+                                 + cost_model["launches"]["B6"])
     for kind in ("mapreduce", "rowchain"):
         gen_launches[kind] += exported[kind]
     print(f"exported plans with generated kernels (phase 19): launches "
@@ -5199,14 +5508,19 @@ def main() -> int:
                              "bound_by": res["bound"][1]}
                      for shape, res in mm_blocks.items()},
              path_a={"tile_ms": path_a_run["ms"],
-                     "tuned_blocks": path_a_run["blocks"]}),
-        row("scheduled_mapreduce", "exprgrad_torch/ops/mapreduce.py",
-            "exprgrad_tpu/backend/pallasgen.py:1804", gen_launches[
-                "mapreduce"], max(gen_err["mapreduce"],
-                                  gen_times["mapreduce"]["err"]),
-            gen_times["mapreduce"]["kernel"], gen_times["mapreduce"]["plain"],
-            gen_times["mapreduce"]["library"], gen_times["mapreduce"]["bound"],
-            route="triton"),
+                     "tuned_blocks": path_a_run["blocks"]},
+             cost_model={name: {k: r[k] for k in ("launches", "auto_ms",
+                                                  "force_ms", "away")}
+                         for name, r in cost_model["programs"].items()}),
+        dict(row("scheduled_mapreduce", "exprgrad_torch/ops/mapreduce.py",
+                 "exprgrad_tpu/backend/pallasgen.py:1804", gen_launches[
+                     "mapreduce"], max(gen_err["mapreduce"],
+                                       gen_times["mapreduce"]["err"]),
+                 gen_times["mapreduce"]["kernel"],
+                 gen_times["mapreduce"]["plain"],
+                 gen_times["mapreduce"]["library"],
+                 gen_times["mapreduce"]["bound"], route="triton"),
+             head_step=step_kernels),
         row("scheduled_rowchain", "exprgrad_torch/ops/rowchain.py",
             "exprgrad_tpu/backend/pallasgen.py:2375", gen_launches[
                 "rowchain"], max(gen_err["rowchain"],

@@ -698,7 +698,69 @@ class ScheduledMapReduce:
         for a in self.red_axes:
             if a not in self.p_axes and a not in self.q_axes:
                 self.phantom *= low.sizes[a]
+        self._count_bytes()
         return True
+
+    def _count_bytes(self) -> None:
+        """The cost model's inputs (``policy.mapreduce``), counted as the
+        JAX package counts them (``pallasgen.py:1782-1800``):
+        ``total_bytes``, every read's and the write's whole tensor, and
+        ``gather_work``, V candidate values a loop position for each
+        computed-index read and for a scatter, over the loop's positions
+        as the JAX planner pads them (:meth:`_counted_positions`)."""
+        low = self.low
+        item = low.dtype.itemsize
+
+        def size(tid):
+            return int(np.prod(low.shapes[tid], dtype=np.int64))
+
+        self.total_bytes = (sum(size(r.tensor) for r in self.kernel.reads)
+                            + size(self.kernel.write.tensor)) * item
+        positions = self._counted_positions()
+        work = sum(positions * g["V"] for g in self.gather_reads.values())
+        if self.scatter is not None:
+            work += positions * self.scatter["V"]
+        self.gather_work = work
+
+    def _counted_positions(self) -> int:
+        """The loop's positions with each tiled axis padded as the JAX
+        planner pads it (``pallasgen.py:1588-1632``: a tile that does not
+        divide its extent, or is not a multiple of its aligned block, is
+        rounded up to that alignment and the extent to the tile), so both
+        packages charge one work measure.  B5 masks instead of padding;
+        the calibrated work rates absorb the difference."""
+        from math import gcd
+
+        low = self.low
+        n = low.nloops
+        sub = 16 if low.dtype == torch.bfloat16 else 8
+
+        def align(a):
+            return 128 if a == n - 1 else sub if a == n - 2 else 1
+
+        req = {a: align(a) for a in range(n)}
+        for data, axes in self.read_axes.items():
+            for a, (kind, p, _c, _d) in zip(axes, self.read_plans[data]):
+                if kind == "div":
+                    need = p * align(a)
+                    req[a] = req[a] * need // gcd(req[a], need)
+
+        def round_up(x, m):
+            return -(-x // m) * m
+
+        positions = 1
+        for axis, loop in enumerate(self.kernel.loops):
+            extent = int(low.sizes[axis])
+            sched = loop.schedule
+            if sched.tile and not sched.share_cache \
+                    and axis not in self.whole_axes:
+                t = min(sched.tile_size, extent)
+                if extent % t or (t != extent and t % req[axis]):
+                    t = min(round_up(t, req[axis]),
+                            round_up(extent, req[axis]))
+                    extent = round_up(extent, t)
+            positions *= extent
+        return positions
 
     def _plan_segments(self) -> None:
         """The owner-computes plan of a scatter.  Its positions run over

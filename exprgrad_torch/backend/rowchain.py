@@ -56,6 +56,35 @@ class RowChain:
         self.p_axes, self.q_axes = p_axes, q_axes
         self.block_p, self.num_warps = block_p, num_warps
         self._compiled = None
+        self._count_bytes()
+
+    def _count_bytes(self) -> None:
+        """The cost model's inputs (``policy.rowchain``), counted as the
+        JAX package counts them (``pallasgen.py:2362-2372``):
+        ``operand_bytes``, each distinct operand the chain reads from
+        outside (one per tensor and read pattern), and ``out_bytes``, the
+        final tensor and the escaping intermediates."""
+        low = self.members[0].low
+        item = low.dtype.itemsize
+
+        def size(tid):
+            return int(np.prod(low.shapes[tid], dtype=np.int64))
+
+        produced = {k.write.tensor for k in self.kernels[:-1]}
+        operands: dict[tuple, int] = {}
+        for m in self.members:
+            for read in m.kernel.reads:
+                if read.tensor in produced:
+                    continue
+                key = (read.tensor, tuple(m.read_axes[read.data]),
+                       tuple(m.read_plans[read.data]),
+                       m.read_perms.get(read.data),
+                       read.data in m.flat_reads)
+                operands.setdefault(key, size(read.tensor))
+        self.operand_bytes = sum(operands.values()) * item
+        self.out_bytes = sum(
+            size(self.kernels[mi].write.tensor)
+            for mi in self.out_members) * item
 
     @property
     def out_members(self) -> list[int]:
@@ -100,6 +129,7 @@ def plan_rowchain_fusions(program, target, lowering_for, policy=None,
     whether kernel ``i`` may run fused into the chain kernel ``head``
     starts (``may_join(head, head)``: whether ``head`` may start one)."""
     if policy is not None and not policy.routes_schedules:
+        # every chain would be declined at the decision anyway
         return {}, set(), set(), []
 
     kernels = target.kernels
@@ -225,7 +255,13 @@ def plan_rowchain_fusions(program, target, lowering_for, policy=None,
             declines.append((idx, plan))
             idx += 1
             continue
-        fused[idx] = RowChain(members, member_idx, escaping, *plan)
+        chain = RowChain(members, member_idx, escaping, *plan)
+        if policy is not None and not policy.rowchain(
+                chain.operand_bytes, chain.out_bytes,
+                len(members)).use_pallas:
+            idx += 1  # the members run one by one, each asking mapreduce
+            continue
+        fused[idx] = chain
         skipped_kernels.update(member_idx[1:])
         esc_set = set(escaping)
         skipped_tensors.update(

@@ -517,8 +517,9 @@ def plan_epilogue_fusions(program, target, shapes, dtype, device,
         sm = ScheduledMatmul(low1, kernel)
         if not sm.ok:
             continue
-        if policy is not None and not policy.routes_schedules:
-            continue
+        if policy is not None and not policy.contraction(
+                sm.m, sm.n, sm.k, dtype).use_pallas:
+            continue  # run() reports the fallback of the scheduled kernel
         # frame: the value's [rows, cols] layout as stored
         rows, cols = (sm.n, sm.m) if sm.transposed else (sm.m, sm.n)
 

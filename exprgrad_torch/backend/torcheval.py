@@ -31,10 +31,12 @@ that updates them has finished.
 Scheduled kernels (``Fun.schedule``) are routed first, in the order of
 ``jaxeval.py``, under the policy of :mod:`~exprgrad_torch.backend.policy`:
 a contraction the classifier of :mod:`~exprgrad_torch.backend.scheduled`
-accepts runs kernel B1 (stat ``matmul``); any other kernel the classifier
-of :mod:`~exprgrad_torch.backend.mapreduce` accepts runs a generated
-map/reduce kernel, B5 (stat ``mapreduce``).  A kernel both decline lowers
-through the paths above with a ``ScheduleWarning`` and a
+accepts runs kernel B1 (stat ``matmul``) where ``policy.contraction``
+says so; any other kernel the classifier of
+:mod:`~exprgrad_torch.backend.mapreduce` accepts runs a generated
+map/reduce kernel, B5 (stat ``mapreduce``), where ``policy.mapreduce``
+says so.  A kernel the cost model routes away, or both classifiers
+decline, lowers through the paths above with a ``ScheduleWarning`` and a
 ``schedule-fallback`` stat; a matmul-shaped kernel that B1 declined late
 reports B1's reason.  Runs of map/reduce kernels that fuse into one row
 chain (B6) never reach this module: the executor runs them.
@@ -190,6 +192,7 @@ class KernelLowering:
         self._matmul: Optional[ScheduledMatmul] = None
         self._mapreduce: Optional[ScheduledMapReduce] = None
         self._conv: Optional[ConvMatch] = None
+        self._decision: Optional[tuple] = None  # scheduled_decision()
 
     # ------------------------------------------------------------------
     def _const(self, value):
@@ -895,7 +898,7 @@ class KernelLowering:
         if key not in self.extern_memo:
             edef = get_extern(ext.name)
             args = [tensors[tid] for tid in ext.inputs]
-            ctx = ExternContext(stats=stats)
+            ctx = ExternContext(stats=stats, policy=self.policy)
             result = edef.torch_fn(args, dict(ext.attrs), ctx)
             if not isinstance(result, tuple):
                 result = (result,)
@@ -956,15 +959,52 @@ class KernelLowering:
 
     def scheduled_route(self):
         """The scheduled kernel this kernel runs: ``"matmul"`` (B1),
-        ``"mapreduce"`` (B5, generated), or None when it is not scheduled,
-        the policy ignores schedules, or both classifiers decline."""
-        if not (is_scheduled(self.kernel) and self.policy.routes_schedules):
-            return None
-        if not self._general_only() and self.scheduled_matmul().ok:
-            return "matmul"
-        if self.scheduled_mapreduce().ok:
-            return "mapreduce"
-        return None
+        ``"mapreduce"`` (B5, generated), or None."""
+        return self.scheduled_decision()[0]
+
+    def scheduled_decision(self):
+        """``(route, fallback reason)``, decided once, as the JAX
+        package's ``KernelLowering.run`` decides: a kernel B1 accepts asks
+        ``policy.contraction``; any other ``policy.mapreduce`` with the
+        classifier's byte counts.  The route is None, and the reason too,
+        when the kernel is not scheduled or the policy ignores schedules;
+        the route is None with a reason when the cost model or both
+        classifiers send a scheduled kernel to the plain lowering."""
+        if self._decision is not None:
+            return self._decision
+        route = reason = None
+        if is_scheduled(self.kernel) and self.policy.routes_schedules:
+            sm = None
+            if not self._general_only():
+                sm = self.scheduled_matmul()
+                if sm.ok:
+                    decision = self.policy.contraction(sm.m, sm.n, sm.k,
+                                                       self.dtype)
+                    if decision.use_pallas:
+                        route = "matmul"
+                    else:
+                        reason = decision.reason
+            if route is None and reason is None:
+                mr = self.scheduled_mapreduce()
+                if mr.ok:
+                    decision = self.policy.mapreduce(mr.total_bytes,
+                                                     mr.gather_work * 4)
+                    if decision.use_pallas:
+                        route = "mapreduce"
+                    else:
+                        reason = decision.reason
+                else:
+                    # a matmul-shaped kernel that B1 declined late
+                    # (transposed operands) reports that cause, not the
+                    # map/reduce classifier's generic "contraction"
+                    why = mr.why
+                    if (sm is not None and why.startswith("contraction")
+                            and ("tile sizes" in sm.why
+                                 or "transposed" in sm.why)):
+                        why = sm.why
+                    reason = f"unsupported kernel shape ({why})"
+        self._decision = (route, reason)
+        return self._decision
 
     def run_plain(self, tensors: dict, epoch: int):
         """The new value of the kernel's output by its plain lowering (the
@@ -1000,24 +1040,13 @@ class KernelLowering:
         general_only = self._general_only()
         result = None
         path = "einsum"
-        fallback_reason = None
-        route = self.scheduled_route()
+        route, fallback_reason = self.scheduled_decision()
         if route == "matmul":
             path = "matmul"
             result = self.scheduled_matmul().lower(tensors)
         elif route == "mapreduce":
             path = "mapreduce"
             result = self.scheduled_mapreduce().lower(tensors)
-        elif is_scheduled(self.kernel) and self.policy.routes_schedules:
-            # a matmul-shaped kernel that B1 declined late (transposed
-            # operands) reports that cause, not the map/reduce
-            # classifier's generic "contraction"
-            sm = None if general_only else self.scheduled_matmul()
-            why = self.scheduled_mapreduce().why
-            if (sm is not None and why.startswith("contraction")
-                    and ("tile sizes" in sm.why or "transposed" in sm.why)):
-                why = sm.why
-            fallback_reason = f"unsupported kernel shape ({why})"
         conv_decline = None
         if result is None and not general_only:
             result = self._try_contraction(tensors)

@@ -26,10 +26,9 @@ the whole source (the encoder's, and the decoder's cross-attention) are
 plain softmax in the JAX package, not a Pallas kernel, and stay plain
 torch here; the decoder's self-attention is ``ops.decode``'s.
 
-Caches: :meth:`Seq2SeqServer.prefill` and ``_step`` consume the caches
-they are given, as ``FlashLMServer`` does: K/V are written in place and
-the returned caches share the tensors (the JAX package's are
-functional).  To branch, clone the tensors first.
+Caches: functional, as the JAX package's and ``FlashLMServer``'s: K/V
+are written in place while calls run on linearly, and a call on an older
+cache copies the storage first (``ops.decode.append``'s copy on write).
 """
 
 from __future__ import annotations
@@ -41,7 +40,8 @@ import numpy as np
 import torch
 
 from ..errors import ModelRuntimeError
-from ..ops.decode import append, append_at, decode_attention, init_cache
+from ..ops.decode import (append, append_at, decode_attention, init_cache,
+                          rewind)
 from ..quant import check_weight_dtype
 from ._beam import beam_search_loop, replicate_caches
 from ._quant import QuantW, dequantize, quantize_weight
@@ -367,8 +367,10 @@ class Seq2SeqServer:
         return logits, new_caches
 
     def prefill(self, tokens, enc: _Enc, caches):
-        """Run a whole target prefix, filling the self-attention caches
-        (consumed, as ``_step``'s); returns (logits, caches)."""
+        """Run a whole target prefix, filling the self-attention caches;
+        returns (logits, caches).  The caches are functional, as
+        ``FlashLMServer.prefill``'s: every cache given or returned earlier
+        keeps its values (``ops.decode.append``'s copy on write)."""
         return self._step(tokens, enc, caches)
 
     def _check_src(self, s_len: int, n_pos: int, what: str) -> None:
@@ -540,7 +542,7 @@ class Seq2SeqServer:
         return speculative_loop(
             draft_step=lambda toks, st: draft._step(toks, enc_d, st),
             target_step=lambda toks, st: self._step(toks, enc_t, st),
-            rewind=lambda st, ln: [c._replace(length=int(ln)) for c in st],
+            rewind=lambda st, ln: [rewind(c, ln) for c in st],
             length_of=lambda st: st[0].length,
             dstate=dc, tstate=tc, first=first, n_new=n_new, k=k,
             temperature=temperature, generator=gen)

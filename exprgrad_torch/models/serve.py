@@ -32,7 +32,8 @@ import torch
 
 from ..errors import ModelRuntimeError
 from ..ops.attention import flash_attention_forward
-from ..ops.decode import append, append_at, decode_attention, init_cache
+from ..ops.decode import (append, append_at, decode_attention, init_cache,
+                          rewind)
 from ..quant import check_weight_dtype
 from ..utils.buckets import bucket_for, normalize_buckets
 from ._beam import beam_search_loop, replicate_caches
@@ -440,19 +441,20 @@ class FlashLMServer:
         """Run the whole prompt ([batch, t] float ids) through the model,
         filling the caches; returns (logits [batch, t, vocab], caches).
 
-        The caches are consumed: their K/V tensors are written in place
-        and the returned caches share them, unlike the JAX package's
-        functional caches.  To decode two continuations from one state,
-        clone the tensors first (``c._replace(k=c.k.clone(),
-        v=c.v.clone())`` for each cache)."""
+        The caches are functional, as the JAX package's: the returned
+        caches hold the new rows and every cache given or returned earlier
+        keeps its values, so two continuations may be decoded from one
+        state.  The rows are written in place while the calls run on
+        linearly; a call on an older cache copies the storage first
+        (``ops.decode.append``'s copy on write)."""
         tokens = self._tokens(tokens)
         start = caches[0].length
         x = self._embed_tokens(tokens, start)
         return self._step(x, caches, start)
 
     def decode(self, token, caches):
-        """One token per sequence ([batch, 1]); O(cache) per step.  Consumes
-        ``caches`` as :meth:`prefill` does."""
+        """One token per sequence ([batch, 1]); O(cache) per step.  The
+        caches are functional, as :meth:`prefill`'s."""
         return self.prefill(token, caches)
 
     def set_prompt_buckets(self, buckets) -> None:
@@ -730,7 +732,7 @@ class FlashLMServer:
         return capacity
 
     def _rewind(self, caches, length: int):
-        return [c._replace(length=int(length)) for c in caches]
+        return [rewind(c, length) for c in caches]
 
     def generate_speculative(
         self,

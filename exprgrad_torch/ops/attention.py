@@ -368,3 +368,117 @@ def flash_attention(q, k, v, sm_scale: Optional[float] = None,
     """``softmax(scale * q k^T + mask) v``, differentiable in q, k and v
     through the flash kernels (their plain versions on the CPU)."""
     return _FlashAttention.apply(q, k, v, sm_scale, causal, offsets, window)
+
+
+# the CUDA kernels' tiles: csrc/flash_fwd.cu (kBlockQ query rows a block,
+# kBlockK kv rows a streamed tile) and csrc/flash_bwd.cu (kBlock rows a
+# block owns, kStream rows a streamed tile: dq owns query rows and
+# streams kv, dkv owns kv rows and streams query rows)
+FWD_BLOCK_Q, FWD_BLOCK_K = 32, 64
+BWD_BLOCK, BWD_STREAM = 32, 64
+
+
+def _span(lo: int, hi: int, tile: int) -> int:
+    """Tiles of ``tile`` rows meeting the inclusive range [lo, hi]."""
+    return 0 if hi < lo else hi // tile - lo // tile + 1
+
+
+def _kv_visits(sq, skv, rows, tile, causal, window) -> int:
+    """Streamed kv tiles a kernel owning ``rows`` query rows a block
+    visits in all: each block's ``kv_band`` (csrc/flash_common.cuh)."""
+    n = 0
+    for q0 in range(0, sq, rows):
+        r_last = min(q0 + rows, sq) - 1
+        c_lo, c_hi = 0, skv - 1
+        if window is not None:
+            c_lo = max(c_lo, q0 - window + 1)
+        if causal:
+            c_hi = min(c_hi, r_last)
+        n += _span(c_lo, c_hi, tile)
+    return n
+
+
+def _q_visits(sq, skv, rows, tile, causal, window) -> int:
+    """Streamed query tiles a kernel owning ``rows`` kv rows a block
+    visits in all (a query head's): each block's ``q_band``."""
+    n = 0
+    for k0 in range(0, skv, rows):
+        c_last = min(k0 + rows, skv) - 1
+        r_lo, r_hi = 0, sq - 1
+        if causal:
+            r_lo = max(r_lo, k0)
+        if window is not None:
+            r_hi = min(r_hi, c_last + window - 1)
+        n += _span(r_lo, r_hi, tile)
+    return n
+
+
+def _live_pairs(sq, skv, q_rows, kv_rows, causal, window) -> int:
+    """(query tile, kv tile) pairs of a lattice holding an unmasked
+    score."""
+    n = 0
+    for q0 in range(0, sq, q_rows):
+        q_hi = min(q0 + q_rows, sq) - 1
+        for k0 in range(0, skv, kv_rows):
+            k_hi = min(k0 + kv_rows, skv) - 1
+            if causal and k0 > q_hi:
+                continue
+            if window is not None and k_hi <= q0 - window:
+                continue
+            n += 1
+    return n
+
+
+def flash_tile_counts(sq: int, skv: int, block_q: Optional[int] = None,
+                      block_k: Optional[int] = None, causal: bool = True,
+                      window=None) -> dict:
+    """Visited-against-live tile accounting of the flash kernels, per
+    (batch * head) slice: host arithmetic, no device.
+
+    Counterpart of ``exprgrad_tpu/ops/attention.py:156``, with its keys:
+    for each kernel (``fwd``, ``dq``, ``dkv``) ``visited``, the (owned
+    block, streamed tile) steps the kernel takes; ``live``, the pairs of
+    its lattice holding at least one unmasked score; ``dead = visited -
+    live``.  ``full`` is the forward's rectangular lattice; windowed,
+    ``causal_visited`` (what the forward visits without the window) and
+    ``tile_bound`` (``causal_visited / fwd visited``).
+
+    The grids are the CUDA kernels' as ``csrc/flash_fwd.cu`` and
+    ``csrc/flash_bwd.cu`` launch them (no ``offsets``): a block of
+    :data:`FWD_BLOCK_Q` query rows streams the kv tiles of
+    :data:`FWD_BLOCK_K` rows of its causal/window band; dq owns
+    :data:`BWD_BLOCK` query rows and streams :data:`BWD_STREAM` kv rows;
+    dkv owns :data:`BWD_BLOCK` kv rows and streams :data:`BWD_STREAM`
+    query rows (dkv's lattice is its own, ``ceil(skv / 32) * ceil(sq /
+    64)`` pairs; it equals ``full`` when ``sq == skv``).  Each block
+    visits exactly its band, so ``dead`` is 0 on every shape.  Given
+    ``block_q``/``block_k``, all three take that one lattice, as the JAX
+    function does; the counts then equal the JAX function's where its
+    grids visit only live tiles too (causal without a window and ``sq ==
+    skv``, or not causal) and the blocks divide the lengths.  Its banded
+    window grid and its rectangular causal grid (``sq != skv``) visit
+    dead tiles the port's bands skip."""
+    if window is not None and not causal:
+        raise ValueError("window requires causal=True")
+    fq, fk = block_q or FWD_BLOCK_Q, block_k or FWD_BLOCK_K
+    bq, bs = (block_q or BWD_BLOCK), (block_k or BWD_STREAM)
+    kq, ks = (block_k or BWD_BLOCK), (block_q or BWD_STREAM)
+
+    def entry(visited, live):
+        return {"visited": visited, "live": live, "dead": visited - live}
+
+    fwd_visited = _kv_visits(sq, skv, fq, fk, causal, window)
+    out = {
+        "fwd": entry(fwd_visited,
+                     _live_pairs(sq, skv, fq, fk, causal, window)),
+        "dq": entry(_kv_visits(sq, skv, bq, bs, causal, window),
+                    _live_pairs(sq, skv, bq, bs, causal, window)),
+        "dkv": entry(_q_visits(sq, skv, kq, ks, causal, window),
+                     _live_pairs(sq, skv, ks, kq, causal, window)),
+        "full": -(-sq // fq) * -(-skv // fk),
+    }
+    if window is not None:
+        causal_visited = _kv_visits(sq, skv, fq, fk, True, None)
+        out["causal_visited"] = causal_visited
+        out["tile_bound"] = round(causal_visited / fwd_visited, 3)
+    return out

@@ -6,6 +6,17 @@ masking.  The JAX package keeps the cache functional; PyTorch runs
 eagerly, so here ``append`` and ``append_at`` write the new rows in
 place (no copy of the cache per token) and return the cache.
 
+``append`` keeps the caches functional all the same, by copy on write:
+the storage carries a "written up to" mark (:func:`written`), and an
+append to a cache whose ``length`` is below the mark (an older cache of
+the same storage, whose rows past ``length`` a newer one holds) first
+clones the storage (:func:`_own`).  A cache a call returned therefore
+keeps its values, and decoding from an older cache never changes a newer
+one, while a linear loop copies nothing.  A loop that owns its caches and
+rewinds them (speculation's rejected proposals) lowers the mark with
+:func:`rewind`.  ``append_at`` (per-row cursors, the batcher's own
+caches) writes in place.
+
 ``decode_attention`` without positions attends only the ``length``
 filled rows (the JAX version masks the whole static capacity; the rows
 it also scores contribute exactly zero, so the result is the same).
@@ -82,18 +93,47 @@ def _store(cache, index, k_new, v_new):
         cache.v[index] = v_new.to(cache.v.dtype)
 
 
+def written(cache: KVCache) -> int:
+    """The rows of ``cache``'s storage some cache of it holds: the mark
+    its last append left, or ``cache.length`` for storage no append has
+    written (fresh, cloned or gathered tensors)."""
+    return getattr(cache.k, "_egt_written", cache.length)
+
+
+def _own(cache: KVCache) -> KVCache:
+    """``cache`` on a copy of its storage (copy on write)."""
+    def copy(x):
+        return None if x is None else x.clone()
+
+    return cache._replace(k=copy(cache.k), v=copy(cache.v),
+                          k_scale=copy(cache.k_scale),
+                          v_scale=copy(cache.v_scale))
+
+
+def rewind(cache: KVCache, length: int) -> KVCache:
+    """``cache`` cut back to ``length`` rows, for a loop that owns its
+    caches: the storage's mark comes down with it, so the next append
+    writes in place."""
+    cache.k._egt_written = int(length)
+    return cache._replace(length=int(length))
+
+
 def append(cache: KVCache, k_new: torch.Tensor,
            v_new: torch.Tensor) -> KVCache:
-    """Write ``t`` new positions at ``cache.length`` (in place) and return
-    the cache with the new length."""
+    """Write ``t`` new positions at ``cache.length`` and return the cache
+    with the new length: in place, or on a copy of the storage when a
+    newer cache holds rows past ``cache.length`` (copy on write)."""
     t = k_new.shape[2]
     end = cache.length + t
     if end > cache.k.shape[2]:
         raise ValueError(
             f"cache overflow: {end} rows needed, capacity {cache.k.shape[2]}"
         )
+    if cache.length < written(cache):
+        cache = _own(cache)
     _store(cache, (slice(None), slice(None), slice(cache.length, end)),
            k_new, v_new)
+    cache.k._egt_written = end
     return cache._replace(length=end)
 
 

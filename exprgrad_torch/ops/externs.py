@@ -14,12 +14,15 @@ attribute:
   :func:`~.attention.attention_backward_plain`, plain torch attention
   that materializes the weights, as the JAX package's non-kernel path
   does (on any device).  Taken only when asked for.
-* ``"auto"``  — ``flash``, for every shape.  The JAX package routes
-  shapes that miss its TPU block divisibility, or that its TPU-calibrated
-  cost model prefers, to ``xla``; the CUDA kernel tiles with bounds
-  checks and takes any sequence length, so neither rule is carried over.
-  On the card a shape the kernel cannot take (head_dim > 128, a dtype
-  other than float32/bfloat16) raises instead of running the plain path.
+* ``"auto"``  — the policy's choice
+  (:meth:`~exprgrad_torch.backend.policy.SchedulePolicy.attention`), the
+  cost model measured on the card by ``scripts/calibrate_torch.py``, as
+  the JAX package asks its own.  The JAX package also sends shapes that
+  miss its TPU kernels' block divisibility (``_flash_ok``) to ``xla``;
+  the CUDA kernels tile with bounds checks and take any sequence length,
+  so that rule is not carried over.  On the card a shape the kernel
+  cannot take (head_dim > 128, a dtype other than float32/bfloat16)
+  raises instead of running the plain path.
 
 The forward returns ``(out, lse [b*h, sq])``, the backward
 ``(dq, dk, dv)``; they record the same ``attention-impl:*`` and
@@ -48,11 +51,25 @@ def _window(attrs: dict):
     return w if w > 0 else None
 
 
-def _pick_impl(attrs: dict) -> str:
+def _pick_impl(attrs: dict, shapes, ctx) -> str:
+    """The impl to run: the attribute, or under ``"auto"`` the policy's
+    decision for ``shapes`` (q's ``[b, h, sq, d]``, then k's), as the JAX
+    package's ``_pick_impl``.  Its ``_flash_ok`` (the TPU kernels' block
+    divisibility) is not carried over: the CUDA kernels take any
+    sequence length."""
     impl = attrs.get("impl", "auto")
     if impl not in ("auto", "flash", "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    return "flash" if impl == "auto" else impl
+    if impl != "auto":
+        return impl
+    b, h, sq, d = shapes[0]
+    skv = shapes[1][2]
+    policy = getattr(ctx, "policy", None)
+    if policy is None:
+        from ..backend.policy import SchedulePolicy
+
+        policy = SchedulePolicy("auto")
+    return "flash" if policy.attention(b, h, sq, skv, d).use_pallas else "xla"
 
 
 def _attention(args, attrs, ctx):
@@ -60,7 +77,7 @@ def _attention(args, attrs, ctx):
     scale = _scale(attrs, q.shape[-1])
     causal = bool(attrs.get("causal", False))
     window = _window(attrs)
-    impl = _pick_impl(attrs)
+    impl = _pick_impl(attrs, [a.shape for a in args], ctx)
     if ctx is not None:
         ctx.record(f"attention-impl:{impl}")
     if impl == "flash":
@@ -74,7 +91,7 @@ def _attention_grad(args, attrs, ctx):
     scale = _scale(attrs, q.shape[-1])
     causal = bool(attrs.get("causal", False))
     window = _window(attrs)
-    impl = _pick_impl(attrs)
+    impl = _pick_impl(attrs, [a.shape for a in args[:3]], ctx)
     if ctx is not None:
         ctx.record(f"attention-grad-impl:{impl}")
     if impl == "flash":

@@ -21,6 +21,7 @@ class ExternContext:
     """What the executor hands an extern implementation."""
 
     stats: Optional[dict] = None  # executor lowering-stats dict or None
+    policy: Optional[object] = None  # the executor's SchedulePolicy
 
     def record(self, key: str) -> None:
         """Count a lowering decision (e.g. which attention impl ran) into

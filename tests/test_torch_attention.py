@@ -158,22 +158,55 @@ def test_wrapper_rejects_other_devices_and_bad_shapes():
 @pytest.mark.parametrize("sq,skv", [(64, 64), (128, 256), (200, 200),
                                     (256, 384), (96, 1000)])
 def test_auto_routes_to_flash(sq, skv):
-    """On the port ``auto`` means the flash kernel for every shape, also
-    those the JAX package sends to plain attention for its TPU block
-    divisibility; ``xla`` is taken only when asked for."""
+    """``auto`` asks the policy (``SchedulePolicy.attention``), as the JAX
+    package's ``_pick_impl`` does: under the port's H100 calibration flash
+    wins at these shapes, also those the JAX package sends to plain
+    attention for its TPU block divisibility (``_flash_ok``, not carried
+    over); under constants where plain attention wins, ``auto`` runs
+    ``attention_forward_plain`` and records ``attention-impl:xla``; under
+    the JAX package's constants the two choose alike where its blocks
+    divide.  ``flash``/``xla`` are taken when asked for."""
+    from exprgrad_torch.backend.policy import SchedulePolicy
+    from exprgrad_tpu.backend.policy import SchedulePolicy as JaxPolicy
+
     q = torch.from_numpy(_qkv(1, 1, 1, sq, 8, 8)[0])
     k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 1, skv, skv, 8)[1:])
-    assert port_externs._pick_impl({"impl": "auto"}) == "flash"
-    assert port_externs._pick_impl({}) == "flash"
-    assert port_externs._pick_impl({"impl": "xla"}) == "xla"
+    shapes = [q.shape, k.shape]
+    assert port_externs._pick_impl({"impl": "auto"}, shapes, None) == "flash"
+    assert port_externs._pick_impl({}, shapes, None) == "flash"
+    assert port_externs._pick_impl({"impl": "xla"}, shapes, None) == "xla"
     with pytest.raises(ValueError, match="unknown attention impl"):
-        port_externs._pick_impl({"impl": "pallas"})
-    ctx = ExternContext(stats={})
+        port_externs._pick_impl({"impl": "pallas"}, shapes, None)
+    ctx = ExternContext(stats={}, policy=SchedulePolicy("auto"))
     out, lse = port_externs._attention([q, k, v], {"causal": True}, ctx)
     assert ctx.stats == {"attention-impl:flash": 1}
     want_out, want_lse = port.attention_forward_plain(q, k, v, causal=True)
     torch.testing.assert_close(out, want_out, rtol=0, atol=0)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=0)
+
+    slow = SchedulePolicy("force")  # the mode does not enter attention
+    slow.constants = dict(slow.constants, flash_attention_tflops=1e-9)
+    ctx = ExternContext(stats={}, policy=slow)
+    out, _ = port_externs._attention([q, k, v], {"causal": True}, ctx)
+    assert ctx.stats == {"attention-impl:xla": 1}
+    torch.testing.assert_close(out, want_out, rtol=0, atol=0)
+
+    jpol = JaxPolicy("auto")
+    ppol = SchedulePolicy("auto")
+    ppol.constants = dict(
+        ppol.constants, attention_plain_launch_us=0.0,
+        attention_flash_launch_us=jpol.constants["pallas_launch_us"],
+        flash_attention_tflops=jpol.constants["flash_attention_tflops"],
+        plain_attention_tflops=jpol.constants["xla_attention_tflops"])
+
+    class Ctx:
+        policy = None
+
+    jctx, pctx = Ctx(), Ctx()
+    jctx.policy, pctx.policy = jpol, ppol
+    got = port_externs._pick_impl({}, shapes, pctx)
+    if jax_externs._flash_ok(sq, skv):
+        assert got == jax_externs._pick_impl({}, shapes, jctx)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -189,3 +222,95 @@ def test_kernel_library_is_keyed_by_sources():
     assert path.parent == kernels.BUILD_DIR
     assert path.name.startswith("libegt_kernels_") and path.suffix == ".so"
     assert kernels.BUILD_DIR.parts[-2:] == ("build", "exprgrad_torch")
+
+
+# --- flash_tile_counts: the CUDA kernels' grids ----------------------------
+
+def test_flash_tile_counts_bench_shape():
+    """The window bench shape (S=4096, W=512): each block of the CUDA
+    kernels visits exactly its band, so every visited tile is live, at the
+    kernels' own blocks and at the JAX kernel's 128-blocks (where the JAX
+    banded grid visits 160 tiles of 150 live); the causal triangle visits
+    as the JAX enumeration does."""
+    from exprgrad_tpu.ops.attention import flash_tile_counts as jax_counts
+
+    t = port.flash_tile_counts(4096, 4096, causal=True, window=512)
+    for kern in ("fwd", "dq", "dkv"):
+        assert t[kern] == {"visited": 1080, "live": 1080, "dead": 0}, t
+    assert t["full"] == 128 * 64 and t["causal_visited"] == 4160
+    assert t["tile_bound"] == round(4160 / 1080, 3)
+
+    t = port.flash_tile_counts(4096, 4096, 128, 128, causal=True, window=512)
+    j = jax_counts(4096, 4096, 128, 128, causal=True, window=512)
+    assert set(t) == set(j)
+    for kern in ("fwd", "dq", "dkv"):
+        assert t[kern]["live"] == j[kern]["live"] == 150
+        assert t[kern]["visited"] == 150 < j[kern]["visited"] == 160
+    assert t["causal_visited"] == j["causal_visited"] == 528
+    assert t["full"] == j["full"]
+
+
+@pytest.mark.parametrize("bq,bk", [(128, 128), (128, 256), (256, 128),
+                                   (64, 64), (32, 64)])
+@pytest.mark.parametrize("s,causal", [(4096, True), (4096, False),
+                                      (1024, True), (1024, False)])
+def test_flash_tile_counts_match_jax_where_grids_agree(bq, bk, s, causal):
+    """Causal without a window on a square shape (the JAX kernels'
+    triangle enumeration) and non-causal (the full grid): the same blocks
+    give the JAX function's counts, key for key; windowed, the live
+    counts agree."""
+    from exprgrad_tpu.ops.attention import flash_tile_counts as jax_counts
+
+    assert port.flash_tile_counts(s, s, bq, bk, causal=causal) == \
+        jax_counts(s, s, bq, bk, causal=causal)
+    if causal:
+        t = port.flash_tile_counts(s, s, bq, bk, window=300)
+        j = jax_counts(s, s, bq, bk, window=300)
+        for kern in ("fwd", "dq", "dkv"):
+            assert t[kern]["live"] == j[kern]["live"]
+            assert t[kern]["visited"] <= j[kern]["visited"]
+
+
+def _live_brute(sq, skv, q_rows, kv_rows, causal, window):
+    rows = np.arange(sq)[:, None]
+    cols = np.arange(skv)[None, :]
+    keep = np.ones((sq, skv), bool)
+    if causal:
+        keep &= cols <= rows
+    if window is not None:
+        keep &= cols > rows - window
+    n = 0
+    for q0 in range(0, sq, q_rows):
+        for k0 in range(0, skv, kv_rows):
+            n += bool(keep[q0:q0 + q_rows, k0:k0 + kv_rows].any())
+    return n
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (4096, 4096, True, 512), (256, 256, True, None), (200, 77, True, None),
+    (77, 200, True, None), (300, 300, True, 45), (1000, 96, False, None),
+    (64, 64, True, 1), (33, 33, True, 7)])
+def test_flash_tile_counts_invariants(sq, skv, causal, window):
+    """visited = live + dead, visited <= the kernel's rectangular lattice,
+    dead 0 (each block visits its band only), and live as a brute-force
+    element mask counts it."""
+    t = port.flash_tile_counts(sq, skv, causal=causal, window=window)
+    lattices = {
+        "fwd": (port.FWD_BLOCK_Q, port.FWD_BLOCK_K),
+        "dq": (port.BWD_BLOCK, port.BWD_STREAM),
+        "dkv": (port.BWD_STREAM, port.BWD_BLOCK),  # (query, kv) rows
+    }
+    for kern, (q_rows, kv_rows) in lattices.items():
+        c = t[kern]
+        rect = -(-sq // q_rows) * -(-skv // kv_rows)
+        assert c["visited"] == c["live"] + c["dead"]
+        assert c["visited"] <= rect and c["dead"] == 0
+        assert c["live"] == _live_brute(sq, skv, q_rows, kv_rows, causal,
+                                        window)
+    assert t["fwd"]["visited"] <= t["full"]
+    if sq == skv:
+        assert all(t[k]["visited"] <= t["full"] for k in lattices)
+    if window is not None:
+        assert t["causal_visited"] >= t["fwd"]["visited"]
+    with pytest.raises(ValueError, match="window requires causal"):
+        port.flash_tile_counts(sq, skv, causal=False, window=4)

@@ -674,22 +674,36 @@ def test_bfloat16_routes_as_float32():
     assert ".to(tl.bfloat16)" in source
 
 
-def test_auto_takes_the_kernel_where_jax_falls_back():
-    """schedule_mode="auto": the JAX package's TPU-calibrated cost model
-    sends a small scheduled map kernel to XLA with a ScheduleWarning; the
-    port has no H100 cost model yet and takes B5 whenever the classifier
-    accepts (ROADMAP.md C)."""
+def test_auto_takes_the_kernel_where_jax_falls_back(monkeypatch):
+    """schedule_mode="auto" asks the cost model (``policy.mapreduce`` with
+    the classifier's byte counts): under the JAX package's calibrated
+    constants both packages send a small scheduled map to the plain
+    lowering with a ScheduleWarning and the same stats; under the port's
+    H100 calibration the stats follow the port's own decision; "ignore"
+    never runs B5."""
+    from test_torch_policy import _auto_models, _out
+
     port_graph, args = fam_elementwise(egt)
-    ref_graph, _ = fam_elementwise(exprgrad_tpu)
     port = egt.compile(port_graph, seed=0, device="cpu")
-    ref = compile(ref_graph, seed=0, backend="jax")
-    with warnings.catch_warnings():
-        warnings.simplefilter("error", egt.ScheduleWarning)
+    got = port.call("out", args)
+    (ex,) = port._executors.values()
+    (low,) = ex._lowerings.values()
+    mr = low.scheduled_mapreduce()
+    decision = ex.policy.mapreduce(mr.total_bytes, mr.gather_work * 4)
+    stats = port.lowering_stats("out")
+    assert stats.get("mapreduce", 0) == int(decision.use_pallas)
+    assert stats.get("schedule-fallback", 0) == int(not decision.use_pallas)
+
+    port, ref, args, _ = _auto_models(_out(fam_elementwise),
+                                      "jax_calibration", monkeypatch)
+    with pytest.warns(egt.ScheduleWarning, match="cost model"):
         got = port.call("out", args)
     np.testing.assert_allclose(got, np.asarray(ref.call("out", args)), **F32)
-    assert port.lowering_stats("out") == {"mapreduce": 1}
+    assert port.lowering_stats("out") == _mapped(ref.lowering_stats("out"))
     assert ref.lowering_stats("out")["schedule-fallback"] == 1
     ignore = egt.compile(port_graph, seed=0, schedule_mode="ignore",
                          device="cpu")
-    ignore.call("out", args)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", egt.ScheduleWarning)
+        ignore.call("out", args)
     assert "mapreduce" not in ignore.lowering_stats("out")

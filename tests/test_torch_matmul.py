@@ -546,19 +546,37 @@ def test_scheduled_mlp_train_steps_match_jax():
     assert port.lowering_stats("predict") == {"matmul-fused": 2}
 
 
-def test_auto_takes_the_kernel_where_jax_falls_back():
-    """schedule_mode="auto": the JAX package's TPU-calibrated cost model
-    sends a scheduled matmul to XLA with a ScheduleWarning; the port has
-    no H100 cost model yet and takes the kernel whenever the classifier
-    accepts (ROADMAP.md C)."""
-    port_graph, args = PROGRAMS["dense_bias_relu"](egt)
-    jax_graph, _ = PROGRAMS["dense_bias_relu"](exprgrad_tpu)
-    port = egt.compile(port_graph.target("d"), device="cpu")
-    ref = compile(jax_graph.target("d"), backend="jax")
-    np.testing.assert_allclose(port.call("d", args),
-                               np.asarray(ref.call("d", args)), **F32)
-    assert port.lowering_stats("d") == {"matmul-fused": 1}
-    assert ref.lowering_stats("d")["schedule-fallback"] == 1
+def test_auto_takes_the_kernel_where_jax_falls_back(monkeypatch):
+    """schedule_mode="auto" asks the cost model (``policy.contraction``):
+    under the JAX package's calibrated constants both packages send the
+    scheduled matmul to the plain lowering with a ScheduleWarning and the
+    same stats; under the port's H100 calibration the stats follow the
+    port's own decision for the kernel's (m, n, k)."""
+    from test_torch_policy import _auto_models, _matmul_program
+
+    build = _matmul_program("dense_bias_relu")
+    port_graph, args, out = build(egt)
+    want = egt.compile(port_graph, device="cpu",
+                       schedule_mode="ignore").call(out, args)
+    port = egt.compile(port_graph, device="cpu")
+    np.testing.assert_allclose(port.call(out, args), want, **F32)
+    (ex,) = port._executors.values()
+    (sm,) = [sm for sm, _ in ex.fused.values()] + [
+        low.scheduled_matmul() for low in ex._lowerings.values()
+        if low.scheduled_matmul().ok]
+    decision = ex.policy.contraction(sm.m, sm.n, sm.k, "float32")
+    stats = port.lowering_stats(out)
+    assert stats.get("matmul-fused", 0) == int(decision.use_pallas)
+    assert stats.get("schedule-fallback", 0) == int(not decision.use_pallas)
+
+    port, ref, args, out = _auto_models(build, "jax_calibration",
+                                        monkeypatch)
+    with pytest.warns(egt.ScheduleWarning, match="cost model"):
+        got = port.call(out, args)
+    np.testing.assert_allclose(got, np.asarray(ref.call(out, args)), **F32)
+    np.testing.assert_allclose(got, want, **F32)
+    assert port.lowering_stats(out) == _mapped(ref.lowering_stats(out))
+    assert ref.lowering_stats(out)["schedule-fallback"] == 1
 
 
 # --- the block a schedule gives kernel B1 ---------------------------------

@@ -421,17 +421,37 @@ def test_chain_is_planned_once_per_executor():
     assert port.lowering_stats("out") == {"rowchain": 1}
 
 
-def test_auto_takes_the_chain_ignore_never():
-    """schedule_mode="auto" fuses whenever the planner accepts (the JAX
-    package weighs its TPU-calibrated bandwidths instead; ROADMAP.md C);
-    "ignore" runs the members on the plain paths, silently."""
-    graph, args = softmax_chain(egt, {"y": 32})
+def test_auto_takes_the_chain_ignore_never(monkeypatch):
+    """schedule_mode="auto" fuses a chain the planner accepts where the
+    cost model (``policy.rowchain`` with the chain's byte counts) says so:
+    under the port's H100 calibration the stats follow its decision;
+    under the JAX package's calibrated constants both packages decline
+    the small softmax chain and run its members one by one, the same
+    stats; "ignore" runs the members on the plain paths, silently."""
+    from test_torch_policy import _auto_models, _out
+
+    build = _out(lambda m: softmax_chain(m, {"y": 32}))
+    graph, args, _ = build(egt)
     auto = egt.compile(graph, seed=0, device="cpu")
     ignore = egt.compile(graph, seed=0, schedule_mode="ignore", device="cpu")
+    got = auto.call("out", args)
     with warnings.catch_warnings():
         warnings.simplefilter("error", egt.ScheduleWarning)
-        got = auto.call("out", args)
         want = ignore.call("out", args)
     np.testing.assert_allclose(got, want, **F32)
-    assert auto.lowering_stats("out") == {"rowchain": 1}
+    force = egt.compile(graph, seed=0, schedule_mode="force", device="cpu")
+    force.call("out", args)
+    (chain,) = _chains(force)
+    (ex,) = auto._executors.values()
+    decision = ex.policy.rowchain(chain.operand_bytes, chain.out_bytes,
+                                  len(chain.members))
+    assert auto.lowering_stats("out").get("rowchain", 0) == int(
+        decision.use_pallas)
     assert "rowchain" not in ignore.lowering_stats("out")
+
+    port, ref, args, _ = _auto_models(build, "jax_calibration", monkeypatch)
+    got = port.call("out", args)
+    np.testing.assert_allclose(got, np.asarray(ref.call("out", args)), **F32)
+    stats = port.lowering_stats("out")
+    assert stats == _mapped(ref.lowering_stats("out"))
+    assert "rowchain" not in stats and stats["schedule-fallback"] == 3

@@ -147,15 +147,30 @@ def test_incremental_steps_equal_prefill(servers):
 
 
 def test_prefill_consumes_its_caches(servers):
-    """As FlashLMServer's: K/V land in the given cache tensors, and the
-    returned caches share them (the JAX package's are functional)."""
-    _, tsrv = servers
+    """Caches are functional, as the JAX package's: a prefill writes the
+    given storage in place (nothing newer holds it), and two branches
+    prefilled from one cache equal the JAX server's, the first branch's
+    caches keeping their values."""
+    jsrv, tsrv = servers
     caches = tsrv.init_caches(1, 8)
     k0 = caches[0].k
-    _, out = tsrv.prefill(_src(6, (1, 3)), tsrv.encode(_src(7, (1, 6))),
-                          caches)
+    enc = tsrv.encode(_src(7, (1, 6)))
+    _, out = tsrv.prefill(_src(6, (1, 3)), enc, caches)
     assert out[0].k is k0 and bool((k0[:, :, :3] != 0).any())
     assert caches[0].length == 0 and out[0].length == 3
+    a, b = _src(8, (1, 2)), _src(9, (1, 2))
+    got_a, ca = tsrv.prefill(a, enc, out)
+    kept = [c.k.clone() for c in ca]
+    got_b, cb = tsrv.prefill(b, enc, out)
+    assert cb[0].k.data_ptr() != ca[0].k.data_ptr()
+    for c, k in zip(ca, kept):
+        assert c.length == 5 and torch.equal(c.k, k)
+    jenc = jsrv.encode(_src(7, (1, 6)))
+    _, jc = jsrv.prefill(_src(6, (1, 3)), jenc, jsrv.init_caches(1, 8))
+    ja, _ = jsrv.prefill(a, jenc, jc)
+    jb, _ = jsrv.prefill(b, jenc, jc)
+    np.testing.assert_allclose(_np(got_a), np.asarray(ja), **TOL)
+    np.testing.assert_allclose(_np(got_b), np.asarray(jb), **TOL)
 
 
 def test_ragged_sources_match_solo_and_jax(servers):

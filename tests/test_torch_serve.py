@@ -86,29 +86,53 @@ def test_incremental_decode_matches_prefill():
                                **TOL)
 
 
-def test_decode_consumes_caches_and_clones_branch():
-    """prefill/decode write K/V into the caches they are given (the JAX
-    package's caches are functional); a branch decoded from clones is
-    independent and matches prefill of its own tokens."""
-    port = egt.compile(flash_transformer(vocab=VOCAB, dim=16, heads=2),
-                       seed=4, device="cpu")
+def test_decode_consumes_caches_and_clones_branch(monkeypatch):
+    """Caches are functional, as the JAX package's: two branches decoded
+    from one cache equal the JAX server's two branches, the first
+    branch's caches keep their values after the second is decoded, and
+    only the branch copies the storage (copy on write): the linear path
+    writes in place and generation loops clone nothing."""
+    from exprgrad_torch.ops import decode as port_decode
+
+    ref, port = _trained(steps=5)
+    jsrv = JaxServer(ref, cache_dtype=jnp.float32)
     server = FlashLMServer(port, cache_dtype=torch.float32)
+    clones = []
+    real_own = port_decode._own
+    monkeypatch.setattr(port_decode, "_own",
+                        lambda c: clones.append(1) or real_own(c))
     toks = np.random.default_rng(4).integers(0, VOCAB, (2, 6)).astype(
         np.float32)
-    _, caches = server.prefill(toks, server.init_caches(2))
-    branch = [c._replace(k=c.k.clone(), v=c.v.clone()) for c in caches]
-    before = caches[0].k.clone()
     a = np.full((2, 1), 1.0, np.float32)
     b = np.full((2, 1), 5.0, np.float32)
-    _, after = server.decode(a, caches)
-    assert after[0].k.data_ptr() == caches[0].k.data_ptr()
-    assert caches[0].length == 6 and after[0].length == 7
-    assert not torch.equal(caches[0].k[:, :, 6], before[:, :, 6])
-    torch.testing.assert_close(branch[0].k, before, rtol=0, atol=0)
-    got, _ = server.decode(b, branch)
-    full, _ = server.prefill(np.concatenate([toks, b], axis=1),
-                             server.init_caches(2))
-    np.testing.assert_allclose(got[:, 0].numpy(), full[:, -1].numpy(), **TOL)
+    _, jc = jsrv.prefill(toks, jsrv.init_caches(2))
+    ja, _ = jsrv.decode(a, jc)
+    jb, _ = jsrv.decode(b, jc)
+
+    _, caches = server.prefill(toks, server.init_caches(2))
+    got_a, after = server.decode(a, caches)
+    assert after[0].k.data_ptr() == caches[0].k.data_ptr()  # in place
+    assert not clones
+    kept = [(c.k.clone(), c.v.clone(), c.length) for c in after]
+    got_b, branch = server.decode(b, caches)
+    assert len(clones) == len(caches)  # one copy a block, for the branch
+    assert branch[0].k.data_ptr() != after[0].k.data_ptr()
+    for c, (k, v, length) in zip(after, kept):
+        assert c.length == length == 7
+        assert torch.equal(c.k, k) and torch.equal(c.v, v)
+    assert caches[0].length == 6
+    np.testing.assert_allclose(got_a.numpy(), np.asarray(ja), **TOL)
+    np.testing.assert_allclose(got_b.numpy(), np.asarray(jb), **TOL)
+    # the first branch decodes on from its caches as if b never ran
+    got_a2, _ = server.decode(b, after)
+    ja2, _ = jsrv.decode(b, jsrv.decode(a, jc)[1])
+    np.testing.assert_allclose(got_a2.numpy(), np.asarray(ja2), **TOL)
+
+    clones.clear()
+    server.generate(toks[:, :3], n_new=5)
+    server.generate_speculative(server, toks[:1, :3], n_new=6, k=2)
+    server.generate_beam(toks[:1, :3], n_new=4, beams=2)
+    assert not clones
 
 
 def test_greedy_generate_matches_jax_server():
