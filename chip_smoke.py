@@ -13,7 +13,9 @@ training, sequence-parallel attention and sharded checkpoints.
 
 Phases (any failed check raises and the script exits non-zero):
 
-1. build the port's CUDA kernels from exprgrad_torch/csrc;
+1. build the port's CUDA kernels from exprgrad_torch/csrc, and beside
+   them the generated kernels' launcher (csrc/launch.cpp, the C++
+   implementations of the ops that launch B5 and B6);
 2. hold the flash-attention kernels (forward; backward dq and dkv)
    against their plain PyTorch versions on the card at the serving shape
    and at GQA, window, rectangular, offset, dead-row, head_dim 36,
@@ -74,7 +76,10 @@ Phases (any failed check raises and the script exits non-zero):
    the JAX package's three map/reduce fuzzers, and bench.py's scatter-add
    with every index on one destination, with 90% on one and with 5%
    outside [0, v); every case runs the generated kernels twice, which
-   must give the same bits; and time B6
+   must give the same bits (a column sum of 1024 rows among the
+   families takes B5's split reduction and its combine kernel); the
+   launch path: later calls launch from C++, an operand off 16 bytes is
+   copied and gives the same bits, a float64 operand raises; and time B6
    at softmax 8192^2 and B5 at bench.py's scatter-add (n=16384, v=2048,
    d=512) beside their plain versions, torch.softmax and index_add;
 10. path (c): the programs of examples/scheduled_kernels.py sections 3-9
@@ -89,7 +94,8 @@ Phases (any failed check raises and the script exits non-zero):
    the step's B5 kernels (none a scatter) timed alone beside its bound
    (bytes over 3.35 TB/s) and a torch call of the same traffic
    (torch.sum of its largest operand over the dims it reduces, or
-   torch.mul);
+   torch.mul), with its plan and its PTX's 16-byte loads, and at the end
+   of the run its device time and the torch call's by torch.profiler;
 12. hold the paged decode-attention kernel (B7) against its plain
    version (decode_attention over gather_view) on the seven cases of
    tests/test_paged_attention.py, path (e)'s decode step, bench.py's
@@ -244,6 +250,8 @@ last is the JSON list of kernels (time, bound, plain and library times);
 the last line is a JSON object naming the device.
 """
 
+import concurrent.futures
+import faulthandler
 import json
 import math
 import os
@@ -942,6 +950,19 @@ def fam_constant_write(m):
     return out.target("out"), {"a": av, "b": bv}
 
 
+def fam_column_reduction(m):
+    """A column sum (the stride-1 axis written, the strided one reduced),
+    tall enough that B5 splits the reduction and combines the partials
+    (squares: sums in other orders agree to float32)."""
+    a, b = m.input("a"), m.input("b")
+    y, x = m.iters("y", "x")
+    out = m.Fun("out")
+    out[x] = m.sq(a[y, x] - b[y, x])
+    out.schedule(tile={"x": 64})
+    av, bv = _normal(71, (1024, 64), (1024, 64))
+    return out.target("out"), {"a": av, "b": bv}
+
+
 def fam_triangular(m):
     a = m.input("a")
     y = m.iters("y")
@@ -1077,6 +1098,7 @@ MAPREDUCE_FAMILIES = {
     "permuted_write": fam_permuted_write,
     "permuted_read": fam_permuted_read,
     "constant_write": fam_constant_write,
+    "column_reduction": fam_column_reduction,
     "triangular": fam_triangular,
     "epoch": fam_epoch,
     "ragged": fam_ragged,
@@ -2004,6 +2026,57 @@ def check_scatter_cases(egt) -> float:
     return worst
 
 
+def check_launch_path(egt, gpu) -> None:
+    """Phase 9 (c): the generated kernels' launch path
+    (``csrc/launch.cpp``).  A kernel's first call on the card registers
+    its launch table; later calls launch from C++ (no first call, one
+    count each); an operand at an address off 16 bytes (a view at an odd
+    offset) is copied and gives the aligned operand's bits; an operand
+    of another dtype raises; prints the host us a call."""
+    from exprgrad_torch.ops import mapreduce
+    from exprgrad_torch.utils import launcher
+
+    graph, args = fam_column_reduction(egt)
+    model = egt.compile(graph, seed=0, schedule_mode="force", device="cuda")
+    model.call("out", args)
+    ex = executor_of(model)
+    (low,) = ex._lowerings.values()
+    kern = low.scheduled_mapreduce().compiled()
+    prog = model.program
+    out_t = prog.targets["out"].output
+    a = torch.from_numpy(args["a"]).cuda()
+    b = torch.from_numpy(args["b"]).cuda()
+    spare = torch.empty(a.numel() + 1, device="cuda")
+    spare[1:] = a.reshape(-1)
+    shifted = spare[1:].view(a.shape)
+    assert shifted.data_ptr() % 16
+    tensors = {prog.inputs["a"]: a, prog.inputs["b"]: b,
+               out_t: torch.zeros(ex.shapes[out_t], device="cuda")}
+    first, count = launcher.first_calls(), mapreduce.launches
+    got = [mapreduce.mapreduce_impl(kern, tensors, 1) for _ in range(2)]
+    got.append(mapreduce.mapreduce_impl(
+        kern, {**tensors, prog.inputs["a"]: shifted}, 1))
+    torch.cuda.synchronize()
+    assert launcher.first_calls() == first, "a call found no launch table"
+    assert mapreduce.launches - count == 3, mapreduce.launches - count
+    assert all(torch.equal(got[0], g) for g in got[1:]), \
+        "the launches differ (an operand off 16 bytes included)"
+    try:
+        mapreduce.mapreduce_impl(kern, {**tensors,
+                                        prog.inputs["a"]: a.double()}, 1)
+    except RuntimeError as err:
+        assert "operand" in str(err), err
+    else:
+        raise AssertionError("a float64 operand reached the kernel")
+    us = host_us(lambda: mapreduce.mapreduce_impl(kern, tensors, 1),
+                 calls=1000)
+    print(f"launch path: {launcher.registered()} launch tables registered, "
+          f"{launcher.first_calls()} first calls in all; from C++ the same "
+          f"bits on each call and with an operand off 16 bytes; a float64 "
+          f"operand raises; host {us:.2f} us a call (the split column sum "
+          f"{kern.plan['grid']}, two launches) on {gpu}")
+
+
 def time_generated_kernels(egt, gpu) -> dict:
     """Phase 9 timing: B6 at softmax 8192^2 and B5 at bench.py's scatter-
     add shape, each beside its plain version and one PyTorch call for the
@@ -2321,9 +2394,13 @@ def time_step_kernels(model, batch, gpu) -> list:
     """Phase 11: each B5 kernel of path (d)'s train step alone, on the
     tensors one step hands it (CUDA events, 50 calls), beside its bound
     (its bytes, every read tensor and the output once, over 3.35 TB/s)
-    and a torch call of the same traffic.  These launches are not the
-    main path's: the counters are read before."""
+    and a torch call of the same traffic, and its plan and the 16-byte
+    loads (``ld.global.v4``) of its PTX.  Each row's ``profiled`` calls
+    are timed by torch.profiler at the end of the run (device ms beside
+    the events).  These launches are not the main path's: the counters
+    are read before."""
     from exprgrad_torch.ops import mapreduce
+    from exprgrad_torch.utils import launcher
 
     (ex,) = [ex for (name, _), ex in model._executors.items()
              if name == "train"]
@@ -2353,18 +2430,27 @@ def time_step_kernels(model, batch, gpu) -> list:
     for key, (kern, tensors, epoch) in seen.items():
         low = lows[key]
         mr = low.scheduled_mapreduce()
-        ms = cuda_ms(lambda: real(kern, tensors, epoch), iters=50)
+        call = (lambda kern=kern, tensors=tensors, epoch=epoch:
+                real(kern, tensors, epoch))
+        ms = cuda_ms(call, iters=50)
         label, fn = _library_twin(mr, tensors)
         library = cuda_ms(fn, iters=50)
         bound_ms = mr.total_bytes / PEAK_HBM_BYTES * 1e3
-        rows.append({"kernel": low._kernel_desc(), "ms": ms,
-                     "bound_ms": bound_ms, "bytes": mr.total_bytes,
-                     "library": label, "library_ms": library})
-        print(f"path (d) step B5 {low._kernel_desc()} "
-              f"{[tuple(low.shapes[r.tensor]) for r in low.kernel.reads]} "
-              f"-> {tuple(low.shapes[low.kernel.write.tensor])}: {ms:.5f} "
+        shapes = (f"{[tuple(low.shapes[r.tensor]) for r in low.kernel.reads]}"
+                  f" -> {tuple(low.shapes[low.kernel.write.tensor])}")
+        plan = {k: kern.plan[k] for k in ("grid", "block_p", "block_q",
+                                          "num_warps", "splits")}
+        v4 = {name: ck.asm["ptx"].count("ld.global.v4")
+              for name, ck in launcher.compiled_kernels(kern.spec).items()}
+        rows.append({"kernel": low._kernel_desc(), "shapes": shapes,
+                     "ms": ms, "bound_ms": bound_ms,
+                     "bytes": mr.total_bytes, "library": label,
+                     "library_ms": library, "plan": plan, "ld_v4": v4,
+                     "profiled": (call, fn)})
+        print(f"path (d) step B5 {low._kernel_desc()} {shapes}: {ms:.5f} "
               f"ms, bound {bound_ms:.5f} ms ({mr.total_bytes} bytes), "
-              f"{label} {library:.5f} ms on {gpu}")
+              f"{label} {library:.5f} ms; plan {plan}, 16-byte loads in "
+              f"the PTX {v4} on {gpu}")
     assert len(rows) == len(lows), (len(rows), len(lows))
     return rows
 
@@ -5065,6 +5151,7 @@ def phase_done(name, since) -> float:
 
 
 def main() -> int:
+    faulthandler.enable()  # a crash in native code prints the Python stack
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -5075,7 +5162,7 @@ def main() -> int:
     from exprgrad_torch.models import FlashLMServer, flash_transformer
     import exprgrad_torch.layers  # noqa: F401  (egt.layers in builders)
     from exprgrad_torch.ops import attention, matmul
-    from exprgrad_torch.utils import kernels, triton_build
+    from exprgrad_torch.utils import kernels, launcher, triton_build
 
     gpu = gpu_line()
     dev = torch.device("cuda")
@@ -5085,10 +5172,17 @@ def main() -> int:
 
     # 1. build --------------------------------------------------------
     t0 = time.perf_counter()
-    kernels.load()
+    # the generated kernels' launcher (csrc/launch.cpp, the host compiler)
+    # builds beside the nvcc compiles
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        built = pool.submit(kernels.load_launcher)
+        kernels.load()
+        launcher_path = built.result()
+    launcher.load()
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{kernels.library_path()} (host of {gpu}); nvcc seconds by "
-          f"file {kernels.compile_seconds}")
+          f"file {kernels.compile_seconds}; the launcher {launcher_path} "
+          f"in {kernels.launcher_seconds} s")
     if kernels.build_log.strip():
         print(kernels.build_log.strip())
 
@@ -5320,6 +5414,7 @@ def main() -> int:
     # 9. the generated kernels against their plain versions ----------------
     gen_err = check_generated_kernels(egt, gpu)
     gen_err["mapreduce"] = max(gen_err["mapreduce"], check_scatter_cases(egt))
+    check_launch_path(egt, gpu)
     gen_times = time_generated_kernels(egt, gpu)
     t_phase = phase_done(f"9 (generated kernels; Triton compiled for "
                          f"{triton_build.compile_seconds:.1f} s)", t_phase)
@@ -5466,6 +5561,15 @@ def main() -> int:
         print(f"device ms per call, {name}: {device_ms[name]:.5f} "
               f"({ {k[:60]: round(v, 5) for k, v in per_kernel.items()} }) "
               f"on {gpu}")
+    for row in step_kernels:  # path (d)'s step B5 kernels, phase 11
+        call, library = row.pop("profiled")
+        row["device_ms"] = sum(device_kernels(call).values())
+        row["library_device_ms"] = sum(device_kernels(library).values())
+        print(f"path (d) step B5 {row['kernel']} {row['shapes']}: CUDA "
+              f"events {row['ms']:.5f} ms, device {row['device_ms']:.5f} "
+              f"ms, bound {row['bound_ms']:.5f} ms; {row['library']} "
+              f"events {row['library_ms']:.5f} ms, device "
+              f"{row['library_device_ms']:.5f} ms on {gpu}")
     skew = (device_ms["B5 scatter-add all on one destination"]
             / device_ms["B5 scatter-add uniform"])
     print(f"B5 scatter-add: all indices on one destination takes {skew:.2f}x "

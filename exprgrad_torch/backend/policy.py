@@ -75,38 +75,38 @@ _MODES = ("auto", "force", "ignore")
 # calibrate_torch: begin (scripts/calibrate_torch.py writes this block and
 # calibration.json from one run)
 # NVIDIA H100 80GB HBM3, 700.00 W; torch 2.11.0+cu128, CUDA 12.8,
-# 2026-10-17; median of 5 wall times of back-to-back executor calls (the
+# 2026-10-18; median of 5 wall times of back-to-back executor calls (the
 # table in PERF.md between the calibrate_torch markers).
 _DEFAULTS = {
     # B1 at 4096^3 through the executor (schedule tile 128) against the
     # plain lowering (the einsum: torch.matmul, TF32 off): 2 m n k over the
     # wall time a call; where the two tie, the plain side has the kernel's
     # rate
-    "kernel_matmul_tflops_float32": 50.717369853759585,
-    "plain_matmul_tflops_float32": 50.717369853759585,
-    "kernel_matmul_tflops_bfloat16": 163.48429444418898,
-    "plain_matmul_tflops_bfloat16": 609.831742067835,
+    "kernel_matmul_tflops_float32": 50.95962866817247,
+    "plain_matmul_tflops_float32": 50.95962866817247,
+    "kernel_matmul_tflops_bfloat16": 158.11854743143468,
+    "plain_matmul_tflops_bfloat16": 612.7087691890275,
     # an elementwise map over 8192 x 8192 float32: the bytes read and
     # written over the wall time a call, B5 and the plain lowering
-    "kernel_elementwise_gbps": 1995.5484107973632,
-    "plain_elementwise_gbps": 706.188302156855,
+    "kernel_elementwise_gbps": 2028.8581659911968,
+    "plain_elementwise_gbps": 716.4494986017372,
     # the three-kernel softmax at 8192^2 float32 as one B6: its operand and
     # output bytes over the wall time a call
-    "kernel_rowchain_gbps": 1983.0083295679622,
+    "kernel_rowchain_gbps": 1996.4905339665493,
     # causal attention [2, 4, 4096, 128] float32 through the attention
     # extern: 4 b h sq skv d over the wall time a call, B2 against
     # impl="xla"
-    "flash_attention_tflops": 52.83879559186096,
-    "plain_attention_tflops": 14.99613034064821,
+    "flash_attention_tflops": 53.034889321421545,
+    "plain_attention_tflops": 15.19354111193404,
     # the per-call cost of a tiny kernel through the executor, the card
     # idle (us a call): a [16, 64] map (B5 / plain), a 64^3 contraction (B1
     # / plain), attention [1, 1, 64, 64] (B2 / impl="xla")
-    "kernel_launch_us": 52.24454000000378,
-    "plain_launch_us": 150.67810734464055,
-    "matmul_kernel_launch_us": 81.64565499999554,
-    "matmul_plain_launch_us": 117.27613265305584,
-    "attention_flash_launch_us": 91.65679000002314,
-    "attention_plain_launch_us": 768.3599512193881,
+    "kernel_launch_us": 24.823444999952926,
+    "plain_launch_us": 129.8853750000717,
+    "matmul_kernel_launch_us": 52.790175000012596,
+    "matmul_plain_launch_us": 74.79177999996978,
+    "attention_flash_launch_us": 67.47434499999372,
+    "attention_plain_launch_us": 499.9939642859528,
 }
 # calibrate_torch: end
 

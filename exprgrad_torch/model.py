@@ -885,6 +885,10 @@ def load_compiled(data):
     program = torch.export.load(io.BytesIO(data), extra_files=extra)
     meta = json.loads(extra[_ARTIFACT_META])
     device = resolve_device(meta["device"])
+    if device.type == "cuda":  # the generated kernels' CUDA implementations
+        from .utils import launcher
+
+        launcher.load()
     dtype = getattr(torch, meta["dtype"].split(".")[-1])
     module = program.module()
 

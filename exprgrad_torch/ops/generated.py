@@ -8,8 +8,12 @@ that executor, so the ops ``exprgrad_torch::mapreduce`` and
 ASCII string holding the Triton source, the launch plan, the tensor ids
 of the operands, and the IR of the kernel (or of each chain member) with
 the shapes it runs at, written by the port's own checkpoint writer
-(``io/serialize.py``).  The CUDA implementations launch the source
-(``utils/triton_build.py`` caches it by content); the CPU
+(``io/serialize.py``).  The CUDA implementations are C++
+(``csrc/launch.cpp``, loaded by ``utils/launcher.py``): a kernel's first
+call on a device runs in Python through the op
+``exprgrad_torch::generated_first`` (Triton compiles the source,
+``utils/triton_build.py`` caches it by content, and the launch table is
+registered), every later call launches from C++; the CPU
 implementations run the plain version, the port's own lowering of the
 same IR.
 
@@ -24,6 +28,8 @@ from __future__ import annotations
 import base64
 import io
 import json
+import sys
+import types
 import weakref
 import zlib
 
@@ -149,3 +155,63 @@ def fresh(out: torch.Tensor, inputs) -> torch.Tensor:
     if any(out is t for t in inputs):
         return out.clone()
     return out
+
+
+def counted(name: str, op: str) -> None:
+    """Give module ``name`` the attribute ``launches``: the launcher's
+    count of op ``op``'s launches (read and written, as a plain counter
+    is)."""
+    from ..utils import launcher
+
+    class Counted(types.ModuleType):
+        @property
+        def launches(self) -> int:
+            return launcher.count(op)
+
+        @launches.setter
+        def launches(self, n: int) -> None:
+            launcher.set_count(op, n)
+
+    sys.modules[name].__class__ = Counted
+
+
+def _first(kind, spec, tensors, n_out, epoch):
+    """The CUDA implementation of ``generated_first``: a generated
+    kernel's first call on a device, which ``csrc/launch.cpp`` hands back
+    to Python because it holds no launch table for it.  Triton compiles
+    and launches the kernel through its table in Python, and the table is
+    registered, so that later calls launch from C++."""
+    from ..utils import launcher, triton_build
+    from . import mapreduce, rowchain
+
+    module = {"mapreduce": mapreduce, "rowchain": rowchain}[kind]
+    prevs = list(tensors[:n_out])
+    device = prevs[0].device
+    kern = lookup(device, spec, module.KERNEL.from_spec)
+    fresh = kern.fresh if isinstance(kern.fresh, list) else [kern.fresh]
+    if kern.dtype not in mapreduce._TL_DTYPE or any(
+            p.dtype != kern.dtype for p in prevs):
+        raise ValueError(f"the generated kernel cannot store "
+                         f"{[p.dtype for p in prevs]}")
+
+    def check(index, t):
+        if t.device != device or t.dtype != kern.dtype:
+            raise ValueError(
+                f"operand t{kern.args[index]} is {t.dtype} on {t.device}; "
+                f"the kernel takes {kern.dtype} on {device}")
+
+    outs = [torch.empty_like(p, memory_format=torch.contiguous_format)
+            for p in prevs]
+    tab = kern.launch_table()
+    compiled = launcher.run_table(
+        tab, lambda name: triton_build.handle(kern, name), outs,
+        [None if f else launcher.aligned(p) for p, f in zip(prevs, fresh)],
+        dict(enumerate(tensors)), epoch, check)
+    launcher.register(kind, spec, device, tab, compiled, kern.dtype, fresh,
+                      triton_build.source_path(kern.source))
+    return outs
+
+
+LIB.define("generated_first(str kind, str spec, Tensor[] tensors, "
+           "int n_out, int epoch) -> Tensor[]")
+LIB.impl("generated_first", _first, "CUDA")

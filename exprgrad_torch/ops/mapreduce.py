@@ -9,11 +9,20 @@ per kernel, once per executor, from the plan of
 
 * each program owns ``BLOCK_P`` positions of the program axes P (the
   write's axes, flattened with the innermost loop axis fastest) and
-  recovers each iterator with ``//`` and ``%`` by literal extents;
-* it loops over the reduced axes Q in blocks of ``BLOCK_Q`` with a float32
-  accumulator that starts at the accumulation identity, so a reduction
-  over any extent runs inside one program, in one order, and gives the
-  same bits on every run;
+  recovers each iterator with ``//`` and ``%`` by literal extents; a map
+  whose reads and write are laid out as the flattening addresses them by
+  the flat position itself, so its loads are 16 bytes a thread;
+* a reduction walks the reduced axes Q in tiles (:func:`plan_blocks`)
+  that follow the operands' layout: the *lane axis*, the stride-1 axis of
+  the largest operand (:func:`lane_axis`), runs along the tile's last
+  dimension whether it is reduced (a row sum) or written (a column
+  sum), so a warp's loads are contiguous; the tile accumulates into a float32
+  register tile that starts at the accumulation identity and is reduced
+  once at the end; loads that depend on no Q axis are hoisted out of the
+  walk.  Where the output gives the card's 132 SMs fewer than two
+  programs each, Q is split in a fixed number of chunks, each program
+  writes a float32 partial and ``egt_mapreduce_combine`` adds the
+  partials in one fixed order: no atomics, the same bits on every run;
 * every read is a load from the address its IR index computes: shifts,
   strides, ``i // k`` groups, flat ``{i}`` reads and computed (gathered)
   indices alike; a computed index outside ``[0, V)`` reads 0, as the TPU
@@ -31,10 +40,12 @@ per kernel, once per executor, from the plan of
 bfloat16 operands are loaded, computed in float32 and stored once.
 :func:`mapreduce_impl` goes through the ``torch.library`` op
 ``exprgrad_torch::mapreduce`` (so an exported program keeps it): CUDA
-tensors launch the kernel, any other device but the CPU raises, and the
-CPU runs the plain version: the port's own lowering of the same IR kernel
-(whole-tensor einsum and gather code), which shares nothing with the
-emitter.
+tensors launch the kernel (the op's CUDA implementation is C++,
+``csrc/launch.cpp``; a kernel's first call on a device compiles it with
+Triton, ``generated._first``), any other device but the CPU raises, and
+the CPU runs the plain version: the port's own lowering of the same IR
+kernel (whole-tensor einsum and gather code), which shares nothing with
+the emitter.
 """
 
 from __future__ import annotations
@@ -46,12 +57,8 @@ import torch
 
 from ..interp import accumulation_identity
 from ..ir import Op
-from ..utils import triton_build
+from ..utils import launcher, triton_build
 from . import generated
-
-# kernel launches since the last reset; chip_smoke.py reads it to prove
-# the main path ran through the kernel
-launches = 0
 
 _TL_DTYPE = {torch.float32: "tl.float32", torch.bfloat16: "tl.bfloat16"}
 _COMBINE = {"add": "{a} + {b}", "max": "tl.maximum({a}, {b})",
@@ -150,7 +157,8 @@ class Emitter:
 
     ``p_axes`` and ``q_axes`` name the loop axes whose iterators are the
     rows ([BLOCK_P, 1]) and the columns ([1, BLOCK_Q]) of a program's
-    block; with no ``q_axes`` the block is 1-D over P.  Loads are shared
+    block (the other way round with ``q_rows``); with no ``q_axes`` the
+    block is 1-D over P.  Loads are shared
     between the kernels of one emitter (a row chain reads its block once)
     by the tensor and the loop axes their indices name."""
 
@@ -167,6 +175,16 @@ class Emitter:
         self.n = 0
         self.args: list[int] = []  # tensor ids, in argument order
         self.loads: dict = {}
+        # the map/reduce template (emit_mapreduce) sets these: the block's
+        # rows are Q and its columns P (the lane axis is a P axis); values
+        # that vary over no Q axis go to ``hoist``, emitted before the loop
+        # over Q at ``hoist_indent``; a read or write whose dims are the P
+        # axes in ``flat``'s order, at their full extents, is addressed by
+        # the flat position ``p`` itself
+        self.q_rows = False
+        self.hoist: list[str] | None = None
+        self.hoist_indent = ""
+        self.flat: list[int] | None = None
 
     # -- plumbing ------------------------------------------------------
     def line(self, text: str) -> None:
@@ -175,8 +193,22 @@ class Emitter:
     def tmp(self, code: str, kind: str, axes) -> Val:
         name = f"t{self.n}"
         self.n += 1
-        self.line(f"{name} = {code}")
+        if self.hoist is not None and not set(axes) & set(self.q):
+            self.hoist.append(f"{self.hoist_indent}{name} = {code}")
+        else:
+            self.line(f"{name} = {code}")
         return Val(name, kind, axes)
+
+    def flat_position(self, low, dims, shape) -> bool:
+        """Whether ``dims`` index the P axes in ``flat``'s order, each a
+        plain iterator over its whole extent: the address is then ``p``."""
+        if self.flat is None or len(dims) != len(self.flat):
+            return False
+        for index, axis, extent in zip(dims, self.flat, shape):
+            if (low._pure_iter(index) != axis
+                    or not low._full_axis(axis, int(extent))):
+                return False
+        return True
 
     def ptr(self, tid: int) -> str:
         if tid not in self.args:
@@ -208,6 +240,8 @@ class Emitter:
             return f"[{self.bp}]"
         rows = self.bp if axes & set(self.p) else 1
         cols = self.bq if axes & set(self.q) else 1
+        if self.q_rows:
+            rows, cols = cols, rows
         return f"[{rows}, {cols}]"
 
     def broadcast(self, val: Val, axes) -> str:
@@ -390,6 +424,8 @@ class Scope:
             flat = self.index(read.dims[0])
             guards.append(self._in_range(flat, total, read.dims[0], total))
             terms.append(flat)
+        elif not gather and em.flat_position(self.low, read.dims, shape):
+            terms.append(Val("p", "i", set(em.flat)))
         else:
             strides = contiguous_strides(shape)
             computed = set(gather["dims"]) if gather else set()
@@ -483,6 +519,7 @@ class Scope:
         out = []
         for axis, (lo_c, lo_t), (hi_c, hi_t) in dyn_bounds:
             it = self.em.iterator(axis).code
+            axes = {axis} | {dep for dep, _f in lo_t + hi_t}
 
             def affine(c, terms):
                 parts = [lit(c)] + [
@@ -492,7 +529,7 @@ class Scope:
 
             out.append(self.em.tmp(
                 f"({it} >= {affine(lo_c, lo_t)}) & "
-                f"({it} < {affine(hi_c, hi_t)})", "b", ()).code)
+                f"({it} < {affine(hi_c, hi_t)})", "b", axes).code)
         return out
 
 
@@ -531,17 +568,98 @@ def program_ids(em: Emitter, block: int, count: int, itype: str) -> None:
     em.line(f"p_ok = p < {count}")
 
 
-def plan_blocks(n_p: int, n_q: int) -> tuple[int, int, int]:
-    """(BLOCK_P, BLOCK_Q, num_warps) of a map/reduce kernel: a block of
-    about 4096 elements, as wide in Q as the reduction allows up to 1024
-    (``n_q`` is 0 when the kernel reduces nothing in the program)."""
-    if n_q:
-        bq = min(pow2(n_q), 1024)
-        bp = min(pow2(n_p), max(1, 4096 // bq))
+# streaming multiprocessors of the H100 SXM: a reduction whose output
+# blocks give fewer than two programs each is split (plan_blocks)
+SMS = 132
+# a reduction is split only where a program would walk at least this many
+# blocks of it: a shorter walk costs less than the combine's launch
+SPLIT_MIN_TRIPS = 4
+# elements of a block (a program's loads in flight at once)
+BLOCK_ELEMS = 4096
+# a map's elements a program, at the least and the most: 1024 with 4
+# warps (8 elements a thread, two 16-byte loads of each operand) ran
+# path (d)'s maps 1.2x faster than 4096 with 8 warps on the H100
+MAP_BLOCK = (256, 1024)
+# P positions a block row takes when P holds the lane axis: 512 bytes of
+# float32, four 16-byte loads of a warp's 32 threads
+LANE_BLOCK = 128
+
+
+def _warps(elems: int) -> int:
+    """Warps of a block of ``elems`` elements: 8 or more a thread (two
+    16-byte loads of float32), at most 8 warps."""
+    return max(1, min(8, elems // 256))
+
+
+def plan_blocks(n_p: int, n_q: int, lane_p: bool = False) -> dict:
+    """The launch plan of a map/reduce kernel over ``n_p`` write positions
+    and ``n_q`` reduced positions (0: a map).
+
+    * A map: one block of ``MAP_BLOCK`` elements a program, as large as
+      still gives two programs an SM (small maps take smaller blocks).
+    * A reduction, ``lane_p`` False (the stride-1 axis of the largest
+      operand is reduced): blocks ``[block_p rows, block_q]`` with
+      ``block_q`` up to 1024 adjacent reduced positions.
+    * ``lane_p`` True (the stride-1 axis is a P axis, as a column sum's):
+      blocks ``[block_q rows, block_p]`` with ``block_p`` up to
+      ``LANE_BLOCK`` adjacent P positions a row, so a warp reads 512
+      contiguous bytes.
+    * Where the P blocks give fewer than two programs an SM and each
+      program would walk ``SPLIT_MIN_TRIPS`` or more blocks of Q, Q is
+      split into ``splits`` chunks of ``chunk`` positions, each program of
+      a ``(P blocks, splits)`` grid writes a float32 partial, and a second
+      kernel combines the partials of each position in one fixed order
+      (``block_s`` partials a row of its ``[block_s, block_pc]`` block).
+    """
+    if not n_q:
+        want = pow2(-(-n_p // (2 * SMS)))
+        bp = min(pow2(n_p), max(MAP_BLOCK[0], min(MAP_BLOCK[1], want)))
+        return {"grid": (-(-n_p // bp),), "num_warps": _warps(bp),
+                "block_p": bp, "block_q": 0, "lane": None, "splits": 1}
+    if lane_p:
+        bp = min(pow2(n_p), LANE_BLOCK)
+        bq = max(1, min(pow2(n_q), BLOCK_ELEMS // bp))
     else:
-        bq, bp = 0, min(pow2(n_p), 1024)
-    warps = 8 if bp * max(bq, 1) >= 4096 else 4
-    return bp, bq, warps
+        bq = min(pow2(n_q), 1024)
+        bp = max(1, min(pow2(n_p), BLOCK_ELEMS // bq))
+    gp, trips = -(-n_p // bp), -(-n_q // bq)
+    splits, chunk = 1, trips
+    if gp < 2 * SMS and trips >= SPLIT_MIN_TRIPS:
+        chunk = -(-trips // min(-(-2 * SMS // gp), trips))
+        splits = -(-trips // chunk)
+    plan = {"grid": (gp, splits) if splits > 1 else (gp,),
+            "num_warps": _warps(bp * bq), "block_p": bp, "block_q": bq,
+            "lane": "p" if lane_p else "q", "splits": splits,
+            "chunk": chunk * bq}
+    if splits > 1:
+        sb = min(pow2(splits), 64)
+        bpc = max(1, min(pow2(n_p), BLOCK_ELEMS // sb))
+        plan.update(block_s=sb, block_pc=bpc, part=splits * n_p,
+                    combine_grid=(-(-n_p // bpc),),
+                    combine_warps=_warps(sb * bpc))
+    return plan
+
+
+def lane_axis(mr):
+    """The loop axis with stride 1 in the kernel's largest operand (the
+    first of the largest): the iterator with factor 1 in the index of its
+    innermost dim, or None where that is no single iterator."""
+    low = mr.low
+    best, most = None, -1
+    for read in mr.kernel.reads:
+        n = int(np.prod(low.shapes[read.tensor], dtype=np.int64))
+        if n > most:
+            best, most = read, n
+    if best is None:
+        return None
+    axes = {low.axis_of_reg[reg] for reg, f in best.dims[-1].factors.items()
+            if f == 1 and reg in low.axis_of_reg}
+    return next(iter(axes)) if len(axes) == 1 else None
+
+
+def _lane_last(axes, lane) -> list:
+    """``axes`` with the lane axis last (innermost in the flattening)."""
+    return [a for a in axes if a != lane] + ([lane] if lane in axes else [])
 
 
 def emit_mapreduce(mr) -> tuple[str, list[int], dict]:
@@ -554,53 +672,141 @@ def emit_mapreduce(mr) -> tuple[str, list[int], dict]:
     write = kernel.write
     mode = write.accumulate
     sizes = low.sizes
-    p_axes, q_axes = mr.p_axes, mr.q_axes
+    lane = lane_axis(mr)
+    p_axes, q_axes = _lane_last(mr.p_axes, lane), _lane_last(mr.q_axes, lane)
     n_p = int(np.prod([sizes[a] for a in p_axes], dtype=np.int64))
     n_q = int(np.prod([sizes[a] for a in q_axes], dtype=np.int64))
-    bp, bq, warps = plan_blocks(n_p, n_q if q_axes else 0)
+    plan = plan_blocks(n_p, n_q if q_axes else 0,
+                       lane_p=bool(q_axes) and lane in p_axes)
+    bp, bq, splits = plan["block_p"], plan["block_q"], plan["splits"]
+    cols_p = plan["lane"] == "p"  # the block's columns are P positions
     itype = index_type(sizes, low.shapes.values())
+    wide = ".to(tl.int64)" if itype == "tl.int64" else ""
     ident = identity_lit(mode)
 
     em = Emitter(low.shapes, p_axes, q_axes, itype, " " * 4, bp, bq)
+    em.q_rows = cols_p
     program_ids(em, bp, n_p, itype)
     iterators(em, p_axes, sizes, "p", "p")
     scope = Scope(em, kernel, low, mr.setup_env, mr.epoch_regs,
                   gathers=mr.gather_reads)
     if q_axes:
-        em.line(f"acc = tl.full([{bp}], {ident}, tl.float32)")
-        em.line("P_ok = p_ok[:, None]")
+        rows, cols = ("[None, :]", "[:, None]") if cols_p else \
+            ("[:, None]", "[None, :]")
+        em.line(f"P_ok = p_ok{rows}")
         for a in p_axes:
-            em.line(f"P{a} = p{a}[:, None]")
-        em.line(f"for q_start in range(0, {n_q}, {bq}):")
+            em.line(f"P{a} = p{a}{rows}")
+        em.hoist, em.hoist_indent = [], em.indent
+        loop_at = len(em.lines)
+        block = f"[{bq}, {bp}]" if cols_p else f"[{bp}, {bq}]"
+        em.line(f"acc2 = tl.full({block}, {ident}, tl.float32)")
+        start = "q_start"
+        if splits > 1:
+            em.line(f"q_lo = tl.program_id(1){wide} * {plan['chunk']}")
+            start = "q_lo + q_start"
+        em.line(f"for q_start in range(0, "
+                f"{plan['chunk'] if splits > 1 else n_q}, {bq}):")
         em.indent = " " * 8
-        q_range = f"tl.arange(0, {bq})"
-        if itype == "tl.int64":
-            q_range += ".to(tl.int64)"
-        em.line(f"q = q_start + {q_range}")
+        em.line(f"q = {start} + tl.arange(0, {bq}){wide}")
         em.line(f"q_ok = q < {n_q}")
         iterators(em, q_axes, sizes, "q", "q")
-        em.line("Q_ok = q_ok[None, :]")
+        em.line(f"Q_ok = q_ok{cols}")
         for a in q_axes:
-            em.line(f"Q{a} = q{a}[None, :]")
+            em.line(f"Q{a} = q{a}{cols}")
+    else:
+        em.flat = p_axes
     scope.run(kernel.setup)
     value = scope.val(kernel.expr.res)
     masks = scope.bounds_mask(mr.dyn_bounds)
     if q_axes:
         valid = " & ".join(["P_ok", "Q_ok"] + masks)
         em.line(f"v = tl.where({valid}, {value.f32()}, {ident})")
-        reduced = f"{_REDUCE[mode]}(v, axis=1)"
-        em.line(f"acc = {_COMBINE[mode].format(a='acc', b=reduced)}")
+        em.line(f"acc2 = {_COMBINE[mode].format(a='acc2', b='v')}")
         em.indent = " " * 4
+        em.lines[loop_at:loop_at] = em.hoist
+        em.hoist = None
+        em.line(f"acc = {_REDUCE[mode]}(acc2, axis={0 if cols_p else 1})")
     else:
         v = em.broadcast(value, p_axes) if p_axes else \
             f"(tl.zeros([{bp}], tl.float32) + {value.f32()})"
         if masks:
             v = f"tl.where({' & '.join(masks)}, {v}, {ident})"
         em.line(f"acc = {v}")
+    operands = "".join(f", x{k}_ptr" for k in range(len(em.args)))
+    if splits > 1:
+        em.line(f"tl.store(part_ptr + tl.program_id(1){wide} * {n_p} + p, "
+                "acc, mask=p_ok)")
+        combine = _emit_combine(mr, plan, p_axes, n_p, itype)
+        functions = [("egt_mapreduce", "part_ptr" + operands + ", epoch",
+                      em.lines), combine]
+    else:
+        if mr.phantom != 1 and mode == "add":
+            em.line(f"acc = acc * {lit(float(mr.phantom))}")
+        _out_offsets(em, low, write, bp, itype)
+        args = _store(em, low, mode, "p_ok") + operands + ", epoch"
+        functions = [("egt_mapreduce", args, em.lines)]
+
+    nbytes = _bytes(low, kernel, low.fresh_output)
+    if not q_axes:
+        design = (f"each program owns {bp} of {n_p} write positions (the "
+                  "flat position is the address of every read and write "
+                  "laid out as the write)")
+    else:
+        tile = (f"[{bq} reduced, {bp} write positions] tiles, the write "
+                "positions adjacent in memory" if cols_p else
+                f"[{bp} write positions, {bq} reduced] tiles, the reduced "
+                "positions adjacent in memory")
+        design = (f"each program owns {bp} of {n_p} write positions and "
+                  f"walks {tile}, loads that depend on no reduced axis "
+                  "hoisted out of the walk, accumulating in a float32 "
+                  "register tile reduced once at the end")
+        if splits > 1:
+            design += (f"; the {n_q} reduced positions are split in "
+                       f"{splits} chunks of {plan['chunk']}, a program "
+                       "each, whose float32 partials egt_mapreduce_combine "
+                       "adds in one fixed order (no atomics)")
+    design += ("; every operand element is read once and each output "
+               "element written once")
+    source = _source(nbytes, design, functions)
+    plan["bytes"] = nbytes
+    return source, list(em.args), plan
+
+
+def _emit_combine(mr, plan, p_axes, n_p, itype) -> tuple:
+    """``egt_mapreduce_combine``: each program owns ``block_pc`` write
+    positions, folds the split's partials of them ``block_s`` at a time
+    into a float32 tile (partial s into row s % block_s), reduces the tile
+    over its rows and stores the result (scaled by ``phantom``, combined
+    with the previous value)."""
+    low = mr.low
+    mode = mr.kernel.write.accumulate
+    ident = identity_lit(mode)
+    sb, bpc, S = plan["block_s"], plan["block_pc"], plan["splits"]
+    wide = ".to(tl.int64)" if itype == "tl.int64" else ""
+    em = Emitter(low.shapes, p_axes, [], itype, " " * 4, bpc)
+    em.flat = p_axes
+    program_ids(em, bpc, n_p, itype)
+    iterators(em, p_axes, low.sizes, "p", "p")
+    em.line(f"acc2 = tl.full([{sb}, {bpc}], {ident}, tl.float32)")
+    em.line(f"for s0 in range(0, {S}, {sb}):")
+    em.line(f"    s = s0 + tl.arange(0, {sb}){wide}")
+    em.line(f"    part = tl.load(part_ptr + s[:, None] * {n_p} + p[None, :], "
+            f"mask=(s[:, None] < {S}) & p_ok[None, :], other={ident})")
+    em.line(f"    acc2 = {_COMBINE[mode].format(a='acc2', b='part')}")
+    em.line(f"acc = {_REDUCE[mode]}(acc2, axis=0)")
     if mr.phantom != 1 and mode == "add":
         em.line(f"acc = acc * {lit(float(mr.phantom))}")
+    _out_offsets(em, low, mr.kernel.write, bpc, itype)
+    args = _store(em, low, mode, "p_ok") + ", part_ptr"
+    return ("egt_mapreduce_combine", args, em.lines)
 
+
+def _out_offsets(em: Emitter, low, write, bp: int, itype: str) -> None:
+    """``o``, the write's address of each of the program's positions."""
     out_shape = low.shapes[write.tensor]
+    if not write.is_raw and em.flat_position(low, write.dims, out_shape):
+        em.line("o = p")
+        return
     strides = contiguous_strides(
         [int(np.prod(out_shape, dtype=np.int64))] if write.is_raw
         else out_shape)
@@ -614,21 +820,6 @@ def emit_mapreduce(mr) -> tuple[str, list[int], dict]:
     if not terms:
         terms = [f"tl.zeros([{bp}], {itype})"]
     em.line(f"o = {' + '.join(terms)}")
-    args = _store(em, low, mode, "p_ok")
-    args += "".join(f", x{k}_ptr" for k in range(len(em.args))) + ", epoch"
-
-    nbytes = _bytes(low, kernel, low.fresh_output)
-    design = (
-        f"each program owns {bp} of {n_p} write positions"
-        + (f" and loops over {n_q} reduced positions {bq} at a time, "
-           "accumulating in float32 registers" if q_axes else "")
-        + "; every operand element is read once and each output element "
-        "written once"
-    )
-    source = _source(nbytes, design, [("egt_mapreduce", args, em.lines)])
-    plan = {"grid": (n_p + bp - 1) // bp, "num_warps": warps,
-            "block_p": bp, "block_q": bq, "bytes": nbytes}
-    return source, list(em.args), plan
 
 
 def _store(em: Emitter, low, mode: str, mask) -> str:
@@ -938,8 +1129,47 @@ class MapReduceKernel:
 
     def _caches(self):
         self.handles = {}  # function name -> loaded Triton kernel
-        self.rows = {}  # device -> a scatter's rows 0..K (group)
-        self.counts = {}  # device -> a scatter's piece counts (scatter)
+        self._table = None
+
+    def launch_table(self) -> dict:
+        """The kernel's launch table (:mod:`exprgrad_torch.utils.launcher`):
+        one launch of ``egt_mapreduce``; a split reduction's partials
+        buffer, then ``egt_mapreduce_combine``; a scatter's keys kernel,
+        the grouping of its keys, then the walk, with its pieces and their
+        counts (zeros kept between calls: the walk leaves them 0)."""
+        if self._table is None:
+            plan = self.plan
+            op_index = {j: self.args.index(t) for j, t in enumerate(self.tids)}
+            f32 = torch.float32
+            if self.scatter:
+                long = plan["chunks"] > 1  # else no segment crosses a chunk
+                kdt = plan["key_dtype"]
+                buffers = [
+                    _buffer("key", kdt, plan["positions"], "empty"),
+                    _buffer("skey", kdt, 0, "made"),
+                    _buffer("perm", torch.int64, 0, "made"),
+                    _buffer("seg", torch.int32, 0, "made"),
+                    _buffer("part", f32, plan["part"] if long else 1,
+                            "empty"),
+                    _buffer("cnt", torch.int32,
+                            plan["counts"] if long else 1, "zeros")]
+                steps = [("launch", "egt_scatter_keys", plan["keys_grid"], 4),
+                         ("group", "key", "skey", "perm", "seg", plan["K"]),
+                         ("launch", "egt_mapreduce", plan["grid"],
+                          plan["num_warps"])]
+            elif plan["splits"] > 1:
+                buffers = [_buffer("part", f32, plan["part"], "empty")]
+                steps = [("launch", "egt_mapreduce", plan["grid"],
+                          plan["num_warps"]),
+                         ("launch", "egt_mapreduce_combine",
+                          plan["combine_grid"], plan["combine_warps"])]
+            else:
+                buffers = []
+                steps = [("launch", "egt_mapreduce", plan["grid"],
+                          plan["num_warps"])]
+            self._table = launcher.table(self.source, op_index, buffers,
+                                         steps)
+        return self._table
 
     @classmethod
     def from_spec(cls, spec: str) -> "MapReduceKernel":
@@ -981,21 +1211,13 @@ def _plan_in(plan: dict) -> dict:
     return out
 
 
+def _buffer(name, dtype, numel, mode) -> dict:
+    return {"name": name, "dtype": dtype, "numel": int(numel), "mode": mode}
+
+
 def mapreduce_plain(kern: MapReduceKernel, tensors: dict, epoch: int):
     """The plain version: the port's own lowering of the same IR kernel."""
     return kern.plain(tensors, epoch)
-
-
-def _operands(kern, tensors, device) -> list[torch.Tensor]:
-    ops = []
-    for tid in kern.tids:
-        t = tensors[tid]
-        if t.device != device or t.dtype != kern.dtype:
-            raise ValueError(
-                f"operand t{tid} is {t.dtype} on {t.device}; the kernel "
-                f"takes {kern.dtype} on {device}")
-        ops.append(t.contiguous())
-    return ops
 
 
 def group(kern: MapReduceKernel, ops, epoch: int, device) -> dict:
@@ -1011,33 +1233,19 @@ def group(kern: MapReduceKernel, ops, epoch: int, device) -> dict:
                        device=device)
     triton_build.launch(triton_build.handle(kern, "egt_scatter_keys"),
                         (plan["keys_grid"],), 4, keys, *ops, int(epoch))
-    skeys, perm = torch.sort(keys, stable=True)
-    rows = kern.rows.get(device)
-    if rows is None:  # the rows 0..K, made once a device
-        rows = kern.rows[device] = torch.arange(
-            plan["K"] + 1, dtype=keys.dtype, device=device)
-    offsets = torch.searchsorted(skeys, rows,
-                                 out_int32=keys.numel() <= _INT32_LIMIT)
+    skeys, perm, offsets = launcher.group_keys(keys, plan["K"])
     return {"keys": keys, "sorted": skeys, "perm": perm, "offsets": offsets}
 
 
-def scatter(kern: MapReduceKernel, out, prevs, ops, epoch: int) -> None:
-    """Launch a scatter's kernels into ``out``: the keys and their
-    grouping, then the owners' walk with the pieces of long segments."""
-    plan = kern.plan
-    ws = group(kern, ops, epoch, out.device)
-    long = plan["chunks"] > 1  # else no segment crosses a chunk
-    part = torch.empty(plan["part"] if long else 1, dtype=torch.float32,
-                       device=out.device)
-    counts = kern.counts.get(out.device)
-    if counts is None:  # each segment's count of finished pieces, left 0
-        counts = kern.counts[out.device] = torch.zeros(
-            plan["counts"] if long else 1, dtype=torch.int32,
-            device=out.device)
-    triton_build.launch(triton_build.handle(kern, "egt_mapreduce"),
-                        plan["grid"], plan["num_warps"], out, *prevs, part,
-                        counts, ws["sorted"], ws["perm"], ws["offsets"],
-                        *ops, int(epoch))
+def scatter(kern: MapReduceKernel, out, prevs, ops, epoch: int) -> dict:
+    """Launch a scatter's kernels into ``out`` through Triton's launcher
+    (its launch table in Python): the keys and their grouping, then the
+    owners' walk with the pieces of long segments.  ``ops`` in
+    ``kern.tids`` order.  Returns the compiled kernels by name."""
+    return launcher.run_table(
+        kern.launch_table(), lambda name: triton_build.handle(kern, name),
+        [out], [prevs[0] if prevs else None],
+        {kern.args.index(t): op for t, op in zip(kern.tids, ops)}, epoch)
 
 
 def mapreduce_impl(kern: MapReduceKernel, tensors: dict,
@@ -1046,7 +1254,10 @@ def mapreduce_impl(kern: MapReduceKernel, tensors: dict,
     ``exprgrad_torch::mapreduce``: CUDA tensors launch the generated
     kernel or raise; CPU tensors run the plain version."""
     prev = tensors[kern.out_tid]
-    if prev.device.type not in ("cpu", "cuda"):
+    if prev.is_cuda:
+        if not launcher.loaded():
+            launcher.load()
+    elif not prev.is_cpu:
         raise ValueError(
             f"the map/reduce kernel runs on CUDA tensors, not on "
             f"{prev.device}")
@@ -1067,28 +1278,6 @@ def _mapreduce_cpu(spec, tensors, epoch):
         tensors)
 
 
-def _mapreduce_cuda(spec, tensors, epoch):
-    """The CUDA implementation of ``exprgrad_torch::mapreduce``: one
-    launch of the generated kernel (a scatter's keys and walk), counted."""
-    prev = tensors[0]
-    kern = _kernel_of(spec, prev.device)
-    if kern.dtype not in _TL_DTYPE or prev.dtype != kern.dtype:
-        raise ValueError(f"the map/reduce kernel cannot store {prev.dtype}")
-    ops = _operands(kern, dict(zip(kern.args, tensors)), prev.device)
-    plan = kern.plan
-    out = torch.empty_like(prev, memory_format=torch.contiguous_format)
-    prevs = () if kern.fresh else (prev.contiguous(),)
-    if kern.scatter:
-        scatter(kern, out, prevs, ops, epoch)
-    else:
-        triton_build.launch(triton_build.handle(kern, "egt_mapreduce"),
-                            (plan["grid"],), plan["num_warps"], out,
-                            *prevs, *ops, int(epoch))
-    global launches
-    launches += 1
-    return out
-
-
 def _mapreduce_fake(spec, tensors, epoch):
     return torch.empty_like(tensors[0], memory_format=torch.contiguous_format)
 
@@ -1096,8 +1285,14 @@ def _mapreduce_fake(spec, tensors, epoch):
 generated.LIB.define(
     "mapreduce(str spec, Tensor[] tensors, int epoch) -> Tensor")
 generated.LIB.impl("mapreduce", _mapreduce_cpu, "CPU")
-generated.LIB.impl("mapreduce", _mapreduce_cuda, "CUDA")
+# the CUDA implementation is csrc/launch.cpp's, registered when
+# utils/launcher.py loads it (mapreduce_impl does, on a CUDA tensor)
 torch.library.register_fake("exprgrad_torch::mapreduce", _mapreduce_fake,
                             lib=generated.LIB)
 # the overload's C++ callable, as ``ops.matmul._MATMUL``
 _MAPREDUCE = torch.ops.exprgrad_torch.mapreduce.default._op
+KERNEL = MapReduceKernel  # the kernel class of the op's spec strings
+# ``launches``: the kernel's launches since the last reset, counted by the
+# launcher; chip_smoke.py reads it to prove the main path ran through the
+# kernel
+generated.counted(__name__, "mapreduce")

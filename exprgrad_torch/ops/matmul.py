@@ -409,5 +409,8 @@ def scheduled_matmul(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
                      block: Optional[Sequence[int]] = None) -> torch.Tensor:
     """``out[m, n] = a[m, k] @ b[k, n]`` through the kernel at ``block``
     (its plain version on the CPU), differentiable in ``a`` and ``b``.
-    The kernel guards ragged shapes at every block."""
+    The kernel guards ragged shapes at every block.  The counterpart of
+    the JAX package's ``exprgrad_tpu.ops.pallas_matmul`` (its explicit
+    ``block_m, block_n, block_k`` are ``block`` here), exported in its
+    place by :mod:`exprgrad_torch.ops`."""
     return _ScheduledMatmul.apply(a, b, out_dtype, block)

@@ -15,9 +15,10 @@ per member.
 
 :func:`rowchain_impl` goes through the ``torch.library`` op
 ``exprgrad_torch::rowchain`` (so an exported program keeps it): CUDA
-tensors launch the kernel, any other device but the CPU raises, and the
-CPU runs the plain version: the members one after another through the
-port's own lowering.
+tensors launch the kernel (from C++, ``csrc/launch.cpp``, after a first
+call that Triton compiles, ``generated._first``), any other device but
+the CPU raises, and the CPU runs the plain version: the members one
+after another through the port's own lowering.
 """
 
 from __future__ import annotations
@@ -25,15 +26,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils import triton_build
+from ..utils import launcher
 from . import generated
 from .mapreduce import (HEADER, _COMBINE, _REDUCE, _TL_DTYPE, Emitter,
-                        Scope, _operands, contiguous_strides, identity_lit,
+                        Scope, contiguous_strides, identity_lit,
                         index_type, iterators, lit, pow2, program_ids)
-
-# kernel launches since the last reset; chip_smoke.py reads it to prove
-# the main path ran through the kernel
-launches = 0
 
 
 def emit_rowchain(chain) -> tuple[str, list[int], dict]:
@@ -160,6 +157,7 @@ class RowChainKernel:
         self.dtype = chain.members[0].low.dtype
         self.plain = chain.plain
         self.handles = {}  # function name -> loaded Triton kernel
+        self._table = None
         written = {k.write.tensor for k in chain.kernels}
         reads = {r.tensor for k in chain.kernels for r in k.reads}
         self.args = self.out_tids + sorted(
@@ -182,7 +180,7 @@ class RowChainKernel:
         kern.plan, kern.out_tids = fields["plan"], fields["out_tids"]
         kern.fresh, kern.args = fields["fresh"], fields["args"]
         kern.dtype = getattr(torch, fields["dtype"])
-        kern.spec, kern.handles = spec, {}
+        kern.spec, kern.handles, kern._table = spec, {}, None
         lowerings = generated.plain_from_fields(fields)
 
         def plain(tensors, epoch):
@@ -192,6 +190,17 @@ class RowChainKernel:
 
         kern.plain = plain
         return kern
+
+    def launch_table(self) -> dict:
+        """The chain's launch table (:mod:`exprgrad_torch.utils.launcher`):
+        one launch of ``egt_rowchain``."""
+        if self._table is None:
+            self._table = launcher.table(
+                self.source,
+                {j: self.args.index(t) for j, t in enumerate(self.tids)},
+                [], [("launch", "egt_rowchain", self.plan["grid"],
+                      self.plan["num_warps"])])
+        return self._table
 
 
 def rowchain_plain(kern: RowChainKernel, tensors: dict, epoch: int) -> dict:
@@ -205,10 +214,14 @@ def rowchain_impl(kern: RowChainKernel, tensors: dict, epoch: int) -> dict:
     intermediates, through the op ``exprgrad_torch::rowchain``: CUDA
     tensors launch the generated kernel or raise; CPU tensors run the
     plain version."""
-    device = tensors[kern.out_tids[0]].device
-    if device.type not in ("cpu", "cuda"):
+    first = tensors[kern.out_tids[0]]
+    if first.is_cuda:
+        if not launcher.loaded():
+            launcher.load()
+    elif not first.is_cpu:
         raise ValueError(
-            f"the row-chain kernel runs on CUDA tensors, not on {device}")
+            f"the row-chain kernel runs on CUDA tensors, not on "
+            f"{first.device}")
     outs = _ROWCHAIN(kern.spec, [tensors[t] for t in kern.args],
                      len(kern.out_tids), int(epoch))
     return dict(zip(kern.out_tids, outs))
@@ -226,29 +239,6 @@ def _rowchain_cpu(spec, tensors, n_out, epoch):
     return [generated.fresh(got[t], tensors) for t in kern.out_tids]
 
 
-def _rowchain_cuda(spec, tensors, n_out, epoch):
-    """The CUDA implementation of ``exprgrad_torch::rowchain``: one
-    launch of the generated kernel, counted."""
-    prevs = list(tensors[:n_out])
-    device = prevs[0].device
-    kern = _kernel_of(spec, device)
-    if kern.dtype not in _TL_DTYPE or any(p.dtype != kern.dtype
-                                          for p in prevs):
-        raise ValueError(f"the row-chain kernel cannot store "
-                         f"{[p.dtype for p in prevs]}")
-    ops = _operands(kern, dict(zip(kern.args, tensors)), device)
-    outs = [torch.empty_like(p, memory_format=torch.contiguous_format)
-            for p in prevs]
-    pairs = [t for out, prev, fresh in zip(outs, prevs, kern.fresh)
-             for t in ((out,) if fresh else (out, prev.contiguous()))]
-    fn = triton_build.handle(kern, "egt_rowchain")
-    triton_build.launch(fn, (kern.plan["grid"],), kern.plan["num_warps"],
-                        *pairs, *ops)
-    global launches
-    launches += 1
-    return outs
-
-
 def _rowchain_fake(spec, tensors, n_out, epoch):
     return [torch.empty_like(t, memory_format=torch.contiguous_format)
             for t in tensors[:n_out]]
@@ -257,8 +247,14 @@ def _rowchain_fake(spec, tensors, n_out, epoch):
 generated.LIB.define("rowchain(str spec, Tensor[] tensors, int n_out, "
                      "int epoch) -> Tensor[]")
 generated.LIB.impl("rowchain", _rowchain_cpu, "CPU")
-generated.LIB.impl("rowchain", _rowchain_cuda, "CUDA")
+# the CUDA implementation is csrc/launch.cpp's, registered when
+# utils/launcher.py loads it (rowchain_impl does, on a CUDA tensor)
 torch.library.register_fake("exprgrad_torch::rowchain", _rowchain_fake,
                             lib=generated.LIB)
 # the overload's C++ callable, as ``ops.matmul._MATMUL``
 _ROWCHAIN = torch.ops.exprgrad_torch.rowchain.default._op
+KERNEL = RowChainKernel  # the kernel class of the op's spec strings
+# ``launches``: the chain's launches since the last reset, counted by the
+# launcher; chip_smoke.py reads it to prove the main path ran through the
+# kernel
+generated.counted(__name__, "rowchain")

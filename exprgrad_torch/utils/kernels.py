@@ -7,6 +7,12 @@ plain C interface, loaded with ``ctypes``.  The library lands in
 ``build/exprgrad_torch/`` at the repository root, named by a hash of the
 sources and flags, so a second process (or a second call) reuses it.
 
+The launcher of the generated Triton kernels (``csrc/launch.cpp``, the
+ops' CUDA implementations, :mod:`exprgrad_torch.utils.launcher`) is
+built the same way by :func:`load_launcher`, with the host compiler
+against PyTorch's headers and libraries (it includes no CUDA header),
+into ``build/exprgrad_torch/libegt_launch_<hash>.so``.
+
 Nothing here falls back: a missing ``nvcc`` or a failed build raises
 with the compiler's output.  Every C entry point returns
 ``cudaGetLastError()`` after its launch and :func:`check` raises when
@@ -92,6 +98,62 @@ _SIGNATURES = {
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""  # nvcc's output (ptxas register/shared-memory report)
 compile_seconds: dict = {}  # source file -> seconds of its nvcc, last build
+
+
+def _torch_dirs() -> tuple[Path, Path]:
+    """PyTorch's header and library directories."""
+    root = Path(torch.__file__).resolve().parent
+    return root / "include", root / "lib"
+
+
+def launcher_flags() -> list[str]:
+    include, lib = _torch_dirs()
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    return ["-std=c++17", "-O2", "-fPIC", "-shared",
+            f"-D_GLIBCXX_USE_CXX11_ABI={abi}", f"-I{include}",
+            f"-L{lib}", f"-Wl,-rpath,{lib}"]
+
+
+_LAUNCHER_LIBS = ("-lc10", "-ltorch_cpu", "-ltorch", "-ldl")
+
+
+def launcher_path() -> Path:
+    """Where the launcher for the current source, flags and PyTorch
+    lives (it is built against PyTorch's C++ ABI)."""
+    digest = hashlib.sha256(" ".join(launcher_flags()).encode())
+    digest.update(torch.__version__.encode())
+    digest.update((_CSRC / "launch.cpp").read_bytes())
+    return BUILD_DIR / f"libegt_launch_{digest.hexdigest()[:16]}.so"
+
+
+launcher_seconds = None  # seconds of the launcher's last build
+
+
+def load_launcher() -> Path:
+    """The launcher library's path, built on first use (``$CXX`` or
+    ``c++``; about 10 s on the H100's host)."""
+    global launcher_seconds
+    path = launcher_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("no C++ compiler (c++, g++ or $CXX) to build "
+                           "exprgrad_torch/csrc/launch.cpp")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out = os.path.join(tmp, path.name)
+        cmd = [cxx, *launcher_flags(), "-o", out,
+               str(_CSRC / "launch.cpp"), *_LAUNCHER_LIBS]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        launcher_seconds = round(time.perf_counter() - t0, 1)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"the launcher failed to build (exit {proc.returncode}): "
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(out, path)
+    return path
 
 
 def _sources() -> list[Path]:

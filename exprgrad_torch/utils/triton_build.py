@@ -2,8 +2,11 @@
 
 The emitters of :mod:`exprgrad_torch.ops.mapreduce` and
 :mod:`exprgrad_torch.ops.rowchain` write one ``@triton.jit`` source per
-scheduled kernel or chain.  ``triton.jit`` reads its function's source
-through ``inspect``, so the source must live in a real file: it lands in
+scheduled kernel or chain.  Its first call on a device launches through
+here (Triton's launcher); the compiled functions then pass to the C++
+launcher (:mod:`exprgrad_torch.utils.launcher`).  ``triton.jit`` reads
+its function's source through ``inspect``, so the source must live in a
+real file: it lands in
 ``build/exprgrad_torch/triton/<sha256 of the source>.py`` at the
 repository root and is imported from there with
 ``importlib.util.spec_from_file_location``.  Triton compiles the kernel at
@@ -77,14 +80,17 @@ def handle(kern, name: str, source: str | None = None):
     return got
 
 
-def launch(kernel, grid: tuple, num_warps: int, *args) -> None:
-    """Launch a loaded kernel on the current stream; the first launch of
-    each kernel compiles it (timed into :data:`compile_seconds`)."""
+def launch(kernel, grid: tuple, num_warps: int, *args):
+    """Launch a loaded kernel on the current stream through Triton's
+    launcher; the first launch of each kernel compiles it (timed into
+    :data:`compile_seconds`).  Returns Triton's compiled kernel (its
+    function, metadata and code: :mod:`exprgrad_torch.utils.launcher`
+    takes it over)."""
     global compile_seconds
     fn, path, compiled = kernel
     t0 = time.perf_counter() if not compiled[0] else None
     try:
-        fn[grid](*args, num_warps=num_warps)
+        got = fn[grid](*args, num_warps=num_warps)
     except Exception as err:
         raise RuntimeError(
             f"the generated Triton kernel {path} failed to compile or "
@@ -92,3 +98,4 @@ def launch(kernel, grid: tuple, num_warps: int, *args) -> None:
     if t0 is not None:
         compiled[0] = True
         compile_seconds += time.perf_counter() - t0
+    return got

@@ -29,6 +29,13 @@ seed 0:
    ``--root`` can point at an older checkout.
    ``ops`` (not in the default) gives only B2's forward and B1's host
    figures, the median and range of five rounds, without Triton.
+   ``b5map`` (not in the default): B5's map/reduce template at path
+   (d)'s five train-step kernels and the calibration's tiny map
+   [16, 64], row reduction 8192^2 and elementwise map 8192^2, each
+   through ``mapreduce_impl``: device ms of every kernel a call launches
+   (torch.profiler), host us per call, CUDA events, the bound, and the
+   torch call of the same traffic (chip_smoke.py's ``_library_twin``).
+   It runs against ``--root``'s package too.
 4. b7: paged decode attention (B7, csrc/paged_attention.cu) at bench.py's
    paged shape and at path (e)'s decode step, beside its library route
    (gather_view, then scaled_dot_product_attention): as b5.
@@ -542,6 +549,136 @@ def b5(say, dev):
     host(say, dev)
 
 
+def _step_kernels(dev):
+    """Path (d)'s train-step B5 kernels (chip_smoke.py's
+    ``time_step_kernels``): {label: (lowering, kernel, tensors, epoch)},
+    each kernel with the tensors one step hands it."""
+    import numpy as np
+    import exprgrad_torch as egt
+    import exprgrad_torch.layers  # noqa: F401
+    from chip_smoke import HEAD, transformer_head
+    from exprgrad_torch.ops import mapreduce
+
+    graph = transformer_head(egt, HEAD["dim"], HEAD["vocab"])
+    model = egt.compile(graph, seed=0, schedule_mode="force", device="cuda")
+    rows, dim, vocab = HEAD["rows"], HEAD["dim"], HEAD["vocab"]
+    rng = np.random.default_rng(2)
+    batch = {"x": rng.standard_normal((rows, dim), dtype=np.float32),
+             "labels": np.eye(vocab, dtype=np.float32)[
+                 rng.integers(0, vocab, rows)]}
+    model.epoch = 1
+    model.apply("train", batch)
+    (ex,) = [ex for (name, _), ex in model._executors.items()
+             if name == "train"]
+    lows = {}
+    for i, low in ex._lowerings.items():
+        if (i in ex._skip_kernels or i in ex.fused or i in ex.row_fused
+                or low.kernel.extern is not None or not low._bounds_ok
+                or low.scheduled_route() != "mapreduce"):
+            continue
+        lows[id(low.scheduled_mapreduce().compiled())] = low
+    seen, real = {}, mapreduce.mapreduce_impl
+
+    def spy(kern, tensors, epoch):
+        if id(kern) in lows and id(kern) not in seen:
+            seen[id(kern)] = (lows[id(kern)], kern,
+                              {t: tensors[t].clone() for t in kern.args},
+                              epoch)
+        return real(kern, tensors, epoch)
+
+    mapreduce.mapreduce_impl = spy
+    try:
+        model.apply("train", batch)
+    finally:
+        mapreduce.mapreduce_impl = real
+    torch.cuda.synchronize()
+    out = {}
+    for low, kern, tensors, epoch in seen.values():
+        shapes = [tuple(low.shapes[r.tensor]) for r in low.kernel.reads]
+        label = (f"path (d) {low._kernel_desc()} {shapes} -> "
+                 f"{tuple(low.shapes[low.kernel.write.tensor])}")
+        out[label] = (low, kern, tensors, epoch)
+    assert len(out) == len(lows) == 5, (len(out), len(lows))
+    return out
+
+
+def _calibration_kernels(dev):
+    """The calibration's three B5 cases (scripts/calibrate_torch.py
+    ``_map``, ``_row_sum``): {label: (lowering, kernel, tensors, 1)}."""
+    import numpy as np
+    import exprgrad_torch as egt
+    from chip_smoke import executor_of
+
+    def build(rows, cols, reduce, seed):
+        inp = egt.input("inp")
+        y, x = egt.iters("y", "x")
+        out = egt.Fun("out")
+        if reduce:
+            out[y] = inp[y, x]
+        else:
+            out[y, x] = egt.exp(inp[y, x]) + 1.0
+        out.schedule(tile={"y": 16})
+        v = np.random.default_rng(seed).standard_normal((rows, cols))
+        return out.target("out"), {"inp": v.astype(np.float32)}
+
+    out = {}
+    for label, rows, cols, reduce, seed in (
+            ("tiny map [16, 64]", 16, 64, False, 1),
+            ("row reduction 8192^2", 8192, 8192, True, 2),
+            ("elementwise map 8192^2", 8192, 8192, False, 1)):
+        graph, args = build(rows, cols, reduce, seed)
+        model = egt.compile(graph, seed=0, schedule_mode="force",
+                            device="cuda")
+        model.call("out", args)
+        ex = executor_of(model)
+        (low,) = ex._lowerings.values()
+        kern = low.scheduled_mapreduce().compiled()
+        prog = model.program
+        tensors = {prog.inputs["inp"]: torch.from_numpy(args["inp"]).to(dev)}
+        tensors[prog.targets["out"].output] = torch.zeros(
+            ex.shapes[prog.targets["out"].output], device=dev)
+        out[f"calibration {label}"] = (low, kern, tensors, 1)
+    return out
+
+
+def b5map(say, dev):
+    """B5's map/reduce template (no scatter) at path (d)'s five step
+    kernels and three calibration cases, through ``mapreduce_impl``: the
+    device ms of every kernel a call launches (torch.profiler), host us a
+    call (enqueue only), CUDA-event ms a call, the bound (bytes over
+    3.35 TB/s) and the torch call of the same traffic (chip_smoke.py's
+    ``_library_twin``: events and device ms).  The host and event figures
+    come before any profiler session.  Works against the package of
+    ``--root`` (any checkout whose chip_smoke.py has ``_library_twin``)."""
+    from chip_smoke import PEAK_HBM_BYTES, _library_twin
+    from exprgrad_torch.ops import mapreduce
+
+    cases = {**_step_kernels(dev), **_calibration_kernels(dev)}
+    rows = []
+    for label, (low, kern, tensors, epoch) in cases.items():
+        mr = low.scheduled_mapreduce()
+        fn = (lambda kern=kern, tensors=tensors, epoch=epoch:
+              mapreduce.mapreduce_impl(kern, tensors, epoch))
+        twin, lib = _library_twin(mr, tensors)
+        rows.append((label, mr, kern, fn, twin, lib,
+                     host_us(fn), cuda_ms(fn, iters=50, warmup=5),
+                     cuda_ms(lib, iters=50, warmup=5)))
+    for label, mr, kern, fn, twin, lib, hs, ev, lib_ev in rows:
+        named = device_kernels(fn, calls=25)
+        lib_named = device_kernels(lib, calls=25)
+        plan = {k: v for k, v in kern.plan.items()
+                if k in ("grid", "block_p", "block_q", "num_warps", "splits",
+                         "lane", "combine_grid")}
+        say(f"b5map {label}: device {sum(named.values()):.5f} ms "
+            f"({ {k[:40]: round(t, 5) for k, t in named.items()} }), host "
+            f"{hs:.1f} us per call, CUDA events {ev:.5f} ms, bound "
+            f"{mr.total_bytes / PEAK_HBM_BYTES * 1e3:.5f} ms "
+            f"({mr.total_bytes} bytes), {twin} events {lib_ev:.5f} ms "
+            f"device {sum(lib_named.values()):.5f} ms; plan {plan}")
+    say(f"b5map package at "
+        f"{Path(sys.modules['exprgrad_torch'].__file__).parents[1]}")
+
+
 def b7_cases(dev):
     from chip_smoke import (PAGED_BENCH_CASE, PAGED_BENCH_LENS,
                             PAGED_BENCH_PAGES, PAGED_SERVING_CASE,
@@ -754,7 +891,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/probe_torch_kernels.txt")
     ap.add_argument("--parts", default="tensor,power,b5,b7",
-                    help="any of tensor, power, b5, b7, host, ops")
+                    help="any of tensor, power, b5, b5map, b7, host, "
+                    "ops")
     ap.add_argument("--skip-variants", action="store_true")
     ap.add_argument("--variants", default="fwd,bwd",
                     help="which kernels' variants to time: fwd, bwd, b5, b7")
@@ -781,6 +919,8 @@ def main() -> int:
             times(say, gen, dev)
         if "power" in parts:
             power(say, gen, dev)
+        if "b5map" in parts:
+            b5map(say, dev)
         if "b5" in parts:
             b5(say, dev)
         elif "host" in parts:

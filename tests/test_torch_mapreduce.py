@@ -33,9 +33,10 @@ import exprgrad_torch as egt
 import exprgrad_torch.layers  # noqa: F401
 import exprgrad_tpu
 import exprgrad_tpu.layers  # noqa: F401
-from chip_smoke import (MAPREDUCE_FAMILIES, assert_same, fam_elementwise,
-                        fam_gather, fam_scatter_add, fam_stencil,
-                        fam_triangular, fuzz_case)
+from chip_smoke import (MAPREDUCE_FAMILIES, assert_same,
+                        fam_column_reduction, fam_elementwise, fam_gather,
+                        fam_scatter_add, fam_stencil, fam_triangular,
+                        fuzz_case)
 from exprgrad_torch.backend import mapreduce as port_mapreduce
 from exprgrad_torch.backend.executor import TorchExecutor
 from exprgrad_torch.backend.mapreduce import ScheduledMapReduce
@@ -374,7 +375,7 @@ def test_port_takes_kernels_the_tpu_planner_declines(case):
 STENCIL = '''\
 @triton.jit(do_not_specialize=["epoch"])
 def egt_mapreduce(out_ptr, x0_ptr, epoch):
-    p = tl.program_id(0) * 1024 + tl.arange(0, 1024)
+    p = tl.program_id(0) * 256 + tl.arange(0, 256)
     p_ok = p < 8192
     p1 = p % 128
     p0 = p // 128
@@ -393,7 +394,7 @@ def egt_mapreduce(out_ptr, x0_ptr, epoch):
     t12 = t7 + t11
     t13 = t12 * 0.3333333333333333
     acc = t13
-    o = p0 * 128 + p1
+    o = p
     tl.store(out_ptr + o, acc.to(tl.float32), mask=p_ok)
 '''
 
@@ -403,9 +404,9 @@ def egt_mapreduce(out_ptr, x0_ptr, epoch):
     p = tl.program_id(0) * 64 + tl.arange(0, 64)
     p_ok = p < 64
     p0 = p
-    acc = tl.full([64], (-float("inf")), tl.float32)
     P_ok = p_ok[:, None]
     P0 = p0[:, None]
+    acc2 = tl.full([64, 64], (-float("inf")), tl.float32)
     for q_start in range(0, 64, 64):
         q = q_start + tl.arange(0, 64)
         q_ok = q < 64
@@ -416,7 +417,8 @@ def egt_mapreduce(out_ptr, x0_ptr, epoch):
         t1 = tl.load(x0_ptr + t0, mask=P_ok & Q_ok, other=0.0).to(tl.float32)
         t2 = (Q1 >= (0)) & (Q1 < (1 + P0 * 1))
         v = tl.where(P_ok & Q_ok & t2, t1, (-float("inf")))
-        acc = tl.maximum(acc, tl.max(v, axis=1))
+        acc2 = tl.maximum(acc2, v)
+    acc = tl.max(acc2, axis=1)
     o = p0
     tl.store(out_ptr + o, acc.to(tl.float32), mask=p_ok)
 '''
@@ -424,20 +426,20 @@ def egt_mapreduce(out_ptr, x0_ptr, epoch):
 GATHER = '''\
 @triton.jit(do_not_specialize=["epoch"])
 def egt_mapreduce(out_ptr, x0_ptr, x1_ptr, epoch):
-    p = tl.program_id(0) * 256 + tl.arange(0, 256)
+    p = tl.program_id(0) * 128 + tl.arange(0, 128)
     p_ok = p < 192
     p2 = p % 64
     p0 = p // 64
-    acc = tl.full([256], 0.0, tl.float32)
-    P_ok = p_ok[:, None]
-    P0 = p0[:, None]
-    P2 = p2[:, None]
+    P_ok = p_ok[None, :]
+    P0 = p0[None, :]
+    P2 = p2[None, :]
+    acc2 = tl.full([8, 128], 0.0, tl.float32)
     for q_start in range(0, 5, 8):
         q = q_start + tl.arange(0, 8)
         q_ok = q < 5
         q1 = q
-        Q_ok = q_ok[None, :]
-        Q1 = q1[None, :]
+        Q_ok = q_ok[:, None]
+        Q1 = q1[:, None]
         t0 = P0 * 5 + Q1
         t1 = tl.load(x0_ptr + t0, mask=P_ok & Q_ok, other=0.0).to(tl.float32)
         t2 = t1.to(tl.int32)
@@ -447,8 +449,51 @@ def egt_mapreduce(out_ptr, x0_ptr, x1_ptr, epoch):
         t6 = t5 * 2.0
         t7 = t6 + 1.0
         v = tl.where(P_ok & Q_ok, t7, 0.0)
-        acc = acc + tl.sum(v, axis=1)
+        acc2 = acc2 + v
+    acc = tl.sum(acc2, axis=0)
     o = p0 * 64 + p2
+    tl.store(out_ptr + o, acc.to(tl.float32), mask=p_ok)
+'''
+
+COLUMN = '''\
+@triton.jit(do_not_specialize=["epoch"])
+def egt_mapreduce(part_ptr, x0_ptr, x1_ptr, epoch):
+    p = tl.program_id(0) * 64 + tl.arange(0, 64)
+    p_ok = p < 64
+    p1 = p
+    P_ok = p_ok[None, :]
+    P1 = p1[None, :]
+    acc2 = tl.full([64, 64], 0.0, tl.float32)
+    q_lo = tl.program_id(1) * 64
+    for q_start in range(0, 64, 64):
+        q = q_lo + q_start + tl.arange(0, 64)
+        q_ok = q < 1024
+        q0 = q
+        Q_ok = q_ok[:, None]
+        Q0 = q0[:, None]
+        t0 = Q0 * 64 + P1
+        t1 = tl.load(x0_ptr + t0, mask=P_ok & Q_ok, other=0.0).to(tl.float32)
+        t2 = Q0 * 64 + P1
+        t3 = tl.load(x1_ptr + t2, mask=P_ok & Q_ok, other=0.0).to(tl.float32)
+        t4 = t1 - t3
+        t5 = t4 * t4
+        v = tl.where(P_ok & Q_ok, t5, 0.0)
+        acc2 = acc2 + v
+    acc = tl.sum(acc2, axis=0)
+    tl.store(part_ptr + tl.program_id(1) * 64 + p, acc, mask=p_ok)
+
+@triton.jit
+def egt_mapreduce_combine(out_ptr, part_ptr):
+    p = tl.program_id(0) * 64 + tl.arange(0, 64)
+    p_ok = p < 64
+    p1 = p
+    acc2 = tl.full([16, 64], 0.0, tl.float32)
+    for s0 in range(0, 16, 16):
+        s = s0 + tl.arange(0, 16)
+        part = tl.load(part_ptr + s[:, None] * 64 + p[None, :], mask=(s[:, None] < 16) & p_ok[None, :], other=0.0)
+        acc2 = acc2 + part
+    acc = tl.sum(acc2, axis=0)
+    o = p
     tl.store(out_ptr + o, acc.to(tl.float32), mask=p_ok)
 '''
 
@@ -515,6 +560,7 @@ def egt_mapreduce(out_ptr, part_ptr, cnt_ptr, skey_ptr, perm_ptr, seg_ptr, x0_pt
 '''
 
 GOLDEN = {"stencil": (fam_stencil, STENCIL),
+          "column reduction": (fam_column_reduction, COLUMN),
           "triangular": (fam_triangular, TRIANGULAR),
           "gather": (fam_gather, GATHER),
           "scatter": (fam_scatter_add, SCATTER)}
@@ -549,13 +595,21 @@ def _kernel_of(build):
                                     "ragged"])
 def test_reductions_loop_inside_one_program(family):
     """A reduction the TPU grids, and the scalar all-reduce, run as a
-    loop inside the program that owns the output: no atomics, one order,
-    the same bits on every run."""
+    loop inside the program that owns the output or, where the reduction
+    is split (the all-reduce's 8192 positions), inside the program that
+    owns a chunk of it, whose float32 partial one combine kernel adds to
+    the others in a fixed order: no atomics, one order, the same bits on
+    every run."""
     mr = _kernel_of(MAPREDUCE_FAMILIES[family])
-    source = mr.compiled().source
+    kern = mr.compiled()
+    source = kern.source
     assert "for q_start in range(0, " in source
     assert "tl.atomic" not in source
     assert mr.q_axes and not mr.scatter
+    split = kern.plan["splits"] > 1
+    assert split == (family == "constant_write")
+    assert ("def egt_mapreduce_combine(out_ptr, part_ptr):" in source) \
+        == split
 
 
 @pytest.mark.parametrize("family,reduce", [
@@ -707,3 +761,366 @@ def test_auto_takes_the_kernel_where_jax_falls_back(monkeypatch):
         warnings.simplefilter("error", egt.ScheduleWarning)
         ignore.call("out", args)
     assert "mapreduce" not in ignore.lowering_stats("out")
+
+
+# --- the Hopper plan: lane axis, tiles, splits ----------------------------
+
+def _planned(graph, target, shapes):
+    """The B5 kernels an executor of ``target`` plans at ``shapes`` (none
+    run): [(lowering, kernel object)]."""
+    port = egt.compile(graph, seed=0, schedule_mode="force", device="cpu")
+    port.executable(target, shapes)
+    (ex,) = [e for (name, _), e in port._executors.items() if name == target]
+    out = []
+    for i in range(len(ex.target.kernels)):
+        low = ex._lowering(i)
+        if (i in ex._skip_kernels or i in ex.fused or i in ex.row_fused
+                or low.kernel.extern is not None or not low._bounds_ok
+                or low.scheduled_route() != "mapreduce"):
+            continue
+        out.append((low, low.scheduled_mapreduce().compiled()))
+    return out
+
+
+@pytest.mark.parametrize("n_p,n_q,lane_p,want", [
+    # path (d)'s gamma gradient [2048, 512] -> [512]: 4 column blocks of
+    # 128 adjacent floats, split in 64 chunks of 32 rows
+    (512, 2048, True, dict(grid=(4, 64), block_p=128, block_q=32, splits=64,
+                           chunk=32, combine_grid=(8,), block_s=64,
+                           block_pc=64, num_warps=8)),
+    # path (d)'s row sums [2048, 2048] -> [2048]: 512 programs, no split
+    (2048, 2048, False, dict(grid=(512,), block_p=4, block_q=1024,
+                             splits=1, num_warps=8)),
+    # the calibration's row reduction 8192^2
+    (8192, 8192, False, dict(grid=(2048,), block_p=4, block_q=1024,
+                             splits=1)),
+    # the scalar all-reduce of 8192 positions: 8 chunks of 1024
+    (1, 8192, False, dict(grid=(1, 8), block_p=1, block_q=1024, splits=8,
+                          combine_grid=(1,))),
+    # a column sum too short to split (3 blocks of rows a program)
+    (64, 192, True, dict(grid=(1,), block_p=64, block_q=64, splits=1)),
+    # maps: 1024 elements a program (4 warps) at 8192^2 and path (d)'s
+    # [2048, 2048]; fewer where that leaves fewer than two programs an SM
+    (8192 * 8192, 0, False, dict(grid=(65536,), block_p=1024,
+                                 num_warps=4)),
+    (2048 * 2048, 0, False, dict(grid=(4096,), block_p=1024)),
+    (300000, 0, False, dict(grid=(293,), block_p=1024, num_warps=4)),
+    # the tiny map [16, 64], and 256 elements a program at the least
+    (1024, 0, False, dict(grid=(4,), block_p=256, num_warps=1)),
+    (100000, 0, False, dict(grid=(196,), block_p=512, num_warps=2)),
+])
+def test_planner_follows_layout_and_splits(n_p, n_q, lane_p, want):
+    """The tiles follow the stride-1 axis, a reduction whose output gives
+    fewer than two programs an SM (132) is split when a program would walk
+    4 or more blocks of it, and a map takes as many elements a program as
+    still gives two programs an SM, from 256 to 1024."""
+    plan = ops_mapreduce.plan_blocks(n_p, n_q, lane_p)
+    assert {k: plan[k] for k in want} == want
+    if n_q:
+        assert plan["lane"] == ("p" if lane_p else "q")
+        assert plan["splits"] * plan["chunk"] >= n_q
+        assert (plan["splits"] - 1) * plan["chunk"] < n_q
+        assert plan["block_p"] * plan["block_q"] <= 4096
+    else:
+        assert plan["splits"] == 1
+
+
+def test_head_step_plans_take_the_lane_axis():
+    """Path (d)'s train step at its full width, planned: the gamma
+    gradient reduces the strided axis of [2048, 512] operands and so
+    takes the column tile and the split; the row sums reduce the stride-1
+    axis; the maps take 1024 elements a program, their reads and write
+    addressed by the flat position."""
+    from chip_smoke import HEAD, transformer_head
+
+    kernels = _planned(transformer_head(egt, HEAD["dim"], HEAD["vocab"]),
+                       "train", {"x": [HEAD["rows"], HEAD["dim"]],
+                                 "labels": [HEAD["rows"], HEAD["vocab"]]})
+    assert len(kernels) == 5
+    seen = {}
+    for low, kern in kernels:
+        mr = low.scheduled_mapreduce()
+        lane = ops_mapreduce.lane_axis(mr)
+        out = tuple(low.shapes[low.kernel.write.tensor])
+        if out == (HEAD["dim"],):
+            assert lane in mr.p_axes and kern.plan["lane"] == "p"
+            assert kern.plan["grid"] == (4, 64)
+            assert "egt_mapreduce_combine" in kern.source
+            seen["gamma"] = kern.plan
+        elif len(out) == 1:
+            assert lane in mr.q_axes and kern.plan["lane"] == "q"
+            assert kern.plan["grid"] == (512,) and kern.plan["splits"] == 1
+            seen.setdefault("row sums", []).append(kern.plan)
+        else:
+            assert kern.plan["block_p"] == 1024 and not mr.q_axes
+            assert "tl.load(x0_ptr + p, mask=p_ok" in kern.source
+            assert "    o = p\n" in kern.source
+            seen.setdefault("maps", []).append(kern.plan)
+    assert len(seen["row sums"]) == 2 and len(seen["maps"]) == 2
+
+
+def test_loads_of_program_axes_are_hoisted():
+    """A read that varies over no reduced axis (``b[y]`` of
+    ``out[y] = exp(a[y, x]) + b[y]``) loads once, before the walk; the
+    reads of reduced axes load inside it."""
+    source = _kernel_of(MAPREDUCE_FAMILIES["inblock_reduction"]) \
+        .compiled().source
+    head, walk = source.split("    for q_start in range(")
+    assert "tl.load(x1_ptr + P0, mask=P_ok" in head
+    assert "tl.load(x0_ptr" in walk and "x1_ptr" not in walk
+
+
+def test_split_reduction_past_int32_indexes_in_int64():
+    """A split column sum over more than 2^31 - 1 elements computes its
+    chunk's start, positions and partial addresses in int64 (planned
+    here, never allocated)."""
+    graph, _ = fam_column_reduction(egt)
+    port = egt.compile(graph, seed=0, schedule_mode="force", device="cpu")
+    port.executable("out", {"a": [2 ** 22, 1024], "b": [2 ** 22, 1024]})
+    (ex,) = port._executors.values()
+    (low,) = [ex._lowering(i) for i in range(len(ex.target.kernels))]
+    kern = low.scheduled_mapreduce().compiled()
+    assert kern.plan["splits"] > 1
+    source = kern.source
+    assert f"q_lo = tl.program_id(1).to(tl.int64) * {kern.plan['chunk']}" \
+        in source
+    assert "s = s0 + tl.arange(0, 64).to(tl.int64)" in source
+    builtins.compile(source, "int64", "exec")
+
+
+# --- the launch table (utils/launcher.py) ---------------------------------
+
+def test_launch_table_follows_each_function_signature():
+    """Each launch's argument slots are read off the generated function's
+    parameters: outputs, previous values, operands (by their index among
+    the op's tensors, ``kern.args``), buffers by name, the epoch."""
+    split = _kernel_of(fam_column_reduction).compiled()
+    tab = split.launch_table()
+    ops = [("op", split.args.index(t)) for t in split.tids]
+    assert tab["buffers"] == [{"name": "part", "dtype": torch.float32,
+                               "numel": split.plan["part"],
+                               "mode": "empty"}]
+    main, combine = tab["steps"]
+    assert main["fn"] == "egt_mapreduce" and main["grid"] == (1, 16, 1)
+    assert main["slots"] == [("buf", 0)] + ops + [("epoch", 0)]
+    assert combine["fn"] == "egt_mapreduce_combine"
+    assert combine["slots"] == [("out", 0), ("buf", 0)]
+    assert combine["num_warps"] == split.plan["combine_warps"]
+
+    scatter = _kernel_of(fam_scatter_add).compiled()
+    tab = scatter.launch_table()
+    names = [b["name"] for b in tab["buffers"]]
+    assert names == ["key", "skey", "perm", "seg", "part", "cnt"]
+    assert [b["mode"] for b in tab["buffers"]] == [
+        "empty", "made", "made", "made", "empty", "zeros"]
+    keys, group, walk = tab["steps"]
+    ops = [("op", scatter.args.index(t)) for t in scatter.tids]
+    assert keys["slots"] == [("buf", 0)] + ops + [("epoch", 0)]
+    assert group == {"kind": "group", "keys": 0, "sorted": 1, "perm": 2,
+                     "offsets": 3, "K": scatter.plan["K"]}
+    assert walk["slots"] == ([("out", 0)] + [("buf", names.index(n)) for n in
+                             ("part", "cnt", "skey", "perm", "seg")]
+                             + ops + [("epoch", 0)])
+
+    from exprgrad_torch.utils import launcher
+    assert launcher.slot("r1_ptr", {}, []) == ("prev", 1)
+    assert launcher.slot("o2_ptr", {}, []) == ("out", 2)
+    assert launcher.slot("x1_ptr", {1: 4}, []) == ("op", 4)
+    with pytest.raises(ValueError, match="names no output"):
+        launcher.slot("lse_ptr", {}, [])
+
+
+def test_launch_table_of_an_accumulating_write_passes_prev():
+    """A write that accumulates into its previous value passes it right
+    after the output (``out_ptr, prev_ptr``), in the kernel and in the
+    combine of a split."""
+    from chip_smoke import HEAD, transformer_head
+
+    kernels = _planned(transformer_head(egt, 32, 64), "train",
+                       {"x": [1024, 32], "labels": [1024, 64]})
+    assert not all(kern.fresh for _, kern in kernels)
+    for low, kern in kernels:
+        last = kern.launch_table()["steps"][-1]["slots"]
+        want = [("out", 0)] if kern.fresh else [("out", 0), ("prev", 0)]
+        assert last[:len(want)] == want
+        assert ("prev", 0) not in last[len(want):]
+
+
+def test_hidden_parameters_and_their_sizes():
+    """A compiled function's parameters past the table's slots are
+    Triton's hidden scratch pointers (two in Triton 3.6), passed as null;
+    a size that disagrees with the slots raises, naming the function."""
+    from exprgrad_torch.utils import launcher
+
+    slots = [("out", 0), ("op", 1), ("op", 2), ("epoch", 0)]
+    assert launcher.check_params([8, 8, 8, 4, 8, 8], slots, "f") == 6
+    assert launcher.check_params([8, 8, 8, 4], slots, "f") == 4
+    with pytest.raises(RuntimeError, match="f takes parameters"):
+        launcher.check_params([8, 8, 8, 8, 8, 8], slots, "f")
+    with pytest.raises(RuntimeError, match="f takes parameters"):
+        launcher.check_params([8, 8, 8, 4, 4], slots, "f")
+    with pytest.raises(RuntimeError, match="f takes parameters"):
+        launcher.check_params([8, 8, 4], slots, "f")
+    kern = _kernel_of(fam_column_reduction).compiled()
+    bufs, steps, names = launcher.encode(
+        kern.launch_table(), {"egt_mapreduce": (11, 256, 0, 6),
+                              "egt_mapreduce_combine": (12, 128, 64, 4)},
+        {"egt_mapreduce": "a.py:egt_mapreduce",
+         "egt_mapreduce_combine": "a.py:egt_mapreduce_combine"})
+    assert bufs == [6, kern.plan["part"], 0]
+    op0, op1 = (kern.args.index(t) for t in kern.tids)
+    assert steps == [0, 11, 1, 16, 1, 256, 0, 6, 4, 3, 0, 2, op0, 2, op1,
+                     4, 0,
+                     0, 12, 1, 1, 1, 128, 64, 4, 2, 0, 0, 3, 0]
+    assert names == "a.py:egt_mapreduce\na.py:egt_mapreduce_combine\n"
+
+
+def test_operands_off_sixteen_bytes_are_copied():
+    """Triton compiles every pointer for 16-byte alignment: an operand or
+    previous value at another address (a view at an odd offset) is
+    copied, an aligned contiguous one passes as it is."""
+    from exprgrad_torch.utils import launcher
+
+    base = torch.arange(40, dtype=torch.float32)
+    whole = base[:32]
+    assert launcher.aligned(whole).data_ptr() == whole.data_ptr()
+    view = base[1:33]
+    assert view.data_ptr() % 16
+    got = launcher.aligned(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    col = base[:32].view(8, 4).t()
+    assert launcher.aligned(col).is_contiguous()
+
+
+# --- the template under a numpy emulation of Triton -----------------------
+
+from test_torch_segments import emulated  # noqa: E402,F401  (the fixture)
+
+
+def _run_template(kern, tensors, epoch):
+    """``mapreduce_impl``'s launch table in Python, each launch through
+    the emulated Triton (tests/test_torch_segments.py)."""
+    from exprgrad_torch.utils import launcher, triton_build
+
+    kern.handles.clear()
+    prev = tensors[kern.out_tid]
+    out = torch.empty_like(prev)
+    launcher.run_table(
+        kern.launch_table(), lambda name: triton_build.handle(kern, name),
+        [out], [None if kern.fresh else prev.contiguous()],
+        {i: tensors[t] for i, t in enumerate(kern.args)}, epoch)
+    return out
+
+
+TEMPLATE_FAMILIES = sorted(name for name in MAPREDUCE_FAMILIES
+                           if "scatter" not in name)
+
+
+@pytest.mark.parametrize("family", TEMPLATE_FAMILIES)
+def test_template_runs_as_the_plain_version(family, emulated, monkeypatch):
+    """Every map/reduce family's generated source, run under the numpy
+    emulation of Triton through its launch table, against the plain
+    version on the same tensors, and the same bits twice."""
+    graph, args = MAPREDUCE_FAMILIES[family](egt)
+    port = egt.compile(graph, seed=0, schedule_mode="force", device="cpu")
+    port.epoch = 3
+    ran = []
+    real = ops_mapreduce.mapreduce_impl
+
+    def impl(kern, tensors, epoch):
+        want = real(kern, tensors, epoch)
+        got = _run_template(kern, tensors, epoch)
+        assert torch.equal(got, _run_template(kern, tensors, epoch))
+        assert_same(family, got.numpy(), want.numpy(),
+                    dict(rtol=1e-5, atol=1e-5))
+        ran.append(kern.plan)
+        return want
+
+    monkeypatch.setattr(ops_mapreduce, "mapreduce_impl", impl)
+    port.call("out", args)
+    assert len(ran) == 1
+    if family == "column_reduction":
+        assert ran[0]["splits"] == 16 and ran[0]["lane"] == "p"
+
+
+def test_head_step_kernels_run_as_the_plain_version(emulated, monkeypatch):
+    """Path (d)'s train step at 1024 rows of width 32 and a vocabulary of
+    64: each of its five B5 kernels under the emulation against the plain
+    version on the tensors the step hands it; the gamma gradient (a
+    column sum over 1024 rows) splits."""
+    from chip_smoke import transformer_head
+
+    port = egt.compile(transformer_head(egt, 32, 64), seed=0,
+                       schedule_mode="force", device="cpu")
+    rng = np.random.default_rng(4)
+    batch = {"x": rng.standard_normal((1024, 32), dtype=np.float32),
+             "labels": np.eye(64, dtype=np.float32)[
+                 rng.integers(0, 64, 1024)]}
+    port.epoch = 1
+    ran = []
+    real = ops_mapreduce.mapreduce_impl
+
+    def impl(kern, tensors, epoch):
+        want = real(kern, tensors, epoch)
+        got = _run_template(kern, tensors, epoch)
+        assert_same("head step", got.numpy(), want.numpy(),
+                    dict(rtol=1e-5, atol=1e-5))
+        ran.append(kern.plan)
+        return want
+
+    monkeypatch.setattr(ops_mapreduce, "mapreduce_impl", impl)
+    port.apply("train", batch)
+    assert len(ran) == 5
+    assert [p["lane"] for p in ran if p["splits"] > 1] == ["p"]
+
+
+@pytest.mark.parametrize("kind", ["mapreduce", "rowchain"])
+def test_first_call_runs_the_table_and_registers_it(kind, emulated,
+                                                    monkeypatch):
+    """A kernel's first call on a device (``generated._first``, which the
+    C++ implementation calls when it holds no table): the launch table
+    runs in Python, here through the emulated Triton on CPU tensors, gives
+    the plain version's values, and is handed to the launcher with the
+    kernel's dtype and fresh flags; an operand of another dtype raises."""
+    from chip_smoke import softmax_chain
+    from exprgrad_torch.ops import generated
+    from exprgrad_torch.utils import launcher
+
+    if kind == "mapreduce":
+        graph, args = fam_column_reduction(egt)
+    else:
+        graph, args = softmax_chain(egt, {"y": 8}, rows=16, cols=32)
+    port = egt.compile(graph, seed=0, schedule_mode="force", device="cpu")
+    want = port.call("out", args)
+    (ex,) = port._executors.values()
+    if kind == "mapreduce":
+        (low,) = ex._lowerings.values()
+        kern = low.scheduled_mapreduce().compiled()
+        n_out = 1
+    else:
+        (chain,) = ex.row_fused.values()
+        kern = chain.compiled()
+        n_out = len(kern.out_tids)
+    prog = port.program
+    inputs = {prog.inputs[n]: torch.from_numpy(v) for n, v in args.items()}
+    tensors = [inputs.get(t, torch.zeros(ex.shapes[t])) for t in kern.args]
+    registered = []
+    monkeypatch.setattr(launcher, "register",
+                        lambda *a: registered.append(a))
+    kern.handles.clear()
+    outs = generated._first(kind, kern.spec, tensors, n_out, 3)
+    final = prog.targets["out"].output
+    got = outs[0] if kind == "mapreduce" else outs[
+        kern.out_tids.index(final)]
+    assert_same(kind, got.numpy(), want, dict(rtol=1e-5, atol=1e-5))
+    (op, spec, device, tab, compiled, dtype, fresh, path), = registered
+    assert (op, spec, dtype) == (kind, kern.spec, torch.float32)
+    assert tab is kern.launch_table() and path.suffix == ".py"
+    assert sorted(compiled) == sorted(
+        s["fn"] for s in tab["steps"] if s["kind"] == "launch")
+    assert len(fresh) == n_out
+    op_index = next(i for i, t in enumerate(kern.args)
+                    if t in kern.tids and i >= n_out)
+    tensors[op_index] = tensors[op_index].double()
+    with pytest.raises(ValueError, match="the kernel takes torch.float32"):
+        generated._first(kind, kern.spec, tensors, n_out, 3)

@@ -135,8 +135,11 @@ class _Kernel:
 
         def run(*args, num_warps=4):
             del num_warps
+            # a tensor is a pointer; an int an int32 scalar, as Triton
+            # passes one (it has ``.to``)
             args = [Ptr(a.numpy().reshape(-1)) if isinstance(a, torch.Tensor)
-                    else a for a in args]
+                    else _t(np.int32(a)) if isinstance(a, int) else a
+                    for a in args]
             for x in range(grid[0]):
                 for y in range(grid[1]):
                     for z in range(grid[2]):
