@@ -4157,7 +4157,7 @@ def path_l(egt, gpu) -> dict:
     from exprgrad_torch.models import (ContinuousBatcher, FlashLMServer,
                                        flash_transformer)
 
-    res = {"b7": 0, "replays": 0, "captures": {}, "tokens_s": {}}
+    res = {"b7": 0, "replays": 0, "tokens_s": {}}
     vocab, blocks = SERVING["vocab"], SERVING["blocks"]
     cap = CB_CELL["capacity"]
     model = egt.compile(flash_transformer(**dict(SERVING, max_seq=cap)),
@@ -4174,9 +4174,6 @@ def path_l(egt, gpu) -> dict:
         assert launches == want, (what, launches, want, b.stats)
         res["b7"] += launches
         res["replays"] += replays
-        for g in list(b.chunk_graphs.values())[len(b.chunk_graphs)
-                                               - graphs:]:
-            res["captures"][what] = round(g.capture_seconds, 4)
         print(f"path (l) {what}: {tokens} tokens in {secs:.4f} s, "
               f"{tokens / secs:.1f} tokens/s, {dispatches} dispatches "
               f"({secs / max(dispatches, 1) * 1e3:.3f} ms each), {replays} "
@@ -4292,11 +4289,8 @@ def path_l(egt, gpu) -> dict:
             assert b.stats["free_pages"] == b.stats["pool_pages"], b.stats
             res["b7"] += launches
             res["replays"] += replays
-            for g in b.chunk_graphs.values():
-                res["captures"][f"steady {key}"] = round(
-                    g.capture_seconds, 4)
             line += (f"; to the end: {replays} replays, B7 launches "
-                     f"{launches}, capture {[round(g.capture_seconds, 3) for g in b.chunk_graphs.values()]} s")
+                     f"{launches}")
         print(line + f" on {gpu}")
         if chunk == 32 and pipe == 0:
             res["tokens_s"]["steady 32"] = STEADY["slots"] * steps / dt
@@ -5174,15 +5168,19 @@ def main() -> int:
     t0 = time.perf_counter()
     # the generated kernels' launcher (csrc/launch.cpp, the host compiler)
     # builds beside the nvcc compiles
+    def timed(fn):
+        t = time.perf_counter()
+        return fn(), time.perf_counter() - t
+
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        built = pool.submit(kernels.load_launcher)
+        built = pool.submit(timed, kernels.load_launcher)
         kernels.load()
-        launcher_path = built.result()
+        launcher_path, launcher_s = built.result()
     launcher.load()
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{kernels.library_path()} (host of {gpu}); nvcc seconds by "
           f"file {kernels.compile_seconds}; the launcher {launcher_path} "
-          f"in {kernels.launcher_seconds} s")
+          f"in {launcher_s:.1f} s")
     if kernels.build_log.strip():
         print(kernels.build_log.strip())
 
@@ -5527,8 +5525,7 @@ def main() -> int:
         gen_launches[kind] += exported[kind]
     print(f"exported plans with generated kernels (phase 19): launches "
           f"{exported}; path (l) (phase 20): B7 launches "
-          f"{path_l_run['b7']} in {path_l_run['replays']} graph replays, "
-          f"capture seconds {path_l_run['captures']}")
+          f"{path_l_run['b7']} in {path_l_run['replays']} graph replays")
     print(f"flash kernel launches: serving predict {launches} and train "
           f"{train_launches}, path (g) {path_g_run['launches']}, path (j) "
           f"{j_launches}, exported predict {extras['launches']['B2']}; in "

@@ -26,6 +26,16 @@ allocated.
 The executor keeps one :class:`KernelLowering` per kernel across its
 runs, so a scheduled kernel is classified, planned and its Triton source
 generated once per executor, not once per call.
+
+While ``torch.profiler`` records, a run leaves spans (``tracing``;
+``Model.call``'s shape inference before it is ``egt.executor.shapes``):
+``egt.executor.run`` around it, ``egt.executor.alloc`` around its
+results' fills and RANDOM tensors, and ``egt.executor.kernel`` around
+each kernel it runs, with the kernel's ``index``, its lowering ``path``
+(``lowering_stats``'s vocabulary) and its ``phase``: ``optimizer`` for a
+kernel that writes a parameter or cache, ``backward`` for one the
+autodiff pass derived, else ``forward``.  On a CUDA device one event at
+each kernel boundary gives every kernel its device seconds.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import ir
+from .. import ir, tracing
 from ..interp import accumulation_identity, extreme_accumulated_results
 from ..ir import Program
 from ..quant import QuantW, dequantize
@@ -46,6 +56,17 @@ from .torcheval import KernelLowering
 
 def torch_dtype(program: Program) -> torch.dtype:
     return getattr(torch, program.scalar_type.value)
+
+
+def kernel_phase(program: Program, kernel: ir.Kernel) -> str:
+    """The phase of a train step a kernel belongs to: ``optimizer`` if
+    it writes a parameter or cache, ``backward`` if the autodiff pass
+    derived it, else ``forward``."""
+    if kernel.write is not None and program.tensors[
+            kernel.write.tensor].kind in (ir.TensorKind.PARAM,
+                                          ir.TensorKind.CACHE):
+        return "optimizer"
+    return "backward" if kernel.derived else "forward"
 
 
 def random_seed(seed: int, tid: int) -> int:
@@ -116,6 +137,7 @@ class TorchExecutor:
         donated = set(self.donated_tids)
         self.kept_tids = [t for t in self.input_tids if t not in donated]
         self._extreme = extreme_accumulated_results(self.target)
+        self.phases = [kernel_phase(program, k) for k in self.target.kernels]
         self.stats: dict[str, int] = {}  # lowering paths, from the 1st run
         self._ran = False
 
@@ -202,16 +224,44 @@ class TorchExecutor:
         output and every updated parameter/cache.  RANDOM tensors already
         in ``tensors`` are used as given (an exported program carries
         them as constants)."""
-        program = self.program
-        # weight-quantized parameters (Model.quantize_weights) enter as
-        # QuantW codes and scales and are dequantized here, into this run
-        # only: the model keeps the codes
-        tensors = {
-            tid: dequantize(v, self.dtype) if isinstance(v, QuantW) else v
-            for tid, v in tensors.items()
-        }
+        cuda = self.device.type == "cuda"
+        with tracing.span("egt.executor.run", target=self.target.name,
+                          device=cuda):
+            # weight-quantized parameters (Model.quantize_weights) enter as
+            # QuantW codes and scales and are dequantized here, into this
+            # run only: the model keeps the codes
+            tensors = {
+                tid: dequantize(v, self.dtype) if isinstance(v, QuantW)
+                else v for tid, v in tensors.items()
+            }
+            with tracing.span("egt.executor.alloc", device=cuda) as sp:
+                self._alloc(tensors, seed)
+            traced = sp is not None
+            mark = sp.end_event if traced else None
+            stats = None if self._ran else self.stats
+            extern_memo: dict = {}  # one logical extern call per run
+            for i in range(len(self.target.kernels)):
+                if i in self._skip_kernels:
+                    continue  # folded into an earlier matmul or row chain
+                if not traced:
+                    self._run_kernel(i, tensors, epoch, stats, extern_memo)
+                    continue
+                with tracing.span("egt.executor.kernel", index=i,
+                                  phase=self.phases[i], device=mark) as sp:
+                    path = self._run_kernel(i, tensors, epoch, stats,
+                                            extern_memo)
+                if sp is not None:
+                    sp.attrs["path"] = path
+                    mark = sp.end_event
+            extern_memo.clear()  # the kept lowerings must not hold outputs
+        self._ran = True
+        return {tid: tensors[tid] for tid in self.output_tids}
+
+    def _alloc(self, tensors: dict, seed: int) -> None:
+        """Every RESULT tensor of the run at its accumulation identity, and
+        the RANDOM tensors not given, into ``tensors``."""
         for tid in sorted(self.target.tensors):
-            if (program.tensors[tid].kind != ir.TensorKind.RESULT
+            if (self.program.tensors[tid].kind != ir.TensorKind.RESULT
                     or tid in self._fused_away):
                 continue
             shape = tuple(self.shapes[tid])
@@ -226,36 +276,33 @@ class TorchExecutor:
                                            device=self.device)
         for tid, value in self.random_tensors(seed).items():
             tensors.setdefault(tid, value)
-        stats = None if self._ran else self.stats
-        extern_memo: dict = {}  # one logical extern call per run
-        for i, kernel in enumerate(self.target.kernels):
-            if i in self._skip_kernels:
-                continue  # folded into an earlier matmul or row chain
-            if i in self.fused:
-                sm, chain = self.fused[i]
-                value = sm.lower_fused(tensors, chain)
-                t2 = chain.final_tensor
-                tensors[t2] = tensors[t2] + value.reshape(
-                    tuple(self.shapes[t2]))
-                if stats is not None:
-                    stats["matmul-fused"] = stats.get("matmul-fused", 0) + 1
-                continue
-            if i in self.row_fused:
-                chain = self.row_fused[i]
-                for member in chain.members:
-                    member.low.epoch = epoch
-                # the final tensor and every escaping intermediate come
-                # out of one launch
-                tensors.update(chain.lower(tensors))
-                if stats is not None:
-                    stats["rowchain"] = stats.get("rowchain", 0) + 1
-                continue
+
+    def _run_kernel(self, i: int, tensors: dict, epoch: int, stats,
+                    extern_memo: dict):
+        """Run kernel ``i`` (a fused matmul's or row chain's head runs the
+        whole chain) into ``tensors``; returns its lowering path."""
+        if i in self.fused:
+            sm, chain = self.fused[i]
+            value = sm.lower_fused(tensors, chain)
+            t2 = chain.final_tensor
+            tensors[t2] = tensors[t2] + value.reshape(
+                tuple(self.shapes[t2]))
+            path = "matmul-fused"
+        elif i in self.row_fused:
+            chain = self.row_fused[i]
+            for member in chain.members:
+                member.low.epoch = epoch
+            # the final tensor and every escaping intermediate come out
+            # of one launch
+            tensors.update(chain.lower(tensors))
+            path = "rowchain"
+        else:
             low = self._lowering(i)
             low.extern_memo = extern_memo
-            low.run(tensors, epoch, stats)
-        extern_memo.clear()  # the kept lowerings must not hold its outputs
-        self._ran = True
-        return {tid: tensors[tid] for tid in self.output_tids}
+            path = low.run(tensors, epoch, stats)
+        if stats is not None and path is not None:
+            stats[path] = stats.get(path, 0) + 1
+        return path
 
     def run_epoch(
         self,

@@ -887,8 +887,9 @@ class KernelLowering:
                                  reduce="amax" if mode == "max" else "amin")
         return flat.reshape(out.shape)
 
-    def _run_extern(self, tensors: dict, stats: Optional[dict]) -> None:
-        """Run an extern kernel through the port's extern table.
+    def _run_extern(self, tensors: dict, stats: Optional[dict]) -> str:
+        """Run an extern kernel through the port's extern table; returns
+        its lowering path, ``extern:<name>``.
 
         ``self.extern_memo`` (one dict per target run) is shared across the
         kernels of one multi-output call, so the op runs once."""
@@ -918,9 +919,7 @@ class KernelLowering:
                 f"{expect} (check the with_shape/copy_shape annotation)"
             )
         tensors[out_tid] = tensors[out_tid] + value
-        if stats is not None:
-            stat = f"extern:{ext.name}"
-            stats[stat] = stats.get(stat, 0) + 1
+        return f"extern:{ext.name}"
 
     def _kernel_desc(self) -> str:
         write = self.kernel.write
@@ -1019,18 +1018,19 @@ class KernelLowering:
         return result
 
     def run(self, tensors: dict, epoch: int,
-            stats: Optional[dict] = None) -> None:
-        """Execute the kernel, replacing ``tensors[write.tensor]``.
+            stats: Optional[dict] = None) -> Optional[str]:
+        """Execute the kernel, replacing ``tensors[write.tensor]``;
+        returns its lowering path as ``lowering_stats`` counts it (None
+        when the kernel's bounds are empty and nothing ran).
 
         ``stats`` is given on an executor's first run only: it counts the
-        lowering paths (``lowering_stats``) and gates the schedule
-        warning, so both report once per compiled executor, as the JAX
-        package reports once per trace."""
+        recompute kernels and the fallbacks, and gates the schedule
+        warning, so they report once per compiled executor, as the JAX
+        package reports once per trace; the caller counts the path."""
         if self.kernel.extern is not None:
-            self._run_extern(tensors, stats)
-            return
+            return self._run_extern(tensors, stats)
         if not self._bounds_ok:
-            return
+            return None
         self.epoch = epoch
         assert self.kernel.write is not None
         if self.kernel.remat and stats is not None:
@@ -1063,10 +1063,10 @@ class KernelLowering:
             result = self._general(tensors)
             path = f"general-{self.sub_path}"
         if stats is not None:
-            stats[path] = stats.get(path, 0) + 1
             for reason in (fallback_reason, conv_decline):
                 if reason is not None:
                     self.policy.fallback(stats, self._kernel_desc(),
                                          f"{reason}; lowered via {path}")
         tensors[self.kernel.write.tensor] = result
         self.env = {}  # the executor keeps this lowering; free the run's grids
+        return path

@@ -459,6 +459,10 @@ class Kernel:
     # defeat rematerialization)
     remat: bool = False
     remat_anchor: Optional[int] = None
+    # emitted by the autodiff pass (a BACKWARDS generator's region, the
+    # recompute kernels included): the executor's backward phase.  Not
+    # printed, so the program text is the JAX package's
+    derived: bool = False
     regs: list[Register] = field(default_factory=list)
     setup: list[Instr] = field(default_factory=list)
     loops: list[Loop] = field(default_factory=list)
@@ -494,6 +498,7 @@ class Kernel:
             extern=self.extern.copy() if self.extern else None,
             remat=self.remat,
             remat_anchor=self.remat_anchor,
+            derived=self.derived,
             regs=[replace(r) for r in self.regs],
             setup=[i.copy() for i in self.setup],
             loops=[l.copy() for l in self.loops],

@@ -23,7 +23,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import ir
+from . import ir, tracing
 from .backend.executor import TorchExecutor, torch_dtype
 from .backend.policy import SchedulePolicy
 from .errors import ModelRuntimeError
@@ -450,8 +450,10 @@ class Model:
                 f"{target_name!r} is not a target of the model"
             )
         args, b = self._bucketed(target_name, args)
-        shapes = infer_shapes(self.program, target_name,
-                              self._input_shapes(args))
+        # the shape signature that picks the executor, inferred per call
+        with tracing.span("egt.executor.shapes", target=target_name):
+            shapes = infer_shapes(self.program, target_name,
+                                  self._input_shapes(args))
         out = self._run(target_name, args, shapes)
         if b is not None and out is not None and np.ndim(out) >= 1:
             out = out[:b]

@@ -36,11 +36,10 @@ only a CUDA device captures.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import attention, mapreduce, matmul, paged_attention, rowchain
 
 _COUNTED = (attention, matmul, mapreduce, rowchain, paged_attention)
@@ -54,9 +53,10 @@ class Pending:
         self._toks, self._event = toks, event
 
     def tokens(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._toks.numpy()
+        with tracing.span("egt.batcher.readback"):
+            if self._event is not None:
+                self._event.synchronize()
+            return self._toks.numpy()
 
 
 def _storage(caches) -> list:
@@ -89,7 +89,6 @@ class ChunkGraph:
         self.tok, temp = self._floats[:s], self._floats[s:2 * s]
         top_p = self._floats[2 * s:]
         self._storage = _storage(caches)
-        t0 = time.perf_counter()
         self._inputs(ints, floats, chained)
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
@@ -121,7 +120,6 @@ class ChunkGraph:
             for m, b in zip(_COUNTED, before):
                 m.launches = b
         torch.cuda.current_stream(device).wait_stream(stream)
-        self.capture_seconds = time.perf_counter() - t0
 
     def launch(self, ints: np.ndarray, floats: np.ndarray, caches,
                chained=None) -> Pending:

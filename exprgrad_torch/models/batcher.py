@@ -46,6 +46,16 @@ each chunk's tokens back only when it drains (the JAX package's
 multi-step scheduling; same streams as ``decode_chunk=1``).  On the card a
 chunk dispatch is one CUDA graph replay (``models/_chunk.py``); on the
 CPU its steps run eagerly.
+
+While ``torch.profiler`` records, :class:`ContinuousBatcher` leaves spans
+(``exprgrad_torch.tracing``): ``egt.batcher.step`` around each
+``step()``, and inside it ``egt.batcher.admit`` (slot reservation and
+prefix match), ``egt.batcher.prefill`` (each admission unit, ended after
+its first token's read back), ``egt.batcher.dispatch``,
+``egt.batcher.readback`` and ``egt.batcher.apply`` (the tokens' host
+bookkeeping, finishing requests and releasing pages); and, in memory
+only, ``egt.batcher.queued`` from a request's ``submit()`` to its first
+prefill unit.
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..errors import ModelRuntimeError
 from ..ops.decode import KVCache
 from ..ops.paged import (gather_rows, gather_view, init_pool, write_prefill,
@@ -70,7 +81,8 @@ from ._spec import lookup_propose
 class _Request:
     __slots__ = ("rid", "tokens", "max_new", "out", "consumed", "absorbed",
                  "submitted", "first_token_at", "finished_at", "preempted",
-                 "temp", "top_k", "top_p", "stop_seq")
+                 "temp", "top_k", "top_p", "stop_seq", "prefill_at",
+                 "prefill_s", "prefix_tokens")
 
     def __init__(self, rid, tokens, max_new):
         self.rid = rid
@@ -88,6 +100,49 @@ class _Request:
         self.top_k = 0
         self.top_p = 1.0
         self.stop_seq: tuple | None = None  # per-request stop sequence
+        self.prefill_at: float | None = None  # its first prefill unit began
+        self.prefill_s = 0.0    # wall seconds of its prefill units until
+                                # the first token
+        self.prefix_tokens = 0  # prompt tokens a registered prefix covered
+
+
+class _PrefillUnit:
+    """The context of one admission unit of ``req`` in the batcher ``b``:
+    ``tokens`` prompt tokens prefilled at ``width``; ``first`` when it
+    picks the request's first token (the body then ends after reading it
+    back).  Counts the tokens into ``b.stats`` and times the request's
+    wait and prefill (``request_metrics()``' ``queue_s`` and
+    ``prefill_s``); while tracing, also records ``egt.batcher.queued``
+    from those same times and the ``egt.batcher.prefill`` span."""
+
+    __slots__ = ("b", "req", "tokens", "width", "first", "t0", "span")
+
+    def __init__(self, b, req, tokens: int, width: int, first: bool):
+        self.b, self.req, self.tokens = b, req, tokens
+        self.width, self.first, self.span = width, first, None
+
+    def __enter__(self) -> None:
+        b, req = self.b, self.req
+        self.t0 = t0 = time.perf_counter()
+        b._prefill_tokens += self.tokens
+        b._prefill_padded += self.width - self.tokens
+        if tracing.enabled():
+            if req.prefill_at is None:
+                tracing.record("egt.batcher.queued", int(req.submitted * 1e9),
+                               int(t0 * 1e9), rid=req.rid)
+            self.span = tracing.span(
+                "egt.batcher.prefill", rid=req.rid, tokens=self.tokens,
+                width=self.width, prefix_tokens=req.prefix_tokens,
+                first=self.first)
+            self.span.__enter__()
+        if req.prefill_at is None:
+            req.prefill_at = t0
+
+    def __exit__(self, *exc) -> None:
+        if self.span is not None:
+            self.span.__exit__(*exc)
+        if self.req.first_token_at is None:
+            self.req.prefill_s += time.perf_counter() - self.t0
 
 
 def _check_stop_seq(stop_seq, vocab):
@@ -333,7 +388,7 @@ class ContinuousBatcher:
         self._dev_tok = None
         self._dev_pos = None
         self._shadow_pos = None
-        # CUDA graphs of the chunk dispatch, by key; their capture seconds
+        # CUDA graphs of the chunk dispatch, by key
         self.chunk_graphs: dict = {}
         if prefill_chunk is not None:
             if not paged:
@@ -420,6 +475,11 @@ class ContinuousBatcher:
         self._next_rid = 0
         self._steps = 0
         self._dispatches = 0
+        self._prefill_tokens = 0  # true prompt tokens prefilled
+        self._prefill_padded = 0  # bucket padding prefilled beside them
+        self._decode_tokens = 0   # tokens the decode dispatches emitted
+        self._admitted = 0        # first tokens picked by admission
+        self._rows = 0            # rows of the current step's dispatch
         # bounded: a long-running server must not leak one record per
         # request (drain with request_metrics(reset=True) to keep all)
         self._metrics: deque = deque(maxlen=4096)
@@ -541,6 +601,19 @@ class ContinuousBatcher:
         pos); no read back.  On the card it is one replay of the chunk's
         CUDA graph, captured on the first dispatch of its key; on the CPU
         the steps run eagerly."""
+        with self._dispatch_span(self.decode_chunk):
+            return self._run_chunk(stop_at, table, chained)
+
+    def _dispatch_span(self, steps: int):
+        """The span of one decode dispatch of ``steps`` steps over the rows
+        decoding now (also the step span's ``rows``)."""
+        if not tracing.enabled():
+            return tracing.NULL
+        self._rows = int(self.active.sum())
+        return tracing.span("egt.batcher.dispatch", rows=self._rows,
+                            steps=steps)
+
+    def _run_chunk(self, stop_at, table, chained: bool) -> Pending:
         s = self.slots
         ints = np.concatenate([self.pos, stop_at, self.req_topk,
                                table.reshape(-1)]).astype(np.int32)
@@ -1035,10 +1108,11 @@ class ContinuousBatcher:
                 return None  # wait for decoders to free pages
             self._alloc_pages(slot, chunk // self.page_size)
             new_pages = self.slot_pages[slot][-(chunk // self.page_size):]
-            self._prefill_chunk(
-                req.tokens[None, req.consumed:req.consumed + chunk],
-                req.consumed, self.page_table[slot].copy(),
-                np.asarray(new_pages, np.int32))
+            with _PrefillUnit(self, req, chunk, chunk, first=False):
+                self._prefill_chunk(
+                    req.tokens[None, req.consumed:req.consumed + chunk],
+                    req.consumed, self.page_table[slot].copy(),
+                    np.asarray(new_pages, np.int32))
             req.consumed += chunk
             # window models evict behind the band between chunks, which
             # keeps the prefill burst at O(window + chunk)
@@ -1054,12 +1128,13 @@ class ContinuousBatcher:
         own = self.slot_pages[slot][-n_own:]
         suffix = np.zeros((1, width_s), np.float32)
         suffix[0, :s] = req.tokens[req.consumed:]
-        first = self._admit_prefix(
-            suffix, s, req.consumed, self.page_table[slot].copy(),
-            np.asarray(own, np.int32), req.temp, req.top_k, req.top_p)
+        with _PrefillUnit(self, req, s, width_s, first=not req.out):
+            first = int(self._admit_prefix(
+                suffix, s, req.consumed, self.page_table[slot].copy(),
+                np.asarray(own, np.int32), req.temp, req.top_k, req.top_p))
+        self._admitted += 1
         self.active[slot] = True
         self.pos[slot] = size
-        first = int(first)
         self.last[slot] = float(first)
         self._evict_window_pages(slot)
         if self.draft is not None:
@@ -1078,6 +1153,9 @@ class ContinuousBatcher:
             "ttft_s": req.first_token_at - req.submitted,
             "latency_s": req.finished_at - req.submitted,
             "preemptions": req.preempted,
+            "queue_s": req.prefill_at - req.submitted,
+            "prefill_s": req.prefill_s,
+            "prefix_tokens": req.prefix_tokens,
         })
         self.active[slot] = False
         if self._pipe_draining and self._pipe:
@@ -1132,6 +1210,7 @@ class ContinuousBatcher:
         else:
             if self.paged and applied:
                 self._evict_window_pages(slot)
+        self._decode_tokens += applied
         return applied
 
     def _emit(self, slot, token: int) -> bool:
@@ -1227,12 +1306,13 @@ class ContinuousBatcher:
         toks = entry["toks"].tokens()
         self._pipe_draining = True
         try:
-            for slot in range(self.slots):
-                if not (entry["active"][slot] and self.active[slot]):
-                    continue
-                taken = min(chunk, int(entry["stop_at"][slot])
-                            - int(entry["start"][slot]))
-                self._apply_tokens(slot, toks[:taken, slot], finished)
+            with tracing.span("egt.batcher.apply"):
+                for slot in range(self.slots):
+                    if not (entry["active"][slot] and self.active[slot]):
+                        continue
+                    taken = min(chunk, int(entry["stop_at"][slot])
+                                - int(entry["start"][slot]))
+                    self._apply_tokens(slot, toks[:taken, slot], finished)
         finally:
             self._pipe_draining = False
         if not self.active.any():
@@ -1256,6 +1336,17 @@ class ContinuousBatcher:
         dispatch for every active slot (``decode_chunk`` steps).  Returns
         the ``(request_id, tokens)`` pairs that completed this
         iteration."""
+        if not tracing.enabled():
+            return self._step()
+        admitted, self._rows = self._admitted, 0
+        with tracing.span("egt.batcher.step") as sp:
+            finished = self._step()
+        if sp is not None:
+            sp.attrs.update(admitted=self._admitted - admitted,
+                            rows=self._rows)
+        return finished
+
+    def _step(self) -> list:
         finished = []
         if self._deferred_finished:
             finished.extend(self._deferred_finished)
@@ -1269,39 +1360,8 @@ class ContinuousBatcher:
             return finished
 
         # 1) reserve free slots for queued requests
-        for slot in range(self.slots):
-            if not self.queue:
-                break
-            if self.active[slot] or self._req[slot] is not None:
-                continue
-            req = self.queue.popleft()
-            self._req[slot] = req
-            self.req_temp[slot] = req.temp
-            self.req_topk[slot] = req.top_k
-            self.req_topp[slot] = req.top_p
-            if self.paged:
-                pre_len, pre_pages = self._match_prefix(req.tokens)
-                req.consumed = pre_len
-                if pre_len:
-                    self._prefix_hits += 1
-                pages = list(pre_pages or [])
-                self.slot_pages[slot] = pages
-                self._slot_pinned[slot] = len(pages)
-                self.page_table[slot, :] = 0
-                self.page_table[slot, :len(pages)] = pages
-            else:
-                width = self._bucket(req.tokens.size)
-                prompt = np.zeros((1, width), np.float32)
-                prompt[0, :req.tokens.size] = req.tokens
-                first = int(self._admit(prompt, req.tokens.size, slot,
-                                        req.temp, req.top_k, req.top_p))
-                self.active[slot] = True
-                self.pos[slot] = req.tokens.size
-                self.last[slot] = float(first)
-                if self.draft is not None:
-                    self._admit_draft(slot)
-                if self._emit(slot, first):
-                    finished.append(self._finish(slot))
+        with tracing.span("egt.batcher.admit"):
+            self._reserve_slots(finished)
 
         # 1b) progress paged admissions one unit each (a prompt chunk, or
         # the final tail which picks the first token).  Admission waits
@@ -1347,25 +1407,75 @@ class ContinuousBatcher:
             self._steps += 1
             self._dispatches += 1
             if self.paged:
+                wpid, woff = self._decode_pages()
+            with self._dispatch_span(1):
+                nxt = (self._decode_paged(wpid, woff) if self.paged
+                       else self._decode())
+            with tracing.span("egt.batcher.readback"):
+                nxt = nxt.cpu().numpy()
+            with tracing.span("egt.batcher.apply"):
                 for slot in range(self.slots):
                     if self.active[slot]:
-                        self._ensure_pages_upto(slot, int(self.pos[slot]))
-                wpid = np.zeros(self.slots, np.int32)  # 0 = trash page
-                woff = np.zeros(self.slots, np.int32)
-                for slot in range(self.slots):
-                    if self.active[slot]:
-                        p = int(self.pos[slot])
-                        wpid[slot] = self.slot_pages[slot][
-                            p // self.page_size]
-                        woff[slot] = p % self.page_size
-                nxt = self._decode_paged(wpid, woff)
-            else:
-                nxt = self._decode()
-            nxt = nxt.cpu().numpy()
-            for slot in range(self.slots):
-                if self.active[slot]:
-                    self._apply_tokens(slot, nxt[slot:slot + 1], finished)
+                        self._apply_tokens(slot, nxt[slot:slot + 1],
+                                           finished)
         return finished
+
+    def _reserve_slots(self, finished) -> None:
+        """Reserve free slots for queued requests: a paged slot takes the
+        longest registered prefix its prompt starts with; a dense slot
+        prefills its prompt and picks the first token at once."""
+        for slot in range(self.slots):
+            if not self.queue:
+                break
+            if self.active[slot] or self._req[slot] is not None:
+                continue
+            req = self.queue.popleft()
+            self._req[slot] = req
+            self.req_temp[slot] = req.temp
+            self.req_topk[slot] = req.top_k
+            self.req_topp[slot] = req.top_p
+            if self.paged:
+                pre_len, pre_pages = self._match_prefix(req.tokens)
+                req.consumed = req.prefix_tokens = pre_len
+                if pre_len:
+                    self._prefix_hits += 1
+                pages = list(pre_pages or [])
+                self.slot_pages[slot] = pages
+                self._slot_pinned[slot] = len(pages)
+                self.page_table[slot, :] = 0
+                self.page_table[slot, :len(pages)] = pages
+            else:
+                size = req.tokens.size
+                width = self._bucket(size)
+                prompt = np.zeros((1, width), np.float32)
+                prompt[0, :size] = req.tokens
+                with _PrefillUnit(self, req, size, width, first=not req.out):
+                    first = int(self._admit(prompt, size, slot, req.temp,
+                                            req.top_k, req.top_p))
+                self._admitted += 1
+                self.active[slot] = True
+                self.pos[slot] = size
+                self.last[slot] = float(first)
+                if self.draft is not None:
+                    self._admit_draft(slot)
+                if self._emit(slot, first):
+                    finished.append(self._finish(slot))
+
+    def _decode_pages(self):
+        """Pages for each active row's next position (which may preempt),
+        and where a decode step writes each row's K/V: (page ids,
+        offsets)."""
+        for slot in range(self.slots):
+            if self.active[slot]:
+                self._ensure_pages_upto(slot, int(self.pos[slot]))
+        wpid = np.zeros(self.slots, np.int32)  # 0 = trash page
+        woff = np.zeros(self.slots, np.int32)
+        for slot in range(self.slots):
+            if self.active[slot]:
+                p = int(self.pos[slot])
+                wpid[slot] = self.slot_pages[slot][p // self.page_size]
+                woff[slot] = p % self.page_size
+        return wpid, woff
 
     def _chunk_step(self, finished) -> None:
         """One chunk dispatch, read back at once: pages for every row's
@@ -1385,11 +1495,12 @@ class ContinuousBatcher:
         self._steps += chunk
         self._dispatches += 1
         toks = self._dispatch_chunk(stop_at, table, chained=False).tokens()
-        for slot in range(self.slots):
-            if not self.active[slot]:
-                continue
-            taken = min(chunk, int(stop_at[slot]) - int(self.pos[slot]))
-            self._apply_tokens(slot, toks[:taken, slot], finished)
+        with tracing.span("egt.batcher.apply"):
+            for slot in range(self.slots):
+                if not self.active[slot]:
+                    continue
+                taken = min(chunk, int(stop_at[slot]) - int(self.pos[slot]))
+                self._apply_tokens(slot, toks[:taken, slot], finished)
 
     def _spec_step(self, finished) -> None:
         """Dispatch one speculative round and apply each active slot's
@@ -1409,18 +1520,21 @@ class ContinuousBatcher:
                     woff[slot] = p % self.page_size
         self._dispatches += 1
         self._spec_rounds += 1
-        if self.draft is not None:
-            emit, accept = self._spec_round(wpid, woff)
-        else:
-            emit, accept = self._lookup_round(wpid, woff)
-        host = torch.cat([emit, accept[:, None]], dim=1).cpu().numpy()
-        for slot in range(self.slots):
-            if not self.active[slot]:
-                continue
-            take = int(host[slot, k + 1]) + 1
-            self._steps += take
-            self._spec_emitted += self._apply_tokens(
-                slot, host[slot, :take], finished)
+        with self._dispatch_span(k + 1):
+            if self.draft is not None:
+                emit, accept = self._spec_round(wpid, woff)
+            else:
+                emit, accept = self._lookup_round(wpid, woff)
+        with tracing.span("egt.batcher.readback"):
+            host = torch.cat([emit, accept[:, None]], dim=1).cpu().numpy()
+        with tracing.span("egt.batcher.apply"):
+            for slot in range(self.slots):
+                if not self.active[slot]:
+                    continue
+                take = int(host[slot, k + 1]) + 1
+                self._steps += take
+                self._spec_emitted += self._apply_tokens(
+                    slot, host[slot, :take], finished)
 
     def run(self) -> dict:
         """Drive ``step()`` until every queued and active request is done;
@@ -1476,8 +1590,13 @@ class ContinuousBatcher:
     def request_metrics(self, reset: bool = False) -> list:
         """Per-finished-request records, in completion order: request id,
         prompt/generated token counts, time to first token (``ttft_s``:
-        submit to first emitted token), total ``latency_s``, and how often
-        the request was preempted.  ``reset=True`` drains the list."""
+        submit to first emitted token), total ``latency_s``, how often
+        the request was preempted, ``queue_s`` (submit to the start of its
+        first prefill unit: the wait for a slot and behind the step's
+        other admissions), ``prefill_s`` (wall seconds of its prefill
+        units until the first token, each ended by its read back) and
+        ``prefix_tokens`` (prompt tokens a registered prefix covered).
+        ``reset=True`` drains the list."""
         out = list(self._metrics)
         if reset:
             self._metrics.clear()
@@ -1485,12 +1604,20 @@ class ContinuousBatcher:
 
     @property
     def stats(self) -> dict:
-        """Scheduler counters: decode iterations run and occupancy now."""
+        """Scheduler counters: decode iterations run and occupancy now;
+        ``prefill_tokens`` (true prompt tokens prefilled, again after a
+        preemption), ``prefill_padded_tokens`` (bucket width minus those,
+        prefilled as padding) and ``decode_tokens`` (tokens the decode
+        dispatches emitted; a request's first token, and a preempted
+        one's next, are admission's)."""
         out = {
             "decode_steps": self._steps,
             "dispatches": self._dispatches,
             "active": int(self.active.sum()),
             "queued": len(self.queue),
+            "prefill_tokens": self._prefill_tokens,
+            "prefill_padded_tokens": self._prefill_padded,
+            "decode_tokens": self._decode_tokens,
         }
         if self._spec:
             out["spec_rounds"] = self._spec_rounds

@@ -422,7 +422,9 @@ class DataParallelExecutor(TorchExecutor):
                 continue
             low = self._lowering(i)
             low.extern_memo = extern_memo
-            low.run(tensors, epoch, stats)
+            path = low.run(tensors, epoch, stats)
+            if stats is not None and path is not None:
+                stats[path] = stats.get(path, 0) + 1
         extern_memo.clear()
         for tid, src, dst in self.plan.exit:
             tensors[tid] = self._move(tid, tensors.get(tid), src, dst)

@@ -483,6 +483,8 @@ def generate(program: Program) -> None:
                     program, target, target.kernels[:it], grad_kernels,
                     gen.tensor,
                 )
+                for gk in grad_kernels:
+                    gk.derived = True
                 target.kernels[it: it + 1] = grad_kernels
                 it += len(grad_kernels)
             elif gen.kind == GenKind.GRADIENT:

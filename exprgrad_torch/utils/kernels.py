@@ -126,13 +126,9 @@ def launcher_path() -> Path:
     return BUILD_DIR / f"libegt_launch_{digest.hexdigest()[:16]}.so"
 
 
-launcher_seconds = None  # seconds of the launcher's last build
-
-
 def load_launcher() -> Path:
     """The launcher library's path, built on first use (``$CXX`` or
     ``c++``; about 10 s on the H100's host)."""
-    global launcher_seconds
     path = launcher_path()
     if path.exists():
         return path
@@ -145,9 +141,7 @@ def load_launcher() -> Path:
         out = os.path.join(tmp, path.name)
         cmd = [cxx, *launcher_flags(), "-o", out,
                str(_CSRC / "launch.cpp"), *_LAUNCHER_LIBS]
-        t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        launcher_seconds = round(time.perf_counter() - t0, 1)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"the launcher failed to build (exit {proc.returncode}): "
