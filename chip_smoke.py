@@ -1621,6 +1621,131 @@ def time_matmul_blocks(gen, dev, gpu) -> dict:
     return out
 
 
+# the einsum path's contractions of portbench's codestral22b.train cell
+# (Codestral-22B's widths, 4,096 tokens a step): (label, einsum spec,
+# operand shapes); the weight gradients are the tn layout, the input
+# gradients nt, the forward nn; q, k/v and o fold their heads into n or k
+_T, _D, _H, _KV, _HD, _F, _V = 4096, 6144, 48, 8, 128, 16384, 32768
+CELL_GEMMS = (
+    ("ffn gate/up x.W", "abc,cd->abd", (1, _T, _D), (_D, _F)),
+    ("ffn down x.W", "abc,cd->abd", (1, _T, _F), (_F, _D)),
+    ("head x.W", "abc,cd->abd", (1, _T, _D), (_D, _V)),
+    ("q x.W", "acd,bde->abce", (1, _T, _D), (_H, _D, _HD)),
+    ("k/v x.W", "acd,bde->abce", (1, _T, _D), (_KV, _D, _HD)),
+    ("o attn.W", "abcd,bde->ace", (1, _H, _T, _HD), (_H, _HD, _D)),
+    ("ffn gate/up dW", "abd,abc->cd", (1, _T, _F), (1, _T, _D)),
+    ("ffn down dW", "abd,abc->cd", (1, _T, _D), (1, _T, _F)),
+    ("head dW", "abd,abc->cd", (1, _T, _V), (1, _T, _D)),
+    ("ffn gate/up dX", "abd,cd->abc", (1, _T, _F), (_D, _F)),
+    ("ffn down dX", "abd,cd->abc", (1, _T, _D), (_F, _D)),
+    ("head dX", "abd,cd->abc", (1, _T, _V), (_D, _V)),
+    ("q dW", "abce,acd->bde", (1, _H, _T, _HD), (1, _T, _D)),
+    ("q dX", "abce,bde->acd", (1, _H, _T, _HD), (_H, _D, _HD)),
+    ("o dW", "ace,abcd->bde", (1, _T, _D), (1, _H, _T, _HD)),
+    ("o dX", "ace,bde->abcd", (1, _T, _D), (_H, _HD, _D)),
+)
+# ragged m, n and k (a tile's guarded edges) and a batch of three
+RAGGED_GEMMS = (
+    ("ragged nn", "abc,cd->abd", (1, 200, 77), (77, 333)),
+    ("ragged tn", "abd,abc->cd", (1, 301, 91), (1, 301, 70)),
+    ("batched nt", "bmk,bnk->bmn", (3, 130, 50), (3, 70, 50)),
+)
+
+
+def gemm_plan(spec, sa, sb):
+    """(plan, output shape, (batch, m, n, k)) of einsum ``spec`` over
+    operands of shapes ``sa`` and ``sb`` (``ops.matmul.plan_gemm``)."""
+    import string
+
+    from exprgrad_torch.ops import matmul
+
+    letters = string.ascii_letters
+    ins, out = spec.split("->")
+    ia, ib = ins.split(",")
+    sizes = {}
+    for axes, shape in ((ia, sa), (ib, sb)):
+        for c, n in zip(axes, shape):
+            sizes[letters.index(c)] = n
+    ext = [sizes.get(i, 1) for i in range(max(sizes) + 1)]
+    plan, why = matmul.plan_gemm([tuple(letters.index(c) for c in ia),
+                                  tuple(letters.index(c) for c in ib)],
+                                 tuple(letters.index(c) for c in out), ext)
+    if plan is None:
+        raise ValueError(f"{spec}: {why}")
+    a, b = (sb, sa) if plan.swap else (sa, sb)
+    batch, m, k = (math.prod(a[d] for d in g) for g in plan.a)
+    n = math.prod(b[d] for d in plan.b[1])
+    return plan, tuple(ext[letters.index(c)] for c in out), (batch, m, n, k)
+
+
+def check_gemm_kernel(gen, dev, gpu) -> dict:
+    """Phase 6: B1's Hopper mainloop (csrc/gemm_sm90.cu, the einsum
+    path's ``ops.matmul.contract``) against its plain version
+    ``contract_plain`` (float64) at the training cell's 16 contractions
+    and at ragged and batched shapes, each as ``0.5 a.b + c``: within
+    split TF32's bound (4 x 2^-24 sqrt(k) + 2^-21 of the product's scale),
+    the same bits twice, one launch a call; then each cell shape timed,
+    the kernel, its plain version and torch.einsum (TF32 off), beside
+    the bound (3 x 2 m n k over the TF32 rate).  Returns {label: {...}}."""
+    from exprgrad_torch.ops import matmul
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for label, spec, sa, sb in CELL_GEMMS + RAGGED_GEMMS:
+        plan, out_shape, (batch, m, n, k) = gemm_plan(spec, sa, sb)
+        a = torch.randn(sa, generator=gen, device=dev)
+        b = torch.randn(sb, generator=gen, device=dev)
+        c = torch.randn(out_shape, generator=gen, device=dev)
+        before = matmul.gemm_launches
+        got = matmul.contract(a, b, plan, out_shape, 0.5, c)
+        again = matmul.contract(a, b, plan, out_shape, 0.5, c)
+        torch.cuda.synchronize()
+        assert matmul.gemm_launches == before + 2, (label, before,
+                                                    matmul.gemm_launches)
+        assert torch.equal(got, again), label
+        del again
+        want = matmul.contract_plain(a.double(), b.double(), plan,
+                                     out_shape, 0.5, c.double())
+        err = float((got.double() - want).abs().max())
+        del got, want
+        scale = float(0.5 * torch.einsum(spec, a.double().abs(),
+                                         b.double().abs()).max()
+                      + c.abs().max())
+        tol = 4 * 2.0 ** -24 * math.sqrt(k) + 2.0 ** -21
+        assert err / scale < tol, (label, err, scale, tol)
+        row = {"layout": plan.layout, "m": batch * m, "n": n, "k": k,
+               "max_abs_err": err, "rel_err": err / scale, "tol": tol}
+        if (label, spec, sa, sb) in CELL_GEMMS:
+            fns = {"kernel": lambda: matmul.contract(a, b, plan, out_shape),
+                   "plain": lambda: matmul.contract_plain(a, b, plan,
+                                                          out_shape),
+                   "library": lambda: torch.einsum(spec, a, b)}
+            runs = {name: [] for name in fns}
+            for name in ("plain", "library", "kernel", "kernel", "library",
+                         "plain"):
+                runs[name].append(cuda_ms(fns[name], iters=3, warmup=1))
+            row.update({f"{name}_ms": sum(v) / len(v)
+                        for name, v in runs.items()})
+            ops = 2.0 * batch * m * n * k
+            row["bound_ms"], row["bound_by"] = bound(
+                ops, 4 * batch * (m * k + n * k + m * n), **SPLIT_TF32)
+            row["tflops"] = ops / row["kernel_ms"] / 1e9
+        print(f"gemm {label} ({spec} {list(sa)} x {list(sb)}, "
+              f"{plan.layout}, m {batch * m} n {n} k {k}): max |err| "
+              f"{err:.3e} ({err / scale:.3e} of the scale, bound "
+              f"{tol:.3e})" + (
+                  f"; kernel {row['kernel_ms']:.4f} ms ({row['tflops']:.1f}"
+                  f" TFLOP/s float32-exact), plain (float64) "
+                  f"{row['plain_ms']:.4f} ms, torch.einsum TF32 off "
+                  f"{row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+                  if "kernel_ms" in row else "") + f" on {gpu}")
+        out[label] = row
+        del a, b, c
+        torch.cuda.empty_cache()
+    return out
+
+
 def b1_blocks(model, target) -> dict:
     """{kernel index: the block ``(bm, bn, bk)``} of every kernel of
     ``target`` that the model's executors launch kernel B1 for."""
@@ -1700,14 +1825,18 @@ def path_a(egt, matmul, gpu) -> dict:
     report = model.autotune("c", args)
     tune_s = time.perf_counter() - t0
     print(f"path (a) autotune {n}^3 ({tune_s:.1f} s) on {gpu}:\n{report}")
-    before = matmul.launches
+    before, before_gemm = matmul.launches, matmul.gemm_launches
     out = model.call("c", args)
     launched = matmul.launches - before
     blocks = b1_blocks(model, "c")
     stats = model.lowering_stats("c")
     if stripped(report):
-        assert stats == {"einsum": 1} and not blocks and not launched, (
+        # the plain lowering: the einsum path, which at this size in
+        # float32 runs on B1's Hopper mainloop (the cost model's choice)
+        assert stats == {"einsum-b1": 1} and not blocks and not launched, (
             stats, blocks, launched)
+        assert matmul.gemm_launches - before_gemm == 1, (
+            matmul.gemm_launches - before_gemm)
     else:
         (kernel,) = model.program.targets["c"].kernels
         tiles = [loop.schedule.tile_size for loop in kernel.loops]
@@ -5007,8 +5136,8 @@ def routed(egt, name, graph, target, args, tol, dtype="float32") -> dict:
     ex, fex = runs["auto"]["ex"], runs["force"]["ex"]
     pol = ex.policy
     lines = []
-    for i, (sm, _) in sorted(fex.fused.items()):
-        d = pol.contraction(sm.m, sm.n, sm.k, ex.dtype)
+    for i, (sm, chain) in sorted(fex.fused.items()):
+        d = fex._lowering(i).contraction_decision(sm, pol, len(chain.steps))
         lines.append(f"B1 {fex._lowering(i)._kernel_desc()} "
                      f"{sm.m}x{sm.n}x{sm.k} (with its epilogue): "
                      f"{'kernel' if d.use_pallas else 'plain'}, {d.reason}")
@@ -5034,7 +5163,7 @@ def routed(egt, name, graph, target, args, tol, dtype="float32") -> dict:
         if reason is None or reason.startswith("cost model"):
             # the model's decision: kept (no fallback reason) or routed away
             mr = low.scheduled_mapreduce()
-            reason = (pol.contraction(sm.m, sm.n, sm.k, ex.dtype) if b1 else
+            reason = (low.contraction_decision(sm, pol) if b1 else
                       pol.mapreduce(mr.total_bytes, mr.gather_work * 4)
                       ).reason
             away += route is None
@@ -5304,7 +5433,7 @@ def main() -> int:
     # the main path of training: two steps as a user makes them; each runs
     # the forward, dq and dkv kernels once per block
     attention.launches = attention.dq_launches = attention.dkv_launches = 0
-    matmul.launches = 0
+    matmul.launches = matmul.gemm_launches = 0
     t0 = time.perf_counter()
     for _ in range(2):
         model.epoch += 1
@@ -5314,12 +5443,18 @@ def main() -> int:
     train_launches = {"forward": attention.launches,
                       "dq": attention.dq_launches,
                       "dkv": attention.dkv_launches}
-    print(f"train main path: kernel launches {train_launches} in 2 steps")
+    train_gemm = matmul.gemm_launches
+    stats = model.lowering_stats("train")
+    print(f"train main path: kernel launches {train_launches} in 2 steps, "
+          f"B1's Hopper mainloop {train_gemm} (lowering {stats})")
     assert train_launches == {"forward": 4, "dq": 4, "dkv": 4}, \
         train_launches
-    stats = model.lowering_stats("train")
     assert stats.get("attention-grad-impl:flash") == 2, stats
     assert stats.get("extern:attention_grad") == 6, stats
+    # the FFN's and the head's contractions (2048 x 512 x 2048) are above
+    # the size where the cost model takes the kernel
+    assert train_gemm > 0 and train_gemm == 2 * stats.get("einsum-b1", 0), (
+        train_gemm, stats)
 
     start = {t: v.clone() for t, v in cpu_model.params.items()}
     t0 = time.perf_counter()
@@ -5395,8 +5530,10 @@ def main() -> int:
     mm_err = check_matmul_kernel(gen, dev)
     mm_times = time_matmul(gen, dev, MATMUL_N, gpu)
     mm_blocks = time_matmul_blocks(gen, dev, gpu)
+    gemm_cases = check_gemm_kernel(gen, dev, gpu)
+    gemm_ffn = gemm_cases[CELL_GEMMS[0][0]]
 
-    t_phase = phase_done("6 (matmul kernel)", t_phase)
+    t_phase = phase_done("6 (matmul kernels)", t_phase)
 
     # 7. and 8. the scheduled paths, each with the counters at 0 ---------
     attention.launches = attention.dq_launches = attention.dkv_launches = 0
@@ -5613,6 +5750,13 @@ def main() -> int:
              cost_model={name: {k: r[k] for k in ("launches", "auto_ms",
                                                   "force_ms", "away")}
                          for name, r in cost_model["programs"].items()}),
+        dict(row("einsum_gemm", "exprgrad_torch/csrc/gemm_sm90.cu",
+                 "exprgrad_tpu/backend/jaxeval.py:222", train_gemm,
+                 max(r["max_abs_err"] for r in gemm_cases.values()),
+                 gemm_ffn["kernel_ms"], gemm_ffn["plain_ms"],
+                 gemm_ffn["library_ms"],
+                 (gemm_ffn["bound_ms"], gemm_ffn["bound_by"])),
+             shape=CELL_GEMMS[0][0], cases=gemm_cases),
         dict(row("scheduled_mapreduce", "exprgrad_torch/ops/mapreduce.py",
                  "exprgrad_tpu/backend/pallasgen.py:1804", gen_launches[
                      "mapreduce"], max(gen_err["mapreduce"],

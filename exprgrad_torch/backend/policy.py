@@ -82,31 +82,38 @@ _DEFAULTS = {
     # plain lowering (the einsum: torch.matmul, TF32 off): 2 m n k over the
     # wall time a call; where the two tie, the plain side has the kernel's
     # rate
-    "kernel_matmul_tflops_float32": 50.95962866817247,
-    "plain_matmul_tflops_float32": 50.95962866817247,
-    "kernel_matmul_tflops_bfloat16": 158.11854743143468,
-    "plain_matmul_tflops_bfloat16": 612.7087691890275,
+    "kernel_matmul_tflops_float32": 50.73176468722796,
+    "plain_matmul_tflops_float32": 50.73176468722796,
+    "kernel_matmul_tflops_bfloat16": 164.1001730218318,
+    "plain_matmul_tflops_bfloat16": 612.8095771869462,
     # an elementwise map over 8192 x 8192 float32: the bytes read and
     # written over the wall time a call, B5 and the plain lowering
-    "kernel_elementwise_gbps": 2028.8581659911968,
-    "plain_elementwise_gbps": 716.4494986017372,
+    "kernel_elementwise_gbps": 2021.6259475834838,
+    "plain_elementwise_gbps": 712.9043782989389,
     # the three-kernel softmax at 8192^2 float32 as one B6: its operand and
     # output bytes over the wall time a call
-    "kernel_rowchain_gbps": 1996.4905339665493,
+    "kernel_rowchain_gbps": 2000.696712137929,
     # causal attention [2, 4, 4096, 128] float32 through the attention
     # extern: 4 b h sq skv d over the wall time a call, B2 against
     # impl="xla"
-    "flash_attention_tflops": 53.034889321421545,
-    "plain_attention_tflops": 15.19354111193404,
+    "flash_attention_tflops": 52.83656225967203,
+    "plain_attention_tflops": 15.207031100487965,
     # the per-call cost of a tiny kernel through the executor, the card
     # idle (us a call): a [16, 64] map (B5 / plain), a 64^3 contraction (B1
     # / plain), attention [1, 1, 64, 64] (B2 / impl="xla")
-    "kernel_launch_us": 24.823444999952926,
-    "plain_launch_us": 129.8853750000717,
-    "matmul_kernel_launch_us": 52.790175000012596,
-    "matmul_plain_launch_us": 74.79177999996978,
-    "attention_flash_launch_us": 67.47434499999372,
-    "attention_plain_launch_us": 499.9939642859528,
+    "kernel_launch_us": 40.5994999999848,
+    "plain_launch_us": 184.02380952379127,
+    "matmul_kernel_launch_us": 92.47561000002236,
+    "matmul_plain_launch_us": 110.9371300000106,
+    "attention_flash_launch_us": 65.8730999999971,
+    "attention_plain_launch_us": 583.0634634146157,
+    # the einsum path's contractions on B1's Hopper mainloop (split pre-
+    # pass and wgmma GEMM) against torch.einsum, TF32 off: 2 m n k over the
+    # wall time a call at 4096^3, and each side's per-call cost at 64^3
+    # (the plain side's rate is plain_matmul_tflops_float32)
+    "einsum_kernel_tflops_float32": 109.1648767213843,
+    "einsum_kernel_launch_us": 129.4555859872589,
+    "einsum_plain_launch_us": 106.84590751449603,
 }
 # calibrate_torch: end
 
@@ -189,24 +196,57 @@ class SchedulePolicy:
         return self.constants[f"{key}_{name}"]
 
     # -- decisions -------------------------------------------------------
-    def contraction(self, m: int, n: int, k: int,
-                    dtype="float32") -> Decision:
+    def contraction(self, m: int, n: int, k: int, dtype="float32",
+                    plain_gemm: bool = False, epilogue: int = 0) -> Decision:
         """Scheduled matmul-family kernel: B1 against the plain lowering's
         ``torch.matmul``, at the rates of compute ``dtype``.
 
         As in the JAX package, epilogue fusion does not change the
-        decision: neither side is credited the consumer's bytes."""
+        decision: neither side is credited the consumer's bytes.
+
+        ``plain_gemm``: the plain lowering of this contraction runs on
+        B1's Hopper mainloop (:meth:`einsum_contraction` chose it), so the
+        plain side is priced as it runs: that kernel, then each of the
+        ``epilogue`` kernels B1 would fold as a plain call of its own
+        (``plain_launch_us``)."""
         short = self._short_cut()
         if short is not None:
             return short
         c = self.constants
         flops = 2.0 * m * n * k
-        plain_s = self._cost(
-            c["matmul_plain_launch_us"],
-            flops / (self._rate("plain_matmul_tflops", dtype) * 1e12))
+        if plain_gemm:
+            plain_s = (self._einsum_kernel_s(flops)
+                       + epilogue * c["plain_launch_us"] * 1e-6)
+        else:
+            plain_s = self._cost(
+                c["matmul_plain_launch_us"],
+                flops / (self._rate("plain_matmul_tflops", dtype) * 1e12))
         kernel_s = self._cost(
             c["matmul_kernel_launch_us"],
             flops / (self._rate("kernel_matmul_tflops", dtype) * 1e12))
+        return self._contraction_decision(kernel_s, plain_s)
+
+    def einsum_contraction(self, m: int, n: int, k: int) -> Decision:
+        """A float32 contraction of the einsum path, which no schedule
+        asked for: B1's Hopper mainloop with its split pre-pass
+        (``einsum_kernel_*``) against ``torch.einsum``
+        (``einsum_plain_launch_us``, measured beside it), decided by the
+        cost model in every ``schedule_mode``, as attention is."""
+        c = self.constants
+        flops = 2.0 * m * n * k
+        plain_s = self._cost(
+            c["einsum_plain_launch_us"],
+            flops / (c["plain_matmul_tflops_float32"] * 1e12))
+        return self._contraction_decision(self._einsum_kernel_s(flops),
+                                          plain_s)
+
+    def _einsum_kernel_s(self, flops: float) -> float:
+        c = self.constants
+        return self._cost(c["einsum_kernel_launch_us"],
+                          flops / (c["einsum_kernel_tflops_float32"] * 1e12))
+
+    def _contraction_decision(self, kernel_s: float,
+                              plain_s: float) -> Decision:
         if kernel_s < plain_s:
             return Decision(
                 True,

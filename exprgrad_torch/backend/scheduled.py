@@ -484,7 +484,7 @@ def plan_epilogue_fusions(program, target, shapes, dtype, device,
         try:
             low = (lowering(idx) if lowering is not None else
                    KernelLowering(program, kernels[idx], shapes, dtype,
-                                  device))
+                                  device, policy))
         except Exception:
             return None
         if not low._bounds_ok or low.dynamic_axes:
@@ -517,8 +517,11 @@ def plan_epilogue_fusions(program, target, shapes, dtype, device,
         sm = ScheduledMatmul(low1, kernel)
         if not sm.ok:
             continue
-        if policy is not None and not policy.contraction(
-                sm.m, sm.n, sm.k, dtype).use_pallas:
+        # where the plain side is the einsum path's kernel, it is priced
+        # with the folded kernels, once the chain is known (below)
+        plain_gemm = low1.einsum_gemm() is not None
+        if policy is not None and not plain_gemm and not \
+                low1.contraction_decision(sm, policy).use_pallas:
             continue  # run() reports the fallback of the scheduled kernel
         # frame: the value's [rows, cols] layout as stored
         rows, cols = (sm.n, sm.m) if sm.transposed else (sm.m, sm.n)
@@ -600,6 +603,9 @@ def plan_epilogue_fusions(program, target, shapes, dtype, device,
         epilogue, why = compile_epilogue(steps)
         if epilogue is None:
             declines.append((idx, why))
+            continue
+        if policy is not None and plain_gemm and not \
+                low1.contraction_decision(sm, policy, len(steps)).use_pallas:
             continue
         fused[idx] = (sm, EpilogueChain(steps, epilogue, cur, rows, cols))
         skipped_kernels.update(folded)

@@ -7,7 +7,11 @@ pattern:
 
 * **contraction** — the expression is a product of tensor reads and every
   access index is a plain loop iterator: ``torch.einsum``.  This covers
-  matmul/dense forward and the derived backward kernels.
+  matmul/dense forward and the derived backward kernels.  A product of
+  two float32 operands on a CUDA device under precision "highest" (TF32
+  off) that maps onto one GEMM runs instead on B1's Hopper mainloop
+  (:func:`~exprgrad_torch.ops.matmul.contract`, stat ``einsum-b1``)
+  where ``policy.contraction`` says so.
 * **convolution** — a product of two reads whose indices are affine sums
   of loop iterators (a conv's forward, filter gradient or image
   gradient): one ``torch.nn.functional.conv1d/2d/3d``
@@ -47,6 +51,7 @@ scheduled kernel and its generated kernel are made once per executor.
 
 from __future__ import annotations
 
+import math
 import string
 from typing import Optional
 
@@ -57,6 +62,7 @@ from .. import ir
 from ..errors import ModelRuntimeError, ShapeError
 from ..interp import accumulation_identity
 from ..ir import Kernel, LinearIndex, Op, Program
+from ..ops import matmul as ops_matmul
 from ..passes.shapes import resolve_loop_bounds
 
 from ..registry import ExternContext, get_extern
@@ -193,6 +199,8 @@ class KernelLowering:
         self._mapreduce: Optional[ScheduledMapReduce] = None
         self._conv: Optional[ConvMatch] = None
         self._decision: Optional[tuple] = None  # scheduled_decision()
+        self._parsed = None  # _einsum(), False: not a contraction
+        self._gemm = None  # einsum_gemm(), False: torch.einsum
 
     # ------------------------------------------------------------------
     def _const(self, value):
@@ -245,9 +253,18 @@ class KernelLowering:
         )
 
     # ------------------------------------------------------------------
-    # fast path: contraction -> einsum
+    # fast path: contraction -> einsum, or B1's Hopper mainloop
     # ------------------------------------------------------------------
-    def _try_contraction(self, tensors: dict):
+    def _einsum(self):
+        """The kernel as an einsum, parsed once: ``(factors, out_axes,
+        const)`` with ``factors`` the ``(tensor, axes)`` of each read of
+        the product and ``const`` its scalar literals' product; None where
+        the kernel is not a product of plain full-range reads."""
+        if self._parsed is None:
+            self._parsed = self._parse_einsum() or False
+        return self._parsed or None
+
+    def _parse_einsum(self):
         kernel = self.kernel
         write = kernel.write
         assert write is not None
@@ -275,7 +292,7 @@ class KernelLowering:
                 axes.append(axis)
             if len(set(axes)) != len(axes):
                 return None
-            reads_by_reg[read.data] = (read.tensor, axes)
+            reads_by_reg[read.data] = (read.tensor, tuple(axes))
 
         # the expression must be a product of reads and scalar literals
         defs = {i.res: i for i in kernel.expr.instrs}
@@ -315,13 +332,80 @@ class KernelLowering:
         if parsed is None or not parsed[0]:
             return None
         factor_regs, const = parsed
+        return [reads_by_reg[reg] for reg in factor_regs], out_axes, const
+
+    def einsum_gemm(self):
+        """``(plan, alpha)`` where this kernel's einsum runs on B1's Hopper
+        mainloop (:func:`~exprgrad_torch.ops.matmul.contract`), decided
+        once; else None.  It does where the program is float32 on a CUDA
+        device, the einsum is one GEMM the kernel takes
+        (:func:`~exprgrad_torch.ops.matmul.plan_gemm`: two operands, a
+        summed axis, no broadcast axis) and the cost model
+        (:meth:`SchedulePolicy.einsum_contraction`) says the kernel wins
+        at its m, n and k.  The run also asks for TF32 off (precision
+        "highest"): other precisions keep torch.einsum."""
+        if self._gemm is None:
+            self._gemm = self._plan_gemm() or False
+        return self._gemm or None
+
+    def _plan_gemm(self):
+        parsed = self._einsum()
+        if (parsed is None or self.device.type != "cuda"
+                or self.dtype != torch.float32):
+            return None
+        factors, out_axes, const = parsed
+        plan, _ = ops_matmul.plan_gemm([axes for _, axes in factors],
+                                       out_axes, self.sizes)
+        if plan is None:
+            return None
+        covered = {a for _, axes in factors for a in axes}
+        alpha = const
+        for axis in range(self.nloops):
+            if axis not in covered and axis not in out_axes:
+                alpha *= self.sizes[axis]  # a phantom axis' trip count
+        a_shape = self.shapes[factors[1 if plan.swap else 0][0]]
+        b_shape = self.shapes[factors[0 if plan.swap else 1][0]]
+        batch, m, k = (math.prod(a_shape[d] for d in g) for g in plan.a)
+        n = math.prod(b_shape[d] for d in plan.b[1])
+        if not self.policy.einsum_contraction(batch * m, n, k).use_pallas:
+            return None
+        return plan, alpha
+
+    def contraction_decision(self, sm, policy=None, epilogue: int = 0):
+        """``policy.contraction`` (this lowering's policy where None) for
+        this kernel as the scheduled matmul ``sm`` with ``epilogue``
+        kernels folded into it, its plain side priced as the plain
+        lowering runs it: on B1's Hopper mainloop where
+        :meth:`einsum_gemm` takes the kernel."""
+        policy = policy if policy is not None else self.policy
+        return policy.contraction(sm.m, sm.n, sm.k, self.dtype,
+                                  plain_gemm=self.einsum_gemm() is not None,
+                                  epilogue=epilogue)
+
+    def _try_contraction(self, tensors: dict, route: bool = True):
+        """``(new value of the output, path)`` by the einsum fast path, or
+        None where the kernel is not a contraction: ``"einsum-b1"`` where
+        B1's Hopper mainloop ran it (``route`` and :meth:`einsum_gemm`),
+        else ``"einsum"`` (torch.einsum)."""
+        parsed = self._einsum()
+        if parsed is None:
+            return None
+        factors, out_axes, const = parsed
+        write = self.kernel.write
+        gemm = self.einsum_gemm() if route else None
+        if gemm is not None and not torch.backends.cuda.matmul.allow_tf32:
+            plan, alpha = gemm
+            (ta, _), (tb, _) = factors
+            c = None if self.fresh_output else tensors[write.tensor]
+            return ops_matmul.contract(tensors[ta], tensors[tb], plan,
+                                       self.shapes[write.tensor], alpha,
+                                       c), "einsum-b1"
 
         letters = string.ascii_letters
         covered: set[int] = set()
         in_specs = []
         operands = []
-        for reg in factor_regs:
-            tensor, axes = reads_by_reg[reg]
+        for tensor, axes in factors:
             in_specs.append("".join(letters[a] for a in axes))
             operands.append(tensors[tensor])
             covered.update(axes)
@@ -339,7 +423,7 @@ class KernelLowering:
             value = value.reshape(shape).expand(
                 [self.sizes[a] for a in out_axes]
             )
-        return tensors[write.tensor] + value.to(self.dtype)
+        return tensors[write.tensor] + value.to(self.dtype), "einsum"
 
     # ------------------------------------------------------------------
     # general vectorized path
@@ -977,8 +1061,7 @@ class KernelLowering:
             if not self._general_only():
                 sm = self.scheduled_matmul()
                 if sm.ok:
-                    decision = self.policy.contraction(sm.m, sm.n, sm.k,
-                                                       self.dtype)
+                    decision = self.contraction_decision(sm)
                     if decision.use_pallas:
                         route = "matmul"
                     else:
@@ -1009,8 +1092,9 @@ class KernelLowering:
         """The new value of the kernel's output by its plain lowering (the
         einsum or the general paths): the plain version of kernel B5."""
         self.epoch = epoch
-        result = None if self._general_only() else self._try_contraction(
-            tensors)
+        found = None if self._general_only() else self._try_contraction(
+            tensors, route=False)
+        result = found[0] if found is not None else None
         if result is None:
             self.sub_path = "unknown"
             result = self._general(tensors)
@@ -1049,7 +1133,11 @@ class KernelLowering:
             result = self.scheduled_mapreduce().lower(tensors)
         conv_decline = None
         if result is None and not general_only:
-            result = self._try_contraction(tensors)
+            found = self._try_contraction(tensors)
+            if found is not None:
+                result, how = found
+                if how == "einsum-b1":
+                    path = how
         if result is None and not general_only:
             match = self.conv_match()
             if match.ok:

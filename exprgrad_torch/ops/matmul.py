@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import struct
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -414,3 +415,275 @@ def scheduled_matmul(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
     ``block_m, block_n, block_k`` are ``block`` here), exported in its
     place by :mod:`exprgrad_torch.ops`."""
     return _ScheduledMatmul.apply(a, b, out_dtype, block)
+
+
+# --- the einsum path's contractions on B1's Hopper mainloop --------------
+#
+# csrc/gemm_sm90.cu: a split pre-pass writes each operand's big and
+# small TF32 planes K-major, then one wgmma GEMM over them writes
+# ``alpha * a.b (+ c)`` at the output's strides.  :func:`plan_gemm` maps a
+# two-operand einsum onto that GEMM; :func:`contract` runs it (the kernel
+# on CUDA tensors, :func:`contract_plain` on CPU tensors).
+
+# egt_gemm_tf32x3 launches since the last reset (one a contraction)
+gemm_launches = 0
+
+# half the GEMM's 128 x 128 tile (csrc/gemm_sm90.cu kBM, kBN): a product
+# narrower than that either way stays with torch.einsum
+_MIN_SIDE = 64
+_MAX_AXES = 3  # axes a group may have (csrc/gemm_sm90.cu struct Axes)
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """A two-operand contraction as one GEMM, ``out[batch, m, n] = alpha *
+    sum_k a[batch, m, k] b[batch, n, k]``.  Each field lists, per group,
+    the dims of its tensor, in one order for all three: ``a``'s (batch,
+    m, k), ``b``'s (batch, n, k) and ``out``'s (batch, m, n).  ``swap``:
+    ``a`` is the einsum's second operand (``b`` holds the output's
+    innermost axis).  Axes of size 1 are in no group."""
+
+    a: tuple
+    b: tuple
+    out: tuple
+    swap: bool
+
+    @property
+    def layout(self) -> str:
+        """BLAS's two letters for the operands as a contiguous tensor
+        stores them: ``a`` is ``n`` when its last dim is a k dim (stored
+        [m, k]), ``t`` when an m dim ([k, m]); ``b`` is ``n`` when its
+        last dim is an n dim (stored [k, n]), ``t`` when a k dim ([n,
+        k]); ``b`` (batch) otherwise."""
+        def letter(groups, plain, transposed):
+            last = max((d for g in groups for d in g), default=None)
+            return ("n" if last in groups[plain] else
+                    "t" if last in groups[transposed] else "b")
+        return letter(self.a, 2, 1) + letter(self.b, 1, 2)
+
+    @functools.cached_property
+    def flat(self) -> tuple:
+        """The plan as the op's ``int[]``: ``swap``, then each of the nine
+        groups (``a``'s, ``b``'s, ``out``'s) as its length and its dims
+        (made once per plan)."""
+        out = [int(self.swap)]
+        for group in (*self.a, *self.b, *self.out):
+            out += [len(group), *group]
+        return tuple(out)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_from_flat(flat: tuple) -> GemmPlan:
+    """Inverse of :attr:`GemmPlan.flat`."""
+    groups, at = [], 1
+    for _ in range(9):
+        n = flat[at]
+        groups.append(tuple(flat[at + 1:at + 1 + n]))
+        at += 1 + n
+    return GemmPlan(tuple(groups[0:3]), tuple(groups[3:6]),
+                    tuple(groups[6:9]), bool(flat[0]))
+
+
+def plan_gemm(operands, out, sizes):
+    """``(plan, None)`` for the einsum whose operands read loop axes
+    ``operands`` (two tuples) and whose output writes ``out``, loop axis
+    ``i`` of extent ``sizes[i]``; ``(None, reason)`` where it is not one
+    GEMM the kernel takes: other than two operands, an output axis in
+    neither operand, no summed axis, an axis summed in one operand alone,
+    a group of more than three axes, or m or n under half a tile."""
+    if len(operands) != 2:
+        return None, f"{len(operands)} operands"
+    live = [tuple(x for x in ax if sizes[x] != 1) for ax in (*operands, out)]
+    a_ax, b_ax, o_ax = live
+    a, b, o = set(a_ax), set(b_ax), set(o_ax)
+    if o - a - b:
+        return None, "an output axis in neither operand"
+    k = (a & b) - o
+    if not k:
+        return None, "no summed axis"
+    if (a - b - o) or (b - a - o):
+        return None, "an axis summed in one operand alone"
+    swap = bool(o_ax) and o_ax[-1] in a - b
+    if swap:
+        a_ax, b_ax, a, b = b_ax, a_ax, b, a
+    batch, m, n, kk = ([x for x in o_ax if x in a and x in b],
+                       [x for x in o_ax if x in a and x not in b],
+                       [x for x in o_ax if x in b and x not in a],
+                       [x for x in a_ax if x in k])
+    if max(len(g) for g in (batch, m, n, kk)) > _MAX_AXES:
+        return None, f"a group of more than {_MAX_AXES} axes"
+    extent = [math.prod(sizes[x] for x in g) for g in (m, n)]
+    if min(extent) < _MIN_SIDE:
+        return None, f"m or n under {_MIN_SIDE}"
+
+    def dims(axes, *gs):
+        return tuple(tuple(axes.index(x) for x in g) for g in gs)
+
+    full = [tuple(ax) for ax in (*operands, out)]
+    if swap:
+        full[0], full[1] = full[1], full[0]
+    return GemmPlan(dims(full[0], batch, m, kk), dims(full[1], batch, n, kk),
+                    dims(full[2], batch, m, n), swap), None
+
+
+def _group_sizes(shape, groups):
+    return [math.prod(shape[d] for d in g) for g in groups]
+
+
+def _as_gemm(t: torch.Tensor, groups) -> torch.Tensor:
+    """``t`` as ``[batch, rows, k]`` (its dims of size 1 dropped)."""
+    order = [d for g in groups for d in g]
+    rest = [d for d in range(t.dim()) if d not in order]
+    return t.permute(order + rest).reshape(_group_sizes(t.shape, groups))
+
+
+def contract_plain(a: torch.Tensor, b: torch.Tensor, plan: GemmPlan,
+                   out_shape, alpha: float = 1.0,
+                   c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version of :func:`contract`: the product in
+    float64 (``torch.bmm`` over the groups), times ``alpha``, plus ``c``,
+    cast to ``a``'s dtype."""
+    if plan.swap:
+        a, b = b, a
+    value = torch.bmm(_as_gemm(a, plan.a).double(),
+                      _as_gemm(b, plan.b).double().transpose(1, 2))
+    order = [d for g in plan.out for d in g]
+    rest = [d for d in range(len(out_shape)) if d not in order]
+    order += rest
+    value = value.reshape([out_shape[d] for d in order]).permute(
+        [order.index(d) for d in range(len(out_shape))])
+    value = alpha * value
+    if c is not None:
+        value = c.double() + value
+    return value.to(a.dtype)
+
+
+class _Axes(ctypes.Structure):
+    """``struct Axes`` of csrc/gemm_sm90.cu: up to three axes of one
+    group, innermost first."""
+
+    _fields_ = [("n", ctypes.c_int64), ("size", ctypes.c_int64 * 3),
+                ("stride", ctypes.c_int64 * 3)]
+
+
+class _SplitArgs(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("batch", ctypes.c_int64), ("rows", ctypes.c_int64),
+                ("k", ctypes.c_int64), ("kp", ctypes.c_int64),
+                ("x_batch", _Axes), ("x_rows", _Axes), ("x_k", _Axes)]
+
+
+class _GemmArgs(ctypes.Structure):
+    _fields_ = [("a", ctypes.c_void_p), ("b", ctypes.c_void_p),
+                ("d", ctypes.c_void_p), ("c", ctypes.c_void_p),
+                ("batch", ctypes.c_int64), ("m", ctypes.c_int64),
+                ("n", ctypes.c_int64), ("k", ctypes.c_int64),
+                ("kp", ctypes.c_int64), ("alpha", ctypes.c_double),
+                ("d_batch", _Axes), ("d_m", _Axes), ("d_n", _Axes)]
+
+
+def _axes(t: torch.Tensor, dims) -> _Axes:
+    """Dims ``dims`` (outer to inner) of ``t`` as the kernel's Axes: dims
+    of size 1 dropped, neighbours that are one run in memory merged."""
+    runs = []  # [size, stride], outer to inner
+    for d in dims:
+        size, stride = t.shape[d], t.stride(d)
+        if size == 1:
+            continue
+        if runs and runs[-1][1] == size * stride:
+            runs[-1] = [runs[-1][0] * size, stride]
+        else:
+            runs.append([size, stride])
+    if len(runs) > _MAX_AXES:
+        raise ValueError(f"dims {dims} of a tensor of strides {t.stride()} "
+                         f"are more than {_MAX_AXES} runs")
+    runs = runs[::-1] or [[1, 0]]
+    out = _Axes(len(runs))
+    for i, (size, stride) in enumerate(runs):
+        out.size[i], out.stride[i] = size, stride
+    return out
+
+
+def _split(x: torch.Tensor, groups, batch: int, rows: int, k: int,
+           kp: int) -> torch.Tensor:
+    """The big and small TF32 planes of ``x`` K-major, ``[2, batch, rows,
+    kp]``, by the split pre-pass."""
+    planes = torch.empty((2, batch, rows, kp), dtype=torch.float32,
+                         device=x.device)
+    args = _SplitArgs(x.data_ptr(), planes.data_ptr(), batch, rows, k, kp,
+                      *(_axes(x, g) for g in groups))
+    kernels.call("egt_tf32_split", x.device, ctypes.addressof(args))
+    return planes
+
+
+def _contract_cuda(a, b, plan, out_shape, alpha, c) -> torch.Tensor:
+    if plan.swap:
+        a, b = b, a
+    dev = a.device
+    for name, t in (("a", a), ("b", b), ("c", c)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise ValueError(f"the contraction kernel takes float32, "
+                             f"{name} is {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, a on {dev}")
+    batch, m, k = _group_sizes(a.shape, plan.a)
+    n = _group_sizes(b.shape, plan.b)[1]
+    out = torch.empty(tuple(out_shape), dtype=torch.float32, device=dev)
+    if c is not None:
+        if tuple(c.shape) != tuple(out_shape):
+            raise ValueError(f"c is {tuple(c.shape)}, the output "
+                             f"{tuple(out_shape)}")
+        c = c if c.stride() == out.stride() else c.contiguous()
+    if out.numel() == 0:
+        return out
+    kp = (k + 3) // 4 * 4
+    pa = _split(a, plan.a, batch, m, k, kp)
+    pb = _split(b, plan.b, batch, n, k, kp)
+    args = _GemmArgs(pa.data_ptr(), pb.data_ptr(), out.data_ptr(),
+                     c.data_ptr() if c is not None else None, batch, m, n,
+                     k, kp, alpha, *(_axes(out, g) for g in plan.out))
+    kernels.call("egt_gemm_tf32x3", dev, ctypes.addressof(args))
+    global gemm_launches
+    gemm_launches += 1
+    return out
+
+
+def _contract_op_cpu(a, b, plan, out_shape, alpha, c):
+    return contract_plain(a, b, _plan_from_flat(tuple(plan)), out_shape,
+                          alpha, c)
+
+
+def _contract_op_cuda(a, b, plan, out_shape, alpha, c):
+    return _contract_cuda(a, b, _plan_from_flat(tuple(plan)), out_shape,
+                          alpha, c)
+
+
+def _contract_fake(a, b, plan, out_shape, alpha, c):
+    return a.new_empty(tuple(out_shape))
+
+
+_LIB.define("contract(Tensor a, Tensor b, int[] plan, int[] out_shape, "
+            "float alpha, Tensor? c) -> Tensor")
+_LIB.impl("contract", _contract_op_cpu, "CPU")
+_LIB.impl("contract", _contract_op_cuda, "CUDA")
+torch.library.register_fake("exprgrad_torch::contract", _contract_fake,
+                            lib=_LIB)
+_CONTRACT = torch.ops.exprgrad_torch.contract.default._op
+
+
+def contract(a: torch.Tensor, b: torch.Tensor, plan: GemmPlan, out_shape,
+             alpha: float = 1.0,
+             c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``alpha * einsum(a, b)`` (``+ c``) of shape ``out_shape`` by
+    ``plan`` (:func:`plan_gemm`): on CUDA tensors the split pre-pass and
+    B1's wgmma GEMM (float32 operands, float32 as split TF32; raises on
+    anything else), on CPU tensors :func:`contract_plain`.  Both go
+    through the op ``exprgrad_torch::contract`` (the plan as its
+    ``int[]``), so ``torch.export`` keeps the kernel in an exported
+    program."""
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no contraction kernel for {a.device}")
+    return _CONTRACT(a, b, list(plan.flat), list(out_shape), float(alpha),
+                     c)

@@ -1,8 +1,8 @@
 """Split TF32 ("3xTF32") arithmetic, emulated on the CPU.
 
 The port's tensor-core kernels (``csrc/tf32x3.cuh``, used by B1
-``csrc/matmul.cuh``, B2 ``csrc/flash_fwd.cu`` and B3/B4
-``csrc/flash_bwd.cu``) compute a float32
+``csrc/matmul.cuh`` and ``csrc/gemm_sm90.cu``, B2 ``csrc/flash_fwd.cu``
+and B3/B4 ``csrc/flash_bwd.cu``) compute a float32
 product as three TF32 products: each operand ``x`` is split into
 ``big = rna(x)`` and ``small = rna(x - big)`` (``cvt.rna.tf32.f32``,
 round to nearest, ties away from zero) and ``a * b`` becomes
@@ -76,6 +76,24 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor,
     a_big, a_small = split(a, how)
     b_big, b_small = split(b, how)
     return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def kmajor_gemm(a: torch.Tensor, b: torch.Tensor,
+                group: int = 32) -> torch.Tensor:
+    """``a @ b^T`` of K-major operands ``a`` [batch, m, k] and ``b``
+    [batch, n, k] as B1's Hopper mainloop (csrc/gemm_sm90.cu) sums it:
+    both split into big and small planes, each ``group``-deep slice of k
+    summed into a fresh float32 accumulator (small.big, big.small, then
+    big.big) and added to the running float32 sum, slice by slice."""
+    (a_big, a_small), (b_big, b_small) = split(a), split(b)
+    acc = None
+    for k0 in range(0, a.shape[-1], group):
+        s = slice(k0, k0 + group)
+        part = (a_small[..., s] @ b_big[..., s].transpose(-1, -2)
+                + a_big[..., s] @ b_small[..., s].transpose(-1, -2))
+        part = part + a_big[..., s] @ b_big[..., s].transpose(-1, -2)
+        acc = part if acc is None else acc + part
+    return acc
 
 
 def tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

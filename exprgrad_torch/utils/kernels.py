@@ -88,6 +88,10 @@ _SIGNATURES = {
     "egt_matmul_packed": [_P, _P, _P],
     # field index -> MatmulArgs' byte offset (its size past the last)
     "egt_matmul_args_offset": [_I],
+    # &SplitArgs, stream (gemm_sm90.cu)
+    "egt_tf32_split": [_P, _P],
+    # &GemmArgs, stream (gemm_sm90.cu)
+    "egt_gemm_tf32x3": [_P, _P],
     # q, k, v, k_scale, v_scale, table, key_pos, q_pos, out, part, b, h,
     # hkv, n_pages, t, d, page, n_tbl, scale, window, vec, n_split, pps,
     # q_dtype, kv_dtype, stream

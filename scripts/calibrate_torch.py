@@ -10,6 +10,10 @@ tensors, once through the kernel and once through the plain lowering:
 * B1 (``schedule_mode="force"``) against the plain lowering
   (``"ignore"``: the einsum, ``torch.matmul`` with TF32 off) at 1024^3,
   2048^3 and 4096^3 in float32 and bfloat16;
+* an unscheduled float32 contraction through the einsum path, on B1's
+  Hopper mainloop (lowering path ``einsum-b1``) against ``torch.einsum``
+  (TF32 off), at 64^3 and 1024^3 to 4096^3: the cost model is told
+  which side to take (:class:`Side`'s ``einsum``);
 * B5 against the plain lowering on an elementwise map and a row
   reduction over 8192 x 8192, and bench.py's scatter-add (n 16384, d 512)
   at v 2048 and at v 512 and 8192;
@@ -81,6 +85,17 @@ def _matmul(egt, n, tile):
     return matmul_graph(egt, tile), "c", {"a": a, "b": b}
 
 
+def _einsum(egt, n):
+    """``c[y, x] = a[y, it] * b[it, x]`` with no schedule: the einsum
+    path's contraction."""
+    y, x, it = egt.iters("y", "x", "it")
+    c = egt.Fun("c")
+    c[y, x] = egt.input("a")[y, it] * egt.input("b")[it, x]
+    rng = np.random.default_rng(n)
+    a, b = (rng.standard_normal((n, n)).astype(np.float32) for _ in "ab")
+    return c.target("c"), "c", {"a": a, "b": b}
+
+
 def _map(egt, rows, cols):
     inp = egt.input("inp")
     y, x = egt.iters("y", "x")
@@ -147,9 +162,13 @@ def _attention(egt, impl, b, h, s, d):
 # --- timing ----------------------------------------------------------------
 
 class Side:
-    """One executor of a program on device tensors, ready to run."""
+    """One executor of a program on device tensors, ready to run.
+    ``einsum`` True or False makes the cost model send the einsum path's
+    float32 contractions to B1's Hopper mainloop, or keep them on
+    torch.einsum (every case's plain side: the plain lowering); None
+    leaves it the committed constants."""
 
-    def __init__(self, egt, built, dtype, mode):
+    def __init__(self, egt, built, dtype, mode, einsum=None):
         from exprgrad_torch.backend.executor import TorchExecutor
         from exprgrad_torch.passes import infer_shapes
 
@@ -167,6 +186,11 @@ class Side:
         self.tensors.update({t: p.to(tdt) for t, p in model.params.items()})
         self.ex = TorchExecutor(prog, target, self.shapes, model.device,
                                 schedule_mode=mode)
+        if einsum is not None:
+            self.ex.policy.constants.update(
+                einsum_kernel_launch_us=0.0 if einsum else float("inf"),
+                einsum_kernel_tflops_float32=float("inf") if einsum
+                else 1.0)
         self.precision = model.precision
 
     def run(self):
@@ -174,9 +198,13 @@ class Side:
 
 
 def _counters():
+    """Each kind of case's launch counter: (module, attribute)."""
     from exprgrad_torch.ops import attention, mapreduce, matmul, rowchain
 
-    return {"B1": matmul, "B5": mapreduce, "B6": rowchain, "B2": attention}
+    return {"B1": (matmul, "launches"), "einsum-b1": (matmul,
+                                                      "gemm_launches"),
+            "B5": (mapreduce, "launches"), "B6": (rowchain, "launches"),
+            "B2": (attention, "launches")}
 
 
 def _sync():
@@ -187,12 +215,12 @@ def _sync():
 def _launches(side, kind) -> int:
     """Run ``side`` once (its first run plans, builds and compiles) and
     count its launches of kernel ``kind``."""
-    mod = _counters()[kind]
-    mod.launches = 0
+    mod, attr = _counters()[kind]
+    setattr(mod, attr, 0)
     side.run()
     _sync()
-    n = mod.launches
-    mod.launches = 0
+    n = getattr(mod, attr)
+    setattr(mod, attr, 0)
     return n
 
 
@@ -244,8 +272,9 @@ def _pair(egt, name, kind, kernel_built, plain_built, dtype, work,
           unit, reps, target_ms, kernel_mode="force", plain_mode="ignore"):
     """One case: the kernel's side and the plain side, checked to launch
     the kernel and not to, then timed in turns."""
-    kside = Side(egt, kernel_built, dtype, kernel_mode)
-    pside = Side(egt, plain_built, dtype, plain_mode)
+    kside = Side(egt, kernel_built, dtype, kernel_mode,
+                 True if kind == "einsum-b1" else None)
+    pside = Side(egt, plain_built, dtype, plain_mode, False)
     launched = _launches(kside, kind)
     plain_launched = _launches(pside, kind)
     if launched < 1 or plain_launched:
@@ -290,6 +319,9 @@ def measure(egt, reps=5, quick=False) -> list:
     built = _matmul(egt, 64, 64)
     pair("tiny contraction 64^3", "B1", built, built, "float32",
          _flops_mm(64), "FLOP")
+    built = _einsum(egt, 64)
+    pair("tiny einsum 64^3", "einsum-b1", built, built, "float32",
+         _flops_mm(64), "FLOP")
     pair("tiny attention [1, 1, 64, 64]", "B2",
          _attention(egt, "flash", 1, 1, 64, 64),
          _attention(egt, "xla", 1, 1, 64, 64), "float32",
@@ -299,6 +331,10 @@ def measure(egt, reps=5, quick=False) -> list:
             built = _matmul(egt, n, 128)
             pair(f"matmul {n}^3", "B1", built, built, dtype, _flops_mm(n),
                  "FLOP")
+    for n in (1024, 2048, 4096):
+        built = _einsum(egt, n)
+        pair(f"einsum {n}^3", "einsum-b1", built, built, "float32",
+             _flops_mm(n), "FLOP")
     built = _map(egt, 8192, 8192)
     _, side = pair("elementwise map 8192^2", "B5", built, built, "float32",
                    None, "B")
@@ -355,7 +391,9 @@ TINY = (("tiny map [16, 64]", "kernel_launch_us", "plain_launch_us"),
         ("tiny contraction 64^3", "matmul_kernel_launch_us",
          "matmul_plain_launch_us"),
         ("tiny attention [1, 1, 64, 64]", "attention_flash_launch_us",
-         "attention_plain_launch_us"))
+         "attention_plain_launch_us"),
+        ("tiny einsum 64^3", "einsum_kernel_launch_us",
+         "einsum_plain_launch_us"))
 RATES = (
     ("matmul 4096^3", "float32", "kernel_matmul_tflops_float32",
      "plain_matmul_tflops_float32", 1e12),
@@ -366,6 +404,8 @@ RATES = (
     ("softmax 8192^2", "float32", "kernel_rowchain_gbps", None, 1e9),
     ("causal attention [2, 4, 4096, 128]", "float32",
      "flash_attention_tflops", "plain_attention_tflops", 1e12),
+    ("einsum 4096^3", "float32", "einsum_kernel_tflops_float32", None,
+     1e12),
 )
 
 # each rate's ceiling, the card's published peak for its type (chip_smoke's
@@ -381,6 +421,7 @@ PEAKS = {
     "kernel_rowchain_gbps": PEAK_HBM_BYTES / 1e9,
     "flash_attention_tflops": PEAK_TF32_FLOPS / 3 / 1e12,
     "plain_attention_tflops": PEAK_TF32_FLOPS / 1e12,
+    "einsum_kernel_tflops_float32": PEAK_TF32_FLOPS / 3 / 1e12,
 }
 
 # the comments of policy.py's _DEFAULTS, each over the constants it names
@@ -406,12 +447,19 @@ COMMENTS = (
      ("kernel_launch_us", "plain_launch_us", "matmul_kernel_launch_us",
       "matmul_plain_launch_us", "attention_flash_launch_us",
       "attention_plain_launch_us")),
+    ("the einsum path's contractions on B1's Hopper mainloop (split "
+     "pre-pass and wgmma GEMM) against torch.einsum, TF32 off: 2 m n k "
+     "over the wall time a call at 4096^3, and each side's per-call cost "
+     "at 64^3 (the plain side's rate is plain_matmul_tflops_float32)",
+     ("einsum_kernel_tflops_float32", "einsum_kernel_launch_us",
+      "einsum_plain_launch_us")),
 )
 
 
 def fitted(case) -> list:
     """The constants fitted to ``case``."""
-    keys = [k for name, *ks in TINY if name == case["name"] for k in ks]
+    keys = [k for name, *ks in TINY if name == case["name"] for k in ks
+            if k]
     keys += [k for name, dtype, kk, pk, _ in RATES
              if (name, dtype) == (case["name"], case["dtype"])
              for k in (kk, pk) if k]
@@ -427,7 +475,8 @@ def derive(cases) -> dict:
     for name, kernel_key, plain_key in TINY:
         case = _case(cases, name)
         c[kernel_key] = case["kernel_ms"] * 1e3
-        c[plain_key] = case["plain_ms"] * 1e3
+        if plain_key:
+            c[plain_key] = case["plain_ms"] * 1e3
     for name, dtype, kernel_key, plain_key, scale in RATES:
         case = _case(cases, name, dtype)
         work = sum(case["work"]) if isinstance(case["work"], (list, tuple)) \
@@ -455,9 +504,10 @@ def decide(cases, constants) -> list:
     out = []
     for case in cases:
         kind, name = case["kernel"], case["name"]
-        if kind == "B1":
+        if kind in ("B1", "einsum-b1"):
             n = round((case["work"] / 2) ** (1 / 3))
-            d = pol.contraction(n, n, n, case["dtype"])
+            d = (pol.contraction(n, n, n, case["dtype"]) if kind == "B1"
+                 else pol.einsum_contraction(n, n, n))
         elif kind == "B5":
             d = pol.mapreduce(case["work"], case.get("gather_work", 0) * 4)
         elif kind == "B6":

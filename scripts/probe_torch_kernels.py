@@ -36,6 +36,14 @@ seed 0:
    (torch.profiler), host us per call, CUDA events, the bound, and the
    torch call of the same traffic (chip_smoke.py's ``_library_twin``).
    It runs against ``--root``'s package too.
+   ``gemm`` (not in the default): the einsum path's float32 contractions
+   on B1's Hopper mainloop (csrc/gemm_sm90.cu, ``ops.matmul.contract``)
+   at the training cell's shapes (Codestral-22B's widths, 4,096 tokens)
+   in each layout: device ms of its split pre-passes and of its GEMM
+   (torch.profiler), CUDA events of the whole call, the bound (3 x 2 m n
+   k over 495 TFLOP/s), torch.einsum's device ms (TF32 off), and B1's
+   ``mma.sync`` mainloop (``matmul_impl``, default block) at the same
+   m, n, k with contiguous [m, k] and [k, n] operands.
 4. b7: paged decode attention (B7, csrc/paged_attention.cu) at bench.py's
    paged shape and at path (e)'s decode step, beside its library route
    (gather_view, then scaled_dot_product_attention): as b5.
@@ -532,6 +540,41 @@ def timed_line(say, label, fn, calls=50):
         f"{hs:.1f} us per call, CUDA events {ev:.5f} ms")
 
 
+def gemm(say, dev):
+    from chip_smoke import CELL_GEMMS, gemm_plan
+    from exprgrad_torch.ops import matmul
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for label, spec, sa, sb in CELL_GEMMS:
+        plan, out_shape, (batch, m, n, k) = gemm_plan(spec, sa, sb)
+        a = torch.randn(sa, device=dev)
+        b = torch.randn(sb, device=dev)
+        ops = 2.0 * batch * m * n * k
+        bound = 3 * ops / 495e12 * 1e3
+        named = device_kernels(
+            lambda: matmul.contract(a, b, plan, out_shape), calls=10)
+        split = sum(t for name, t in named.items() if "split" in name)
+        main = sum(t for name, t in named.items() if "gemm" in name)
+        ev = cuda_ms(lambda: matmul.contract(a, b, plan, out_shape),
+                     iters=10, warmup=2)
+        lib = sum(device_kernels(lambda: torch.einsum(spec, a, b),
+                                 calls=10).values())
+        del a, b
+        x = torch.randn(m, k, device=dev)
+        w = torch.randn(k, n, device=dev)
+        old = sum(device_kernels(lambda: matmul.matmul_impl(x, w),
+                                 calls=5).values())
+        del x, w
+        say(f"gemm {label} ({spec}, {plan.layout}, m {m} n {n} k {k}): "
+            f"einsum-b1 device {split + main:.4f} ms (split {split:.4f}, "
+            f"GEMM {main:.4f}: {ops / main / 1e9:.1f} TFLOP/s float32-"
+            f"exact, {100 * bound / main:.1f}% of its bound), CUDA events "
+            f"{ev:.4f} ms, bound {bound:.4f} ms; torch.einsum device "
+            f"{lib:.4f} ms ({ops / lib / 1e9:.1f} TFLOP/s); B1 mma.sync "
+            f"device {old:.4f} ms")
+        torch.cuda.empty_cache()
+
+
 def b5(say, dev):
     from chip_smoke import scatter_tokens
 
@@ -892,7 +935,7 @@ def main() -> int:
     ap.add_argument("--out", default="build/probe_torch_kernels.txt")
     ap.add_argument("--parts", default="tensor,power,b5,b7",
                     help="any of tensor, power, b5, b5map, b7, host, "
-                    "ops")
+                    "ops, gemm")
     ap.add_argument("--skip-variants", action="store_true")
     ap.add_argument("--variants", default="fwd,bwd",
                     help="which kernels' variants to time: fwd, bwd, b5, b7")
@@ -921,6 +964,8 @@ def main() -> int:
             power(say, gen, dev)
         if "b5map" in parts:
             b5map(say, dev)
+        if "gemm" in parts:
+            gemm(say, dev)
         if "b5" in parts:
             b5(say, dev)
         elif "host" in parts:

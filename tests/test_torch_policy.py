@@ -82,6 +82,10 @@ def port_constants(j: dict) -> dict:
         "plain_launch_us": 0.0, "matmul_plain_launch_us": 0.0,
         "attention_plain_launch_us": 0.0,
         "calibrated": j["calibrated"], "card": None,
+        # the einsum path's kernel, which the JAX package does not have:
+        # its matmul kernel's constants
+        "einsum_kernel_tflops_float32": j["pallas_matmul_tflops"],
+        "einsum_kernel_launch_us": launch, "einsum_plain_launch_us": 0.0,
     }
     for dtype in ("float32", "bfloat16"):
         c[f"kernel_matmul_tflops_{dtype}"] = j["pallas_matmul_tflops"]
