@@ -7,7 +7,8 @@ batcher's speculative rounds), train and serve the encoder-decoder and
 recurrent models, export, load and profile a model, decode in
 chunks and pipelined chunks, each chunk one CUDA graph replay, and run
 the parallel layer: tensor-parallel serving and batching, sharded
-training, sequence-parallel attention and sharded checkpoints.
+training, sequence-parallel attention and sharded checkpoints, and run
+the Mamba-1 kernels and a hybrid Mamba/attention/expert model.
 
     python3 chip_smoke.py
 
@@ -234,6 +235,19 @@ Phases (any failed check raises and the script exits non-zero):
    routing away a ScheduleWarning and a schedule-fallback stat; the auto
    call's time beside force's (CUDA events, 10 calls, the median of 4
    turns of the two, alternating which goes first).
+23. the Mamba-1 kernels (csrc/selective_scan.cu) against their plain
+   twins at AI21-Jamba2-Mini's widths (d_inner 8192, d_state 16,
+   d_conv 4): ragged prefill rows in a padded bucket with strided x and
+   z, and a decode step of 32 slots with parked rows (outputs and
+   states within 1e-4 of the largest value; padding and a parked row
+   leave the state bit for bit); each timed at a 1024-token prompt and
+   a 32-slot decode step beside its bound and its twin; then a toy
+   models.jamba hybrid through ContinuousBatcher(paged, flash,
+   decode_chunk 4), whose greedy streams equal the solo server's but
+   at near-ties, with both kernels' counters set to 0 just before the
+   run and each equal after it to the Mamba layers times the steps run
+   (eager, and the chunk graphs' replays times their steps); the
+   kernels row reports the scan's launches, its conv entry the conv's.
 
 B1-B4 compute float32 on the tensor cores as split TF32 and are held
 to the same tolerances as the float32 kernels before them
@@ -5266,6 +5280,167 @@ def phase_cost_model(egt, gpu) -> dict:
             "fresh": fresh["constants"]}
 
 
+# --- Mamba-1 kernels and a hybrid through the batcher (phase 23) ---------
+# AI21-Jamba2-Mini's mixer widths: d_inner 8192, d_state 16, d_conv 4
+MAMBA_D, MAMBA_N, MAMBA_K = 8192, 16, 4
+
+
+def mamba_cost(kind: str, lengths, t: int, d: int = MAMBA_D,
+               n: int = MAMBA_N, k: int = MAMBA_K) -> tuple:
+    """(operations, bytes) of one conv or scan launch over rows of
+    ``lengths`` padded to ``t`` (portbench/flops_hybrid.py's rule: each
+    input read once, each output written once, each live row's state
+    read and written once)."""
+    tokens = sum(int(x) for x in lengths)
+    live = sum(int(x) > 0 for x in lengths)
+    out = 4 * d * len(lengths) * t
+    if kind == "conv":
+        return (tokens * d * (2 * k + 4),
+                4 * d * (tokens + k + 1) + 2 * 4 * d * (k - 1) * live + out)
+    return (tokens * d * (7 * n + 10),
+            4 * (3 * d + 2 * n) * tokens + 4 * d * (n + 2)
+            + 2 * 4 * d * n * live + out)
+
+
+def phase_mamba(egt, gpu) -> dict:
+    """Phase 23: the conv and scan kernels (csrc/selective_scan.cu)
+    against their plain twins at Jamba2-Mini's widths (ragged prefill
+    rows of a padded bucket, strided x and z, a decode step with parked
+    rows; outputs and states, padding leaving states as they were), each
+    timed beside its bound; then a toy hybrid (models.jamba.jamba_lm)
+    through ContinuousBatcher(paged, flash, decode_chunk 4) on the card,
+    whose float32-cache greedy streams equal the solo server's but at
+    near-ties and whose kernels launch once a Mamba layer a step, eager
+    or replayed in a chunk graph."""
+    from exprgrad_torch.models import ContinuousBatcher, FlashLMServer
+    from exprgrad_torch.models.jamba import jamba_lm
+    from exprgrad_torch.ops import mamba
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    d, n, k = MAMBA_D, MAMBA_N, MAMBA_K
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    w, bias = rand(d, k, scale=0.5), rand(d, scale=0.1)
+    a_log = torch.log(torch.arange(1, n + 1, device=dev, dtype=torch.float32)
+                      ).repeat(d, 1)
+    dskip, dt_bias = torch.ones(d, device=dev), rand(d, scale=0.5) - 4.0
+    errs, res = {}, {}
+
+    def case(name, b, t, lengths):
+        xz = rand(b, t, 2 * d)
+        x, z = xz[..., :d], xz[..., d:]
+        dt, bm, cm = rand(b, t, d, scale=0.5), rand(b, t, n), rand(b, t, n)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        first = mamba.MambaState(rand(b, d, k - 1), rand(b, d, n, scale=0.1))
+        states = [first, mamba.MambaState(*(v.clone() for v in first))]
+        before = [v.clone() for v in first]
+        outs = []
+        for st, conv, scan in (
+                (states[0], mamba.causal_conv, mamba.selective_scan),
+                (states[1], mamba.causal_conv_plain,
+                 mamba.selective_scan_plain)):
+            xc = conv(x, w, bias, st.conv, lens)
+            outs.append((xc, scan(xc, dt, z, bm, cm, a_log, dskip, dt_bias,
+                                  st.ssm, lens)))
+        torch.cuda.synchronize()
+        err = max(float((a - b_).abs().max()) for a, b_ in
+                  zip(outs[0] + tuple(states[0]), outs[1] + tuple(states[1])))
+        scale = max(float(v.abs().max()) for v in outs[1] + tuple(states[1]))
+        assert err <= 1e-4 * max(scale, 1.0), (name, err, scale)
+        for i, length in enumerate(lengths):
+            assert float(outs[0][1][i, length:].abs().sum()) == 0
+            if length == 0:  # a parked row keeps its state bit for bit
+                for now, was in zip(states[0], before):
+                    assert torch.equal(now[i], was[i]), name
+        errs[name] = err
+        print(f"phase 23 {name}: b {b} t {t} lengths {lengths[:4]}.. max "
+              f"abs err {err:.3g} (largest value {scale:.3g})")
+        return x, z, dt, bm, cm, lens, states[0]
+
+    case("prefill ragged", 2, 300, [300, 137])
+    case("decode parked rows", 32, 1, [1, 0] * 16)
+    res["max_abs_err"] = max(errs.values())
+
+    # time each kernel at the cell's shapes: a 1024-token prompt, and a
+    # decode step of 32 slots
+    times = {}
+    for what, b, t, lengths in (("prefill", 1, 1024, [1024]),
+                                ("decode", 32, 1, [1] * 32)):
+        x, z, dt, bm, cm, lens, st = case(f"{what} timed", b, t, lengths)
+        xc = mamba.causal_conv(x, w, bias, st.conv, lens)
+        twins = {"conv": lambda: mamba.causal_conv_plain(x, w, bias,
+                                                         st.conv, lens),
+                 "scan": lambda: mamba.selective_scan_plain(
+                     xc, dt, z, bm, cm, a_log, dskip, dt_bias, st.ssm,
+                     lens)}
+        for kind, fn in (
+                ("conv", lambda: mamba.causal_conv(x, w, bias, st.conv,
+                                                   lens)),
+                ("scan", lambda: mamba.selective_scan(
+                    xc, dt, z, bm, cm, a_log, dskip, dt_bias, st.ssm,
+                    lens))):
+            ms = cuda_ms(fn, iters=20, warmup=3)
+            plain = cuda_ms(twins[kind], iters=2, warmup=1)
+            ops, nbytes = mamba_cost(kind, lengths, t)
+            least = bound(ops, nbytes)
+            times[f"{kind} {what}"] = {"ms": ms, "plain_ms": plain,
+                                       "bound_ms": least[0],
+                                       "bound_by": least[1]}
+            print(f"phase 23 {kind} kernel {what} [{b}, {t}, {d}]: {ms:.4f} "
+                  f"ms, bound {least[0]:.4f} ms ({least[1]}), "
+                  f"{100 * least[0] / ms:.1f}% of it; the plain twin "
+                  f"{plain:.3f} ms; on {gpu}")
+    res["times"] = times
+
+    # a toy hybrid through the batcher's graph path
+    model = egt.compile(jamba_lm(vocab=97, dim=64, heads=4, kv_heads=2,
+                                 hidden=96, layers=8, n_experts=4,
+                                 d_state=16, d_conv=4, dt_rank=8,
+                                 max_seq=96), seed=0, device="cuda")
+    srv = FlashLMServer(model, cache_dtype=torch.float32)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, 97, int(m)).astype(np.float32)
+               for m in rng.integers(3, 40, 10)]
+    b = ContinuousBatcher(srv, slots=4, capacity=96, paged=True,
+                          page_size=8, pool_pages=40, attention="flash",
+                          decode_chunk=4)
+    rids = [b.submit(p, 12) for p in prompts]
+    # the steps run eagerly (prefills, each graph's warm-up step), apart
+    # from those a chunk graph captured and replays
+    eager = [0]
+    step = srv._step
+
+    def counted(*args, **kw):
+        if not torch.cuda.is_current_stream_capturing():
+            eager[0] += 1
+        return step(*args, **kw)
+
+    srv._step = counted
+    mamba.scan_launches = mamba.conv_launches = 0
+    done = b.run()
+    scans, convs = mamba.scan_launches, mamba.conv_launches
+    srv._step = step
+    replays = sum(g.replays for g in b.chunk_graphs.values())
+    layers = srv.mixers.count("mamba")
+    steps = eager[0] + replays * b.decode_chunk
+    # each Mamba layer launches one conv and one scan a step
+    assert replays > 0 and scans == convs == layers * steps, (
+        scans, convs, layers, eager[0], replays, b.stats)
+    same = sum(np.array_equal(done[r], srv.generate(p[None], n_new=12)[0]
+                              .cpu().numpy().astype(np.int64))
+               for r, p in zip(rids, prompts))
+    assert same >= len(prompts) - 1, (same, len(prompts))
+    print(f"phase 23 toy hybrid: {same} of {len(prompts)} greedy streams "
+          f"equal the solo server's; {eager[0]} eager steps and {replays} "
+          f"graph replays of {b.decode_chunk} steps; {scans} scan and "
+          f"{convs} conv launches, {layers} a step; stats {b.stats}")
+    res["launches"], res["conv_launches"] = scans, convs
+    return res
+
+
 def phase_done(name, since) -> float:
     """Print a phase's seconds; returns the time it ended."""
     now = time.perf_counter()
@@ -5638,7 +5813,12 @@ def main() -> int:
     # paths' programs under schedule_mode="auto" against "force", each
     # with the counters at 0 just before it ---------------------------
     cost_model = phase_cost_model(egt, gpu)
-    phase_done("22 (the cost model: calibration, auto against force)",
+    t_phase = phase_done("22 (the cost model: calibration, auto against "
+                         "force)", t_phase)
+
+    # 23. the Mamba kernels, and a hybrid through the batcher's graphs
+    mamba_run = phase_mamba(egt, gpu)
+    phase_done("23 (the Mamba kernels, a hybrid through the batcher)",
                t_phase)
     j_launches = path_j_run["launches"]
     flash_launches = {"forward": launches + path_g_run["launches"]["forward"]
@@ -5797,6 +5977,19 @@ def main() -> int:
                     "launches": path_l_run["b7"],
                     "device_ms_per_launch": path_l_run["b7_ms_per_launch"],
                     "busy": path_l_run["busy"]}),
+        dict(row("selective_scan", "exprgrad_torch/csrc/selective_scan.cu",
+                 "none (no state-space layer in the JAX package)",
+                 mamba_run["launches"], mamba_run["max_abs_err"],
+                 mamba_run["times"]["scan prefill"]["ms"],
+                 mamba_run["times"]["scan prefill"]["plain_ms"], None,
+                 (mamba_run["times"]["scan prefill"]["bound_ms"],
+                  mamba_run["times"]["scan prefill"]["bound_by"])),
+             shapes=mamba_run["times"],
+             conv={"launches": mamba_run["conv_launches"],
+                   "ms": mamba_run["times"]["conv prefill"]["ms"],
+                   "plain_ms": mamba_run["times"]["conv prefill"]["plain_ms"],
+                   "bound_ms": mamba_run["times"]["conv prefill"]["bound_ms"],
+                   "bound_by": mamba_run["times"]["conv prefill"]["bound_by"]}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

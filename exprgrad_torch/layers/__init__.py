@@ -66,7 +66,8 @@ from .dnn import (
     tanh,
     upsample2,
 )
-from .moe import moe_ffn
+from .mamba import mamba
+from .moe import moe_ffn, moe_swiglu_ffn
 from .recurrent import gru, lstm, rnn_tanh
 
 __all__ = [
@@ -76,7 +77,7 @@ __all__ = [
     "div_scalar",
     "dropout", "fused_attention", "gradient_descent", "huber",
     "l1_loss", "lion",
-    "moe_ffn",
+    "mamba", "moe_ffn", "moe_swiglu_ffn",
     "momentum", "multi_head_attention", "multi_head_cross_attention",
     "rope",
     "leaky_relu", "lora_dense", "matmul", "maximum_elems", "maxpool2",

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 from ..fun import Fun, extern, extern_grads, grad, layer, param
 
-__all__ = ["moe_ffn"]
+__all__ = ["moe_ffn", "moe_swiglu_ffn"]
 
 
 @layer
@@ -64,4 +64,45 @@ def moe_ffn(
                   grad(b2)],
             attrs=attrs,
         )
+    return out
+
+
+@layer
+def moe_swiglu_ffn(
+    x: Fun,
+    dim: int,
+    hidden: int,
+    n_experts: int,
+    k: int = 2,
+    init: float = 0.1,
+    prefix: str = "",
+) -> Fun:
+    """Top-k routed SwiGLU experts over ``[batch, seq, dim]`` inputs, with
+    no biases and no renormalization (Jamba's expert layer):
+    ``out = sum_j p_j * wd_e(silu(wg_e x) * wu_e x)`` over the top-k
+    experts ``e`` of ``p = softmax(x @ router)``.  Each expert runs only
+    on the tokens routed to it (``ops.moe.swiglu_routed``); the backward
+    is the extern ``moe_swiglu_grad``."""
+    if k < 1 or k > n_experts:
+        raise ValueError(
+            f"k must be in [1, n_experts={n_experts}], got {k}"
+        )
+    rng = (-init, init)
+    weights = [
+        param([dim, n_experts], init_range=rng, name=prefix + "moe.router"),
+        param([n_experts, dim, hidden], init_range=rng,
+              name=prefix + "moe.wg"),
+        param([n_experts, dim, hidden], init_range=rng,
+              name=prefix + "moe.wu"),
+        param([n_experts, hidden, dim], init_range=rng,
+              name=prefix + "moe.wd"),
+    ]
+    attrs = {"k": int(k)}
+    out = extern("moe_swiglu", [x] + weights, outs=1, attrs=attrs)
+    out.name = prefix + "moe_swiglu"
+    out.copy_shape(x)
+    with out.custom_grad():
+        extern_grads("moe_swiglu_grad", [x] + weights + [grad(out)],
+                     into=[grad(x)] + [grad(w) for w in weights],
+                     attrs=attrs)
     return out

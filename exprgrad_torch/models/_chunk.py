@@ -40,9 +40,22 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..ops import attention, mapreduce, matmul, paged_attention, rowchain
+from ..ops import (attention, mamba, mapreduce, matmul, paged_attention,
+                   rowchain)
 
-_COUNTED = (attention, matmul, mapreduce, rowchain, paged_attention)
+# (module, counter) of every kernel launch counter a step may advance
+_COUNTED = tuple((m, "launches") for m in (
+    attention, matmul, mapreduce, rowchain, paged_attention)) + (
+    (mamba, "scan_launches"), (mamba, "conv_launches"))
+
+
+def _counts() -> list:
+    return [getattr(m, name) for m, name in _COUNTED]
+
+
+def _add(counts) -> None:
+    for (m, name), n in zip(_COUNTED, counts):
+        setattr(m, name, getattr(m, name) + n)
 
 
 class Pending:
@@ -98,7 +111,7 @@ class ChunkGraph:
             steps(self.tok, self.pos, self.pos, table, temp, top_k, top_p,
                   n=1)
         stream.synchronize()
-        before = [m.launches for m in _COUNTED]
+        before = _counts()
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:
             if not hasattr(self.graph, "register_generator_state"):
@@ -115,10 +128,8 @@ class ChunkGraph:
                 self.tok.copy_(tok)
                 self.pos.copy_(pos)
         finally:
-            self.captured = [m.launches - b for m, b in zip(_COUNTED,
-                                                            before)]
-            for m, b in zip(_COUNTED, before):
-                m.launches = b
+            self.captured = [n - b for n, b in zip(_counts(), before)]
+            _add([-n for n in self.captured])
         torch.cuda.current_stream(device).wait_stream(stream)
 
     def launch(self, ints: np.ndarray, floats: np.ndarray, caches,
@@ -134,8 +145,7 @@ class ChunkGraph:
         self._inputs(ints, floats, chained)
         self.graph.replay()
         self.replays += 1
-        for m, n in zip(_COUNTED, self.captured):
-            m.launches += n
+        _add(self.captured)
         host = torch.empty(self.toks.shape, dtype=self.toks.dtype,
                            pin_memory=True)
         host.copy_(self.toks, non_blocking=True)

@@ -28,7 +28,14 @@ moment one frees up, so the card decodes a full batch every step:
   rewound: they are masked by position and overwritten by the next
   round's writes, as in the JAX package;
 * all scheduling state (queues, per-slot lengths, budgets, page tables)
-  is host numpy; the device only sees dense batched work.
+  is host numpy; the device only sees dense batched work;
+* a hybrid model's Mamba layers (``models.jamba``) keep a fixed-size
+  state a slot (``ops.mamba.MambaState``, allocated once beside the K/V
+  of its attention layers): admission prefills it from zero on a scratch
+  state at the prompt's true length and copies it into the slot, the
+  decode steps (a chunk graph's replays too) advance it in place, and a
+  preempted request is prefilled from zero again.  Prefix sharing,
+  speculative rounds and chunked prefill are refused for such a model.
 
 The JAX package compiles each piece once (``jit`` with buffer donation);
 here each piece is a method that runs eagerly and writes the caches in
@@ -70,6 +77,7 @@ import torch
 from .. import tracing
 from ..errors import ModelRuntimeError
 from ..ops.decode import KVCache
+from ..ops.mamba import MambaState
 from ..ops.paged import (gather_rows, gather_view, init_pool, write_prefill,
                          write_prefill_at, write_token)
 from ..utils.buckets import bucket_for, normalize_buckets
@@ -173,6 +181,10 @@ def _scratch_caches(pools, page_table_row, pre_len: int, extra: int):
     spare rows follow the gathered region."""
     minis = []
     for pool in pools:
+        if isinstance(pool, MambaState):  # a zero state
+            minis.append(MambaState(torch.zeros_like(pool.conv[:1]),
+                                    torch.zeros_like(pool.ssm[:1])))
+            continue
         kp, vp, kps, vps = gather_rows(pool, page_table_row)
         hkv, dev = kp.shape[1], kp.device
         pad = torch.zeros((1, hkv, extra, kp.shape[3]), dtype=pool.k.dtype,
@@ -232,6 +244,10 @@ def _make_paged_io(attention: str, page_table, wpid, woff):
         def view(pool):
             return gather_view(pool, page_table)
 
+    # where each row's K/V land: the trash page 0 for a parked row (a
+    # hybrid model's Mamba layers advance only the other rows)
+    _IO.wpid = wpid
+
     if attention == "flash":
         from ..ops.paged_attention import paged_decode_attention
 
@@ -244,10 +260,19 @@ def _make_paged_io(attention: str, page_table, wpid, woff):
     return _IO
 
 
+def _copy_state(big: MambaState, mini: MambaState, slot: int) -> None:
+    """A batch-1 scratch Mamba state into row ``slot`` (in place)."""
+    big.conv[slot] = mini.conv[0]
+    big.ssm[slot] = mini.ssm[0]
+
+
 def _write_slot_rows(caches, minis, slot: int) -> None:
     """Copy a batch-1 scratch cache's rows into row ``slot`` of the big
     dense caches (in place)."""
     for big, m in zip(caches, minis):
+        if isinstance(big, MambaState):
+            _copy_state(big, m, slot)
+            continue
         w = m.k.shape[2]
         big.k[slot, :, :w] = m.k[0]
         big.v[slot, :, :w] = m.v[0]
@@ -307,6 +332,17 @@ class ContinuousBatcher:
                 "attention='flash' is the paged-attention kernel; it "
                 "requires ContinuousBatcher(paged=True)")
         self.attention = attention
+        self._recurrent = server.recurrent
+        if self._recurrent:
+            self._counts0 = server.counts(wait=True)
+            what = [name for name, on in (
+                ("draft=", draft is not None), ("lookup=True", lookup),
+                ("prefill_chunk", prefill_chunk is not None)) if on]
+            if what:
+                raise ModelRuntimeError(
+                    f"{', '.join(what)}: not available for a model with "
+                    "Mamba layers, whose state cannot be rewound after a "
+                    "rejected proposal or resumed from a prompt chunk")
         if draft is not None:
             # speculative batching: greedy (exact streams) or temperature
             # sampling (the rejection scheme, the solo distributions)
@@ -451,7 +487,8 @@ class ContinuousBatcher:
                 init_pool(self.pool_pages + 1, server.kv_heads,
                           self.page_size, server.head_dim,
                           dtype=server.cache_dtype, device=self.device)
-                for _ in server.blocks
+                if kind == "attention" else server.init_state(self.slots)
+                for kind in server.mixers
             ]
             self.free_pages = list(range(1, self.pool_pages + 1))
             self.slot_pages: list[list[int]] = [[] for _ in range(slots)]
@@ -767,7 +804,7 @@ class ContinuousBatcher:
             write_prefill(pool, m, page_ids)
 
     def _admit_prefix(self, suffix, s_len: int, pre_len: int,
-                      page_table_row, own_pages, temp, tk, tp):
+                      page_table_row, own_pages, temp, tk, tp, row: int):
         """Paged admission tail: gather the slot's pages so far (pinned
         prefix + chunk-prefilled pages) as the front of a scratch cache,
         prefill the remaining suffix against it, pick the first token,
@@ -789,7 +826,10 @@ class ContinuousBatcher:
         first = _pick_first(self._row_pick, logits, s_len, self._gen, temp,
                             tk, tp)
         for pool, m in zip(self.caches, minis):
-            write_prefill_at(pool, m, own_pages, pre_len)
+            if isinstance(pool, MambaState):
+                _copy_state(pool, m, row)
+            else:
+                write_prefill_at(pool, m, own_pages, pre_len)
         return first
 
     def _prefill_chunk(self, tokens, pre_len: int, page_table_row,
@@ -945,6 +985,10 @@ class ContinuousBatcher:
         if not self.paged:
             raise ModelRuntimeError(
                 "prefix caching requires ContinuousBatcher(paged=True)")
+        if self._recurrent:
+            raise ModelRuntimeError(
+                "prefix sharing is not available for a model with Mamba "
+                "layers: a shared prefix's state is not kept")
         tokens = np.asarray(tokens, np.float32).reshape(-1)
         aligned = tokens.size // self.page_size * self.page_size
         if aligned < self.page_size:
@@ -1131,7 +1175,8 @@ class ContinuousBatcher:
         with _PrefillUnit(self, req, s, width_s, first=not req.out):
             first = int(self._admit_prefix(
                 suffix, s, req.consumed, self.page_table[slot].copy(),
-                np.asarray(own, np.int32), req.temp, req.top_k, req.top_p))
+                np.asarray(own, np.int32), req.temp, req.top_k, req.top_p,
+                slot))
         self._admitted += 1
         self.active[slot] = True
         self.pos[slot] = size
@@ -1629,7 +1674,17 @@ class ContinuousBatcher:
             out["window_evicted"] = self._window_evicted
             out["prefixes"] = len(self._prefixes)
             out["prefix_hits"] = self._prefix_hits
+        if self._recurrent:
+            out.update(self._hybrid_stats())
         return out
+
+    def _hybrid_stats(self) -> dict:
+        """A hybrid model's ``FlashLMServer.counts`` since this batcher
+        was built: what its steps ran, and any other call on the same
+        server meanwhile (read without waiting for the card: exact once
+        it is idle)."""
+        now = self.server.counts()
+        return {k: n - self._counts0[k] for k, n in now.items()}
 
 
 class Seq2SeqBatcher:

@@ -19,6 +19,11 @@ and the pieces the continuous batcher (``models/batcher.py``) drives:
 ``_embed_at`` and ``_ragged_positions``; and ``mesh=`` serving
 (Megatron-style tensor parallelism over ``"model"``, batches over
 ``"data"``; see ``FlashLMServer``).
+
+Hybrid models (``models.jamba.jamba_lm``: Mamba-1 and attention mixers,
+dense and routed-expert FFNs) are read layer by layer from their
+parameters' names and served by ``_step_hybrid``, chosen once at
+construction; see ``FlashLMServer``.
 """
 
 from __future__ import annotations
@@ -30,10 +35,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..errors import ModelRuntimeError
+from ..ops import mamba as mamba_ops
 from ..ops.attention import flash_attention_forward
 from ..ops.decode import (append, append_at, decode_attention, init_cache,
                           rewind)
+from ..ops.moe import swiglu, swiglu_dense_masked, swiglu_routed
 from ..quant import check_weight_dtype
 from ..utils.buckets import bucket_for, normalize_buckets
 from ._beam import beam_search_loop, replicate_caches
@@ -54,6 +62,42 @@ class _Block(NamedTuple):
     w2: torch.Tensor      # [hidden, dim]  (swiglu: the down matrix ffn.wd)
     b2: Optional[torch.Tensor]  # [dim]     (swiglu: None)
     w3: Optional[torch.Tensor] = None  # [dim, hidden] swiglu up matrix
+
+
+class _Attn(NamedTuple):
+    wq: torch.Tensor      # [h, dim, hd]
+    wk: torch.Tensor      # [hkv, dim, hd]
+    wv: torch.Tensor      # [hkv, dim, hd]
+    wo: torch.Tensor      # [h, hd, dim]
+
+
+class _Dense(NamedTuple):
+    wg: torch.Tensor      # [dim, hidden]
+    wu: torch.Tensor      # [dim, hidden]
+    wd: torch.Tensor      # [hidden, dim]
+
+
+class _Experts(NamedTuple):
+    router: torch.Tensor  # [dim, E]
+    wg: torch.Tensor      # [E, dim, hidden]
+    wu: torch.Tensor      # [E, dim, hidden]
+    wd: torch.Tensor      # [E, hidden, dim]
+
+
+class _Layer(NamedTuple):
+    """One layer of a hybrid model: its mixer (``_Attn`` or
+    ``ops.mamba.Mixer``) and its FFN (``_Dense`` or ``_Experts``), each
+    after its RMSNorm gain."""
+
+    mixer_g: torch.Tensor
+    mixer: tuple
+    ffn_g: torch.Tensor
+    ffn: tuple
+
+
+# what a hybrid model's steps ran (FlashLMServer.counts)
+HYBRID_COUNTS = ("scan_tokens", "scan_padded_tokens", "moe_routed_rows",
+                 "moe_computed_rows")
 
 
 class FlashLMServer:
@@ -87,6 +131,19 @@ class FlashLMServer:
     their batch over ``"data"`` and return it whole; ``prefill``/``decode``
     take this rank's rows.  A sampled token is model-rank 0's on every
     rank.
+
+    A hybrid model (``models.jamba.jamba_lm``: after each gain a mixer,
+    wq .. wo or mamba.in_proj .. mamba.out_proj, and an FFN, ffn.wg ..
+    ffn.wd or moe.router .. moe.wd) is read layer by layer (``blocks``
+    holds ``_Layer`` tuples, ``mixers`` each layer's kind) and served by
+    ``_step_hybrid``, bound at construction.  Its caches hold a K/V
+    cache for each attention layer and an ``ops.mamba.MambaState`` for
+    each Mamba layer, which prefill and decode advance in place (so they
+    are not functional: a call on an older cache continues from the
+    newer state).  Its context is ``jamba_lm``'s ``max_seq`` and its
+    norms' eps ``jamba_lm``'s (``eps`` is not read).  Beam search,
+    speculative and lookup decoding, int8 weights and ``mesh=`` are
+    refused for it.
     """
 
     def __init__(self, model, cache_dtype=None, eps: float = 1e-5,
@@ -121,6 +178,13 @@ class FlashLMServer:
         self.embed = take("embed")      # [vocab, dim]
         self.pos = take("pos") if seq and seq[0][0] == "pos" else None
         self.vocab, self.dim = self.embed.shape
+        self.prompt_buckets = None  # see set_prompt_buckets
+        # the first attention layer's cache carries the K/V length
+        self._kv0 = 0
+        self.recurrent = any(name.startswith("mamba.") for name, _ in seq)
+        if self.recurrent:
+            self._init_hybrid(model, seq, take)
+            return
 
         self.blocks: list[_Block] = []
         while len(seq) > 3:
@@ -152,6 +216,7 @@ class FlashLMServer:
                 "model has no transformer blocks (flash_transformer with "
                 "blocks >= 1 is required for KV-cache serving)"
             )
+        self.mixers = ("attention",) * len(self.blocks)
         attrs = [
             kern.extern.attrs
             for target in model.program.targets.values()
@@ -186,7 +251,6 @@ class FlashLMServer:
                 "model has neither a position table nor rope metadata; "
                 "cannot bound the serving context"
             )
-        self.prompt_buckets = None  # see set_prompt_buckets
         blk = self.blocks[0]
         self.heads, _, self.head_dim = blk.wq.shape
         self.kv_heads = blk.wk.shape[0]
@@ -209,6 +273,233 @@ class FlashLMServer:
         self._attn_split = self._ffn_split = self._head_split = False
         if mesh is not None:
             self._shard_weights()
+
+    # -- hybrid models (models/jamba.py) ---------------------------------
+    def _init_hybrid(self, model, seq, take) -> None:
+        """Read a hybrid model's layers: after each gain, a mixer (wq ..
+        wo, or mamba.in_proj .. mamba.out_proj) and an FFN (ffn.wg ..
+        ffn.wd, or moe.router .. moe.wd).  Its attention takes no
+        positions, and the context it serves is ``jamba_lm``'s
+        ``max_seq``; its norms take ``jamba_lm``'s eps.  Refused: int8
+        weights and a mesh."""
+        if self.weight_dtype is not None or self.mesh is not None:
+            raise ModelRuntimeError(
+                "a model with Mamba layers is served with full-precision "
+                "weights on one device (weight_dtype= and mesh= are not "
+                "supported for recurrent state)")
+        if self.pos is not None:
+            raise ModelRuntimeError(
+                "a hybrid model attends without positions; this one has "
+                "a position table")
+
+        def group(prefix: str, names) -> list:
+            return [take(prefix + n) for n in names]
+
+        layers = []
+        while len(seq) > 3:
+            mixer_g = take("rms.g")
+            if seq[0][0] == "wq":
+                mixer = _Attn(*group("", _Attn._fields))
+            else:
+                mixer = mamba_ops.Mixer(*group("mamba.",
+                                               mamba_ops.Mixer._fields))
+            ffn_g = take("rms.g")
+            if seq and seq[0][0] == "moe.router":
+                ffn = _Experts(*group("moe.", _Experts._fields))
+            else:
+                ffn = _Dense(*group("ffn.", _Dense._fields))
+            layers.append(_Layer(mixer_g, mixer, ffn_g, ffn))
+        self.final_g = take("rms.g")
+        self.w_head = take("weights")
+        self.b_head = take("bias")
+        if seq:
+            raise ModelRuntimeError(
+                f"{len(seq)} unconsumed parameters; not a jamba_lm model")
+        self.blocks = layers
+        self.mixers = tuple("attention" if isinstance(lay.mixer, _Attn)
+                            else "mamba" for lay in layers)
+        if "attention" not in self.mixers:
+            raise ModelRuntimeError("a hybrid model needs an attention layer")
+        self._kv0 = self.mixers.index("attention")
+        attn = self.blocks[self._kv0].mixer
+        self.heads, _, self.head_dim = attn.wq.shape
+        self.kv_heads = attn.wk.shape[0]
+        self.scale = 1.0 / math.sqrt(self.head_dim)
+        externs = [kern.extern for target in model.program.targets.values()
+                   for kern in target.kernels if kern.extern is not None]
+        seqs = {int(e.attrs.get("max_seq", 0)) for e in externs
+                if e.name == "attention"}
+        epss = {float(e.attrs["eps"]) for e in externs if e.name == "mamba"}
+        if len(seqs) != 1 or 0 in seqs or len(epss) != 1:
+            raise ModelRuntimeError(
+                "a hybrid model's attention must declare one max_seq and "
+                "its Mamba layers one eps (models.jamba.jamba_lm does)")
+        self.max_seq = seqs.pop()
+        self.eps = epss.pop()
+        self.window = None  # read by the batcher's page eviction
+        self.experts_k = next((int(e.attrs["k"]) for e in externs
+                               if e.name == "moe_swiglu"), 0)
+        self.experts = next((lay.ffn.router.shape[1] for lay in layers
+                             if isinstance(lay.ffn, _Experts)), 0)
+        # HYBRID_COUNTS, added on the device where the work is launched,
+        # so a CUDA graph's replays count; see counts()
+        self._tally = torch.zeros(len(HYBRID_COUNTS), dtype=torch.int64,
+                                  device=self.device)
+        self._counted = [0] * len(HYBRID_COUNTS)
+        self._step = self._step_hybrid
+
+    def counts(self, wait: bool = False) -> dict:
+        """What a hybrid model's steps ran since it was built, summed over
+        its layers: ``scan_tokens`` (row positions the Mamba layers' scans
+        advanced a state by), ``scan_padded_tokens`` (positions given to
+        a scan at or past a row's length: bucket padding and parked
+        decode rows, which no state sees), ``moe_routed_rows``
+        (token-expert pairs the routers chose for live tokens) and
+        ``moe_computed_rows`` (expert rows computed: the routed pairs in
+        prefill, every expert on every row in the in-place decode step).
+        Read without waiting for the card: while its stream is busy, the
+        values of the last read when it was idle (``wait`` waits)."""
+        dev = self._tally.device
+        if wait and dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        if dev.type != "cuda" or torch.cuda.current_stream(dev).query():
+            self._counted = self._tally.tolist()
+        return dict(zip(HYBRID_COUNTS, self._counted))
+
+    def init_state(self, batch: int) -> mamba_ops.MambaState:
+        """A zero Mamba state of ``batch`` rows (every Mamba layer's has
+        these sizes)."""
+        m = self.blocks[self.mixers.index("mamba")].mixer
+        d_inner, d_state = m.a_log.shape
+        return mamba_ops.init_state(batch, d_inner, m.conv_w.shape[1],
+                                    d_state, self.device)
+
+    def _refuse_recurrent(self, what: str) -> None:
+        if self.recurrent:
+            raise ModelRuntimeError(
+                f"{what} is not available for a model with Mamba layers: "
+                "their state advances in place and cannot be branched or "
+                "rewound")
+
+    def _step_hybrid(self, x, caches, pos_offset: int, key_pos=None,
+                     q_pos=None, row_starts=None, cache_io=None):
+        """``_step`` of a hybrid model: ``caches`` holds a KV cache (or
+        pool) for each attention layer and a ``MambaState`` for each
+        Mamba layer, which moves in place.  Each row's true length is
+        read from ``q_pos`` (a right-padded row's pad queries repeat its
+        last position) or, in the batcher's in-place decode step (a
+        ``cache_io`` or ``row_starts``), is 1 for every row the step
+        writes (the paged IO's write page is not the trash page 0).
+        Experts run on the tokens routed to them, pad tokens left out;
+        the in-place decode step runs them dense and masked, whose shapes
+        a CUDA graph can capture."""
+        b, t, _ = x.shape
+        in_place = cache_io is not None or row_starts is not None
+        if in_place:
+            wpid = getattr(cache_io, "wpid", None)
+            lens = (torch.ones(b, dtype=torch.int32, device=x.device)
+                    if wpid is None else (wpid != 0).to(torch.int32))
+        elif q_pos is not None:
+            lens = (q_pos[:, -1] - q_pos[:, 0] + 1).to(torch.int32)
+        else:
+            lens = torch.full((b,), t, dtype=torch.int32, device=x.device)
+        phase = "prefill" if t > 1 else "decode"
+        # each Mamba layer's and each MoE layer's share of counts()
+        live = lens.sum()
+        scan_rows = torch.stack((live, b * t - live))
+        routed = live * self.experts_k
+        moe_rows = torch.stack((routed, torch.full_like(
+            live, b * t * self.experts) if in_place else routed))
+        new_caches = []
+        for i, (layer, cache) in enumerate(zip(self.blocks, caches)):
+            rn = self._rms(x, layer.mixer_g)
+            if isinstance(layer.mixer, _Attn):
+                att, cache = self._attention(
+                    layer.mixer, rn, cache, key_pos, q_pos, row_starts,
+                    cache_io)
+                x = x + att
+            else:
+                with tracing.span("egt.server.mamba", layer=i, phase=phase,
+                                  rows=b, tokens=t):
+                    x = x + mamba_ops.mixer(rn, layer.mixer, cache, lens,
+                                            self.eps)
+                self._tally[:2].add_(scan_rows)
+            rn = self._rms(x, layer.ffn_g)
+            f = layer.ffn
+            if isinstance(f, _Dense):
+                x = x + swiglu(rn, *f)
+            elif in_place:
+                with tracing.span("egt.server.moe", layer=i, phase=phase,
+                                  rows=b, path="dense-masked"):
+                    x = x + swiglu_dense_masked(
+                        rn.reshape(b * t, -1), *f, self.experts_k
+                    ).reshape(x.shape)
+                self._tally[2:].add_(moe_rows)
+            else:
+                with tracing.span("egt.server.moe", layer=i, phase=phase,
+                                  rows=b, path="routed"):
+                    x = x + self._routed(rn, f, lens)
+                self._tally[2:].add_(moe_rows)
+            new_caches.append(cache)
+        return self._rms(x, self.final_g) @ self.w_head + self.b_head, \
+            new_caches
+
+    def _routed(self, rn, f: _Experts, lens):
+        """The experts on each row's tokens before its length (pad tokens
+        are routed nowhere and give 0)."""
+        b, t, dim = rn.shape
+        keep = (torch.arange(t, device=rn.device)[None, :]
+                < lens.long()[:, None]).reshape(-1)
+        flat = rn.reshape(b * t, dim)
+        out = torch.zeros_like(flat)
+        out[keep] = swiglu_routed(flat[keep], *f, self.experts_k)
+        return out.reshape(rn.shape)
+
+    def _attention(self, a: _Attn, rn, cache, key_pos, q_pos, row_starts,
+                   cache_io):
+        """A hybrid model's attention layer (no positions, no window)
+        over its cache: (output [b, t, dim], cache)."""
+        q = torch.einsum("ntc,hcd->nhtd", rn, a.wq)
+        k = torch.einsum("ntc,hcd->nhtd", rn, a.wk)
+        v = torch.einsum("ntc,hcd->nhtd", rn, a.wv)
+        att, cache = self._attend(q, k, v, cache, None, key_pos, q_pos,
+                                  row_starts, cache_io)
+        return torch.einsum("nhtd,hde->nte", att, a.wo), cache
+
+    def _attend(self, q, k, v, cache, window, key_pos, q_pos, row_starts,
+                cache_io, flash: bool = False):
+        """Append the fresh K/V ``k``, ``v`` [b, hkv, t, hd] to ``cache``
+        and attend ``q`` [b, h, t, hd] (rotated, where the model rotates)
+        over it: (att [b, h, t, hd], cache).  The storage and the masking
+        are ``_step``'s (``cache_io``, ``row_starts``, ``key_pos``,
+        ``q_pos``).  ``flash`` (a prefill from an empty cache on a mesh)
+        runs the flash kernel over the K/V as the cache holds them."""
+        att = None
+        if cache_io is not None:
+            cache = cache_io.append(cache, k, v)
+            if hasattr(cache_io, "attend"):
+                att = cache_io.attend(q, cache, self.scale, window, key_pos,
+                                      q_pos)
+            else:
+                view = cache_io.view(cache)
+        elif row_starts is None:
+            cache = view = append(cache, k, v)
+        else:
+            cache = view = append_at(cache, k, v, row_starts)
+        if att is None and flash and key_pos is None \
+                and row_starts is None and view.k_scale is None:
+            # prefill from an empty cache: the flash kernel on this
+            # rank's heads, over the K/V as the cache holds them
+            t = q.shape[2]
+            att = flash_attention_forward(
+                q.contiguous(), view.k[:, :, :t].to(q.dtype).contiguous(),
+                view.v[:, :, :t].to(q.dtype).contiguous(), self.scale,
+                True, window=window)[0]
+        if att is None:
+            att = decode_attention(q, view, sm_scale=self.scale,
+                                   window=window, key_pos=key_pos,
+                                   q_pos=q_pos)
+        return att, cache
 
     # -- multi-device serving (tensor-parallel weights, dp batches) ------
     def _shard_weights(self) -> None:
@@ -283,11 +574,16 @@ class FlashLMServer:
                 return size(w.codes) + size(w.scale)
             return w.numel() * w.element_size()
 
+        def leaves(x):
+            if isinstance(x, tuple) and not isinstance(x, QuantW):
+                return [w for part in x for w in leaves(part)]
+            return [x]
+
         tied = (isinstance(self.w_head, torch.Tensor)
                 and self.w_head.data_ptr() == self.embed.data_ptr())
         held = [self.final_g, self.b_head] + ([] if tied else [self.w_head])
         return sum(size(w) for w in held) + sum(
-            size(w) for blk in self.blocks for w in blk)
+            size(w) for blk in self.blocks for w in leaves(blk))
 
     def _dq(self, w):
         """A weight as the forward uses it: int8 codes dequantized to the
@@ -330,32 +626,9 @@ class FlashLMServer:
                                                         device=x.device)
                 q = self._rope_rotate(q, rot_pos)
                 k = self._rope_rotate(k, rot_pos)
-            att = None
-            if cache_io is not None:
-                cache = cache_io.append(cache, k, v)
-                if hasattr(cache_io, "attend"):
-                    att = cache_io.attend(q, cache, self.scale, self.window,
-                                          key_pos, q_pos)
-                else:
-                    view = cache_io.view(cache)
-            elif row_starts is None:
-                cache = view = append(cache, k, v)
-            else:
-                cache = view = append_at(cache, k, v, row_starts)
-            if att is None and self._attn_split and pos_offset == 0 \
-                    and key_pos is None and row_starts is None \
-                    and view.k_scale is None:
-                # prefill from an empty cache: the flash kernel on this
-                # rank's heads, over the K/V as the cache holds them
-                t = q.shape[2]
-                att = flash_attention_forward(
-                    q.contiguous(), view.k[:, :, :t].to(q.dtype).contiguous(),
-                    view.v[:, :, :t].to(q.dtype).contiguous(), self.scale,
-                    True, window=self.window)[0]
-            if att is None:
-                att = decode_attention(q, view, sm_scale=self.scale,
-                                       window=self.window, key_pos=key_pos,
-                                       q_pos=q_pos)
+            att, cache = self._attend(
+                q, k, v, cache, self.window, key_pos, q_pos, row_starts,
+                cache_io, flash=self._attn_split and pos_offset == 0)
             x = x + self._reduce(torch.einsum("nhtd,hde->nte", att,
                                               dq(blk.wo)), self._attn_split)
             rn2 = self._rms(x, blk.ffn_g)
@@ -430,11 +703,14 @@ class FlashLMServer:
 
     # -- public API ------------------------------------------------------
     def init_caches(self, batch: int, capacity: Optional[int] = None):
+        """A cache a layer: K/V of ``capacity`` rows for an attention
+        layer, a zero ``MambaState`` for a Mamba layer."""
         capacity = capacity or self.max_seq
         return [
             init_cache(batch, self.kv_heads, capacity, self.head_dim,
                        dtype=self.cache_dtype, device=self.device)
-            for _ in self.blocks
+            if kind == "attention" else self.init_state(batch)
+            for kind in self.mixers
         ]
 
     def prefill(self, tokens, caches):
@@ -448,7 +724,7 @@ class FlashLMServer:
         linearly; a call on an older cache copies the storage first
         (``ops.decode.append``'s copy on write)."""
         tokens = self._tokens(tokens)
-        start = caches[0].length
+        start = caches[self._kv0].length
         x = self._embed_tokens(tokens, start)
         return self._step(x, caches, start)
 
@@ -577,7 +853,7 @@ class FlashLMServer:
             elif i:
                 # the fresh K/V land at slot cache.length: mark it with
                 # the token's true position before attending
-                key_pos[:, caches[0].length] = cur
+                key_pos[:, caches[self._kv0].length] = cur
                 x = self._embed_at(tok[:, None], cur[:, None])
                 logits, caches = self._step(x, caches, 0, key_pos=key_pos,
                                             q_pos=cur[:, None])
@@ -683,6 +959,7 @@ class FlashLMServer:
         ``[batch*beams, ...]``).  ``stop_token`` finishes a beam: it stops
         accumulating score and pads with the stop token.  Uniform prompts
         only (``generate(lengths=...)`` serves ragged ones)."""
+        self._refuse_recurrent("beam search")
         prompt = self._tokens(prompt)
         batch, t = prompt.shape
         rows = self._tp and self._tp.rows(batch)
@@ -770,6 +1047,8 @@ class FlashLMServer:
         ``break_even`` (tokens per verify round) warns when the measured
         acceptance cannot pay for the draft: speculation wins only when
         ``n_new / target_steps > 1 + k * t_draft / t_plain``."""
+        self._refuse_recurrent("speculative decoding")
+        draft._refuse_recurrent("a speculative draft")
         prompt = self._tokens(prompt)
         batch, t = prompt.shape
         check_spec_args(batch, self.vocab, draft.vocab, k, n_new,
@@ -821,6 +1100,7 @@ class FlashLMServer:
         by a history match.  The output is always this model's greedy
         sequence; the lookup changes only the number of target steps.
         Returns ``(tokens [1, n_new] int32, target_steps)``."""
+        self._refuse_recurrent("lookup decoding")
         prompt = self._tokens(prompt)
         batch, t = prompt.shape
         check_spec_args(batch, self.vocab, self.vocab, k, n_new,

@@ -1,7 +1,7 @@
 """Built-in extern ops of the port: fused attention (forward + backward),
-and on import of this module the MoE (``ops/moe.py``) and recurrent
-(``ops/recurrent.py``) ops, so that ``registry.get_extern`` finds every
-built-in on its one lazy import.
+and on import of this module the MoE (``ops/moe.py``), Mamba
+(``ops/mamba.py``) and recurrent (``ops/recurrent.py``) ops, so that
+``registry.get_extern`` finds every built-in on its one lazy import.
 
 Counterpart of ``exprgrad_tpu/ops/externs.py``.  ``attention`` and
 ``attention_grad`` carry two implementations behind their ``impl``
@@ -104,5 +104,6 @@ def _attention_grad(args, attrs, ctx):
 register_extern("attention", 2, _attention)
 register_extern("attention_grad", 3, _attention_grad)
 
-from . import moe as _moe  # noqa: E402,F401  (registers moe/moe_grad)
+from . import mamba as _mamba  # noqa: E402,F401  (mamba/mamba_grad)
+from . import moe as _moe  # noqa: E402,F401  (moe, moe_swiglu and grads)
 from . import recurrent as _recurrent  # noqa: E402,F401  (lstm/gru/rnn)

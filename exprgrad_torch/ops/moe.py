@@ -1,4 +1,6 @@
-"""Mixture-of-experts FFN as an extern op (forward + backward).
+"""Mixture-of-experts FFNs as extern ops (forward + backward): ``moe``,
+the JAX package's relu experts, and ``moe_swiglu``, Jamba's SwiGLU
+experts (the second half of this module).
 
 The port's counterpart of ``exprgrad_tpu/ops/moe.py``: ``layers.moe_ffn``
 splices ``moe`` into a model through the extern seam, and symbolic
@@ -83,3 +85,95 @@ def _moe_grad(args, attrs, ctx):
 
 register_extern("moe", 1, _moe)
 register_extern("moe_grad", 6, _moe_grad)
+
+
+# --- SwiGLU experts, top-k without renormalization (Jamba's layer) -------
+#
+#     probs = softmax(x @ router)            # [tokens, E]
+#     idx   = top-k experts per token        # ties -> lowest index
+#     out   = sum_j probs[idx_j] * W2_e(silu(W1_e x) * (W3_e x))
+#
+# with bias-free experts wg (W1), wu (W3) [E, dim, hidden] and wd (W2)
+# [E, hidden, dim].  Two evaluations of the same sum: ``swiglu_routed``
+# sorts the token-expert pairs by expert and runs each expert once, on
+# the tokens routed to it (the DSL op and the server's prefill); and
+# ``swiglu_dense_masked`` runs every expert on every row and weighs them
+# by the routing mask, whose shapes do not depend on the routing (the
+# server's decode step inside a CUDA graph).  Both compute in the
+# inputs' dtype.
+
+
+def route_top(x, router, k: int):
+    """(experts [tokens, k], their probabilities [tokens, k]) of ``x``
+    [tokens, dim], by a stable descending sort (ties to the lowest
+    index) and without renormalization."""
+    probs = torch.softmax(x @ router, dim=-1)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return order[:, :k], vals[:, :k]
+
+
+def swiglu(x, wg, wu, wd):
+    """One bias-free SwiGLU: ``(silu(x @ wg) * (x @ wu)) @ wd``."""
+    g = x @ wg
+    return (g / (1.0 + torch.exp(-g)) * (x @ wu)) @ wd
+
+
+def swiglu_routed(x, router, wg, wu, wd, k: int):
+    """The layer's output for ``x`` [tokens, dim]: each expert computed
+    only on the tokens routed to it (one read of the counts to the
+    host)."""
+    idx, weight = route_top(x, router, k)
+    experts = idx.reshape(-1)
+    order = torch.argsort(experts, stable=True)
+    token = order // k
+    counts = torch.bincount(experts, minlength=wg.shape[0]).tolist()
+    out = torch.zeros_like(x)
+    start = 0
+    for e, count in enumerate(counts):
+        if count:
+            pick = order[start:start + count]
+            rows = token[start:start + count]
+            y = swiglu(x[rows], wg[e], wu[e], wd[e])
+            out = out.index_add(0, rows, y * weight.reshape(-1)[pick, None])
+        start += count
+    return out
+
+
+def swiglu_dense_masked(x, router, wg, wu, wd, k: int):
+    """The same output with every expert computed on every row of ``x``
+    [rows, dim] and weighed by the routing mask (0 off the top k): the
+    shapes are fixed, so a CUDA graph can capture it."""
+    idx, weight = route_top(x, router, k)
+    mask = torch.zeros((x.shape[0], wg.shape[0]), dtype=x.dtype,
+                       device=x.device).scatter(1, idx, weight)
+    g = torch.matmul(x, wg)                           # [E, rows, hidden]
+    h = g / (1.0 + torch.exp(-g)) * torch.matmul(x, wu)
+    return torch.einsum("re,erd->rd", mask, torch.bmm(h, wd))
+
+
+def _moe_swiglu(args, attrs, ctx):
+    x, router, wg, wu, wd = args
+    ct = compute_dtype(x.dtype)
+    flat = x.reshape(-1, x.shape[-1]).to(ct)
+    out = swiglu_routed(flat, *(w.to(ct) for w in (router, wg, wu, wd)),
+                        _k_of(attrs))
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def _moe_swiglu_grad(args, attrs, ctx):
+    *inputs, g = args
+    ct = compute_dtype(inputs[0].dtype)
+    with torch.enable_grad():
+        leaves = [a.detach().to(ct).requires_grad_(True) for a in inputs]
+        x = leaves[0]
+        out = swiglu_routed(x.reshape(-1, x.shape[-1]), *leaves[1:],
+                            _k_of(attrs))
+        grads = torch.autograd.grad(out, leaves,
+                                    g.to(ct).reshape(out.shape),
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(a) if d is None else d.to(a.dtype)
+                 for a, d in zip(inputs, grads))
+
+
+register_extern("moe_swiglu", 1, _moe_swiglu)
+register_extern("moe_swiglu_grad", 5, _moe_swiglu_grad)

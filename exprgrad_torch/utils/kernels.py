@@ -97,6 +97,11 @@ _SIGNATURES = {
     # q_dtype, kv_dtype, stream
     "egt_paged_decode": [_P] * 10 + [_I] * 8 + [ctypes.c_float]
                         + [_I] * 6 + [_P],
+    # x, w, bias, state, lengths, out, b, t, d, k, x_sb, x_st, stream
+    "egt_mamba_conv": [_P] * 6 + [_I] * 6 + [_P],
+    # x, dt, z, B, C, a_log, D, dt_bias, state, lengths, y, b, t, d, n,
+    # x_sb, x_st, z_sb, z_st, stream
+    "egt_mamba_scan": [_P] * 11 + [_I] * 8 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
