@@ -8,7 +8,8 @@ recurrent models, export, load and profile a model, decode in
 chunks and pipelined chunks, each chunk one CUDA graph replay, and run
 the parallel layer: tensor-parallel serving and batching, sharded
 training, sequence-parallel attention and sharded checkpoints, and run
-the Mamba-1 kernels and a hybrid Mamba/attention/expert model.
+the Mamba-1 kernels and a hybrid Mamba/attention/expert model, and the
+decode step's weight products on the weight-streaming kernel.
 
     python3 chip_smoke.py
 
@@ -248,6 +249,18 @@ Phases (any failed check raises and the script exits non-zero):
    run and each equal after it to the Mamba layers times the steps run
    (eager, and the chunk graphs' replays times their steps); the
    kernels row reports the scan's launches, its conv entry the conv's.
+24. the decode step's weight products on the weight-streaming kernel
+   (csrc/gemm_skinny_sm90.cu, ops.matmul.weight_product): a toy dense
+   SwiGLU model (2 blocks, heads of 128) through ContinuousBatcher(paged,
+   flash, decode_chunk 4) on the card, whose greedy streams equal the
+   same batcher's on the CPU but at near-ties, with every decode product
+   on the kernel (15 a step, eager warm-ups and replays; none declined);
+   then the kernel alone at each of the chat cells' 13 decode products
+   (``DECODE_GEMMS``: heads in and out, the grouped experts with a
+   shared and an own X, the Mamba projections, both heads) at 1, 23 and
+   32 rows, each within rtol = atol = 1e-5 of float64 and the same bits
+   twice, and at Mistral-7B's w1 at 32 rows timed beside torch.matmul
+   and the bound.
 
 B1-B4 compute float32 on the tensor cores as split TF32 and are held
 to the same tolerances as the float32 kernels before them
@@ -1658,6 +1671,45 @@ CELL_GEMMS = (
     ("o dW", "ace,abcd->bde", (1, _T, _D), (1, _H, _T, _HD)),
     ("o dX", "ace,bde->abcd", (1, _T, _D), (_H, _HD, _D)),
 )
+# every float32 weight product of a decode step of portbench's two chat
+# cells (Mistral-7B-v0.1 and AI21-Jamba2-Mini at published widths), as
+# ``ops.matmul.weight_product`` takes it: (label, x's shape with ROWS
+# where the step's rows go, the weight's shape, the einsum or None for
+# torch.matmul, the products a decode step of mistral7b.chat runs, those
+# of jamba2mini.chat: 7 Mamba layers, 1 attention layer, 4 dense and 4
+# expert FFNs); Jamba's attention and dense FFN have Mistral's widths
+ROWS = -1
+_HEADS_IN, _HEADS_OUT = "ntc,hcd->nhtd", "nhtd,hde->nte"
+DECODE_GEMMS = (
+    ("mistral wq", (ROWS, 1, 4096), (32, 4096, 128), _HEADS_IN, 32, 1),
+    ("mistral wk/wv", (ROWS, 1, 4096), (8, 4096, 128), _HEADS_IN, 64, 2),
+    ("mistral wo", (ROWS, 32, 1, 128), (32, 128, 4096), _HEADS_OUT, 32, 1),
+    ("mistral w1/w3", (ROWS, 1, 4096), (4096, 14336), None, 64, 8),
+    ("mistral w2", (ROWS, 1, 14336), (14336, 4096), None, 32, 4),
+    ("mistral head", (ROWS, 1, 4096), (4096, 32000), None, 1, 0),
+    ("jamba in_proj", (ROWS, 1, 4096), (4096, 16384), None, 0, 7),
+    ("jamba x_proj", (ROWS, 1, 8192), (8192, 288), None, 0, 7),
+    ("jamba dt_proj", (ROWS, 1, 256), (256, 8192), None, 0, 7),
+    ("jamba out_proj", (ROWS, 1, 8192), (8192, 4096), None, 0, 7),
+    ("jamba experts wg/wu, shared x", (ROWS, 4096), (16, 4096, 14336),
+     None, 0, 8),
+    ("jamba experts wd, own x", (16, ROWS, 14336), (16, 14336, 4096), None,
+     0, 4),
+    ("jamba head", (ROWS, 1, 4096), (4096, 65536), None, 0, 1),
+)
+
+
+def decode_x_shape(x_shape, m) -> tuple:
+    """A ``DECODE_GEMMS`` x shape at ``m`` rows."""
+    return tuple(m if d == ROWS else d for d in x_shape)
+
+
+def decode_weight(shape, dev, gen=None) -> torch.Tensor:
+    """A weight uniform at the configurations' standard deviation 0.02."""
+    return (torch.rand(shape, device=dev, generator=gen) - 0.5) * (
+        0.02 * math.sqrt(12))
+
+
 # ragged m, n and k (a tile's guarded edges) and a batch of three
 RAGGED_GEMMS = (
     ("ragged nn", "abc,cd->abd", (1, 200, 77), (77, 333)),
@@ -5441,6 +5493,115 @@ def phase_mamba(egt, gpu) -> dict:
     return res
 
 
+def phase_skinny(egt, gpu) -> dict:
+    """Phase 24: the weight-streaming kernel (csrc/gemm_skinny_sm90.cu)
+    under a toy dense model's continuous batcher on the card (paged,
+    flash, decode_chunk 4: every decode step inside a chunk graph's
+    replays).  Every decode weight product runs on the kernel (15 a step:
+    q, k, v, o and the SwiGLU's three in each of 2 blocks, and the head;
+    the prompts' prefills are wider than 32 rows and stay on
+    torch.matmul), none is declined, and the greedy float32-cache
+    streams equal the same batcher's eager run on the CPU but at
+    near-ties.  Then the kernel alone at each of ``DECODE_GEMMS`` at 1,
+    23 and 32 rows (fewer rows than the tile's 32 are read as zeros):
+    within rtol = atol = 1e-5 of float64 (``weight_product_plain``), the
+    same bits twice, one launch a call and none declined; the kernels
+    row's ``tol_share`` gives each product's largest error as a share of
+    that tolerance.  Last, Mistral-7B's w1 [4096, 14336] at 32 rows
+    timed beside torch.matmul and the bound."""
+    from exprgrad_torch.models import ContinuousBatcher, FlashLMServer
+    from exprgrad_torch.ops import matmul
+
+    graph = egt.models.flash_transformer(
+        vocab=384, dim=256, heads=2, kv_heads=1, hidden=512, blocks=2,
+        max_seq=160, rope=True, ffn="swiglu")
+    card = egt.compile(graph, seed=24, device="cuda")
+    host = {t: v.cpu().numpy() for t, v in card.params.items()}
+    cpu = egt.from_state(graph, host, {t: v.cpu().numpy() for t, v in
+                                       card.caches.items()}, card.epoch,
+                         device="cpu")
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(0, 384, int(m)).astype(np.float32)
+               for m in rng.integers(33, 90, 10)]
+    kw = dict(slots=8, capacity=160, paged=True, page_size=16,
+              pool_pages=80, attention="flash", decode_chunk=4)
+    streams = {}
+    for where, model in (("cuda", card), ("cpu", cpu)):
+        srv = FlashLMServer(model, cache_dtype=torch.float32)
+        b = ContinuousBatcher(srv, **kw)
+        rids = [b.submit(q, 24) for q in prompts]
+        done = b.run()
+        streams[where] = [np.asarray(done[r]) for r in rids]
+        if where == "cuda":
+            torch.cuda.synchronize()
+            stats = b.stats
+            replays = sum(g.replays for g in b.chunk_graphs.values())
+            graphs = len(b.chunk_graphs)
+        else:
+            cpu_srv = srv
+    steps = replays * kw["decode_chunk"] + graphs  # a warm-up step a graph
+    assert replays > 0 and stats["skinny_declined"] == 0, stats
+    assert stats["skinny_launches"] == 15 * steps, (stats, replays, graphs)
+    parted = _parted_at_near_ties(cpu_srv, prompts, streams["cpu"],
+                                  streams["cuda"], "phase 24")
+    print(f"phase 24 toy batcher: {len(prompts) - len(parted)} of "
+          f"{len(prompts)} greedy streams equal the CPU's; {replays} "
+          f"replays of {kw['decode_chunk']} steps and {graphs} warm-up "
+          f"steps, {stats['skinny_launches']} kernel launches (15 a step),"
+          f" {stats['skinny_declined']} declined")
+
+    # the kernel alone at every decode product of the chat cells
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    shapes, err, w1 = {}, 0.0, None
+    for label, xs, ws, spec, *_ in DECODE_GEMMS:
+        w = decode_weight(ws, dev, gen)
+        worst = 0.0
+        for m in (1, 23, 32):
+            x = torch.randn(decode_x_shape(xs, m), device=dev, generator=gen)
+            launches, declined = matmul.skinny_launches, matmul.skinny_declined
+            got = matmul.weight_product(x, w, spec)
+            again = matmul.weight_product(x, w, spec)
+            torch.cuda.synchronize()
+            assert (matmul.skinny_launches - launches,
+                    matmul.skinny_declined) == (2, declined), (label, m)
+            assert torch.equal(got, again), (label, m)
+            want = matmul.weight_product_plain(x.double(), w, spec)
+            torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                                       atol=1e-5, msg=f"{label} m {m}")
+            diff = (got.double() - want).abs()
+            err = max(err, float(diff.max()))
+            worst = max(worst, float((diff / (1e-5 + 1e-5 * want.abs()))
+                                     .max()))
+            del got, again, want, diff
+        shapes[label] = worst
+        print(f"phase 24 weight_product {label} ({spec or 'matmul'} "
+              f"{list(decode_x_shape(xs, 32))} x {list(ws)}) at 1, 23 and "
+              f"32 rows: the same bits twice, largest error {worst:.3f} of "
+              f"rtol = atol = 1e-5")
+        if label == "mistral w1/w3":
+            w1 = w
+        del w, x
+        torch.cuda.empty_cache()
+
+    # timed at Mistral-7B's w1, 32 rows
+    x = torch.randn(32, 1, 4096, device=dev, generator=gen)
+    ms = cuda_ms(lambda: matmul.weight_product(x, w1), iters=20, warmup=3)
+    library = cuda_ms(lambda: x @ w1, iters=20, warmup=3)
+    plain = cuda_ms(lambda: matmul.weight_product_plain(x, w1), iters=2,
+                    warmup=1)
+    least = bound(2 * 32 * 4096 * 14336, 4 * (4096 * 14336 + 32 * 4096
+                                              + 32 * 14336), **SPLIT_TF32)
+    print(f"phase 24 weight_product [32, 4096] x [4096, 14336]: {ms:.4f} "
+          f"ms, bound {least[0]:.4f} ms ({least[1]}), "
+          f"{100 * least[0] / ms:.1f}% of it; torch.matmul {library:.4f} "
+          f"ms, the plain twin {plain:.3f} ms; max abs err over the "
+          f"{len(DECODE_GEMMS)} products {err:.3g}; on {gpu}")
+    return {"launches": stats["skinny_launches"], "max_abs_err": err,
+            "shapes": shapes, "ms": ms, "plain_ms": plain,
+            "library_ms": library, "bound": least, "parted": len(parted)}
+
+
 def phase_done(name, since) -> float:
     """Print a phase's seconds; returns the time it ended."""
     now = time.perf_counter()
@@ -5818,7 +5979,13 @@ def main() -> int:
 
     # 23. the Mamba kernels, and a hybrid through the batcher's graphs
     mamba_run = phase_mamba(egt, gpu)
-    phase_done("23 (the Mamba kernels, a hybrid through the batcher)",
+    t_phase = phase_done("23 (the Mamba kernels, a hybrid through the "
+                         "batcher)", t_phase)
+
+    # 24. the decode step's weight products on the weight-streaming
+    # kernel, through a toy batcher's chunk graphs
+    skinny_run = phase_skinny(egt, gpu)
+    phase_done("24 (the weight-streaming kernel through the batcher)",
                t_phase)
     j_launches = path_j_run["launches"]
     flash_launches = {"forward": launches + path_g_run["launches"]["forward"]
@@ -5990,6 +6157,12 @@ def main() -> int:
                    "plain_ms": mamba_run["times"]["conv prefill"]["plain_ms"],
                    "bound_ms": mamba_run["times"]["conv prefill"]["bound_ms"],
                    "bound_by": mamba_run["times"]["conv prefill"]["bound_by"]}),
+        dict(row("weight_product", "exprgrad_torch/csrc/gemm_skinny_sm90.cu",
+                 "none (the serving step's jnp matmuls, left to XLA)",
+                 skinny_run["launches"], skinny_run["max_abs_err"],
+                 skinny_run["ms"], skinny_run["plain_ms"],
+                 skinny_run["library_ms"], skinny_run["bound"]),
+             tol_share=skinny_run["shapes"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -60,6 +60,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
 #include "tf32x3.cuh"
 
 namespace egt_sm90 {
@@ -130,94 +131,6 @@ __device__ __forceinline__ long long axes_offset(const Axes& a, int i) {
     i = q;
   }
   return off;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Spin until the barrier's phase of parity `phase` has completed.  The
-// loop is PTX's own, so the compiler sees no divergent path while a
-// consumer's wgmmas are in flight (it would serialize them).  A wait
-// that outlasts 2^26 tries (seconds; a stage takes microseconds) traps,
-// so a fault in the ring ends the launch with an error instead of
-// holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      ".reg .u32 tries;\n"
-      "mov.u32 tries, 0;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "add.u32 tries, tries, 1;\n"
-      "setp.lt.u32 p, tries, %2;\n"
-      "@p bra WAIT;\n"
-      "trap;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(phase), "n"(1 << 26)
-      : "memory");
-}
-
-// One TMA load of a 4-D box {kBK, rows, 1, 2} (k, rows, batch, plane) at
-// (k, row, b, 0): a tile's big and small planes, completion on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int k, int row,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(k), "r"(row), "r"(b),
-      "r"(0)
-      : "memory");
-}
-
-// A wgmma descriptor of a K-major operand in 128-byte swizzled rows: the
-// start address, stride 1024 bytes between 8-row groups, layout 1
-// (128-byte swizzle).  A k offset inside the 128-byte row is added to the
-// address, as the swizzle is applied to the address the wgmma forms.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of the accumulator
-// registers across a wgmma's issue or its wait.
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= a . b: one m64n128k8 TF32 wgmma, A and B K-major in shared memory
@@ -292,11 +205,6 @@ __device__ __forceinline__ void issue_stage(float (&part)[64], uint32_t a0,
     wgmma_tf32(part, a_big, b_big, 1);
   }
   wgmma_commit();
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void add_part(float (&acc)[64],
@@ -380,9 +288,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_wait(&empty[s], phase ^ 1);
           uint8_t* stage = smem + s * kStageBytes;
           mbar_expect_tx(&full[s], kStageBytes);
-          tma_load(stage, &map_a, &full[s], kt * kBK, mt * kBM, b);
-          tma_load(stage + 2 * kPlaneA, &map_b, &full[s], kt * kBK,
-                   nt * kBN, b);
+          tma_load_4d(stage, &map_a, &full[s], kt * kBK, mt * kBM, b, 0);
+          tma_load_4d(stage + 2 * kPlaneA, &map_b, &full[s], kt * kBK,
+                      nt * kBN, b, 0);
           if (++s == kStages) {
             s = 0;
             phase ^= 1;
@@ -498,33 +406,6 @@ __global__ void __launch_bounds__(256) split_kernel(const SplitArgs p) {
     p.out[at] = __uint_as_float(big);
     p.out[plane + at] = __uint_as_float(small);
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link
-// against libcuda); null where it is not found.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The tensor map of split planes [2][batch][rows][kp] with k valid

@@ -43,10 +43,12 @@ from .. import tracing
 from ..ops import (attention, mamba, mapreduce, matmul, paged_attention,
                    rowchain)
 
-# (module, counter) of every kernel launch counter a step may advance
+# (module, counter) of every kernel launch counter a step may advance,
+# and of the weight products a step sent to torch
 _COUNTED = tuple((m, "launches") for m in (
     attention, matmul, mapreduce, rowchain, paged_attention)) + (
-    (mamba, "scan_launches"), (mamba, "conv_launches"))
+    (mamba, "scan_launches"), (mamba, "conv_launches"),
+    (matmul, "skinny_launches"), (matmul, "skinny_declined"))
 
 
 def _counts() -> list:

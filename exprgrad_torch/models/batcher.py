@@ -76,6 +76,7 @@ import torch
 
 from .. import tracing
 from ..errors import ModelRuntimeError
+from ..ops import matmul
 from ..ops.decode import KVCache
 from ..ops.mamba import MambaState
 from ..ops.paged import (gather_rows, gather_view, init_pool, write_prefill,
@@ -332,6 +333,7 @@ class ContinuousBatcher:
                 "attention='flash' is the paged-attention kernel; it "
                 "requires ContinuousBatcher(paged=True)")
         self.attention = attention
+        self._skinny0 = (matmul.skinny_launches, matmul.skinny_declined)
         self._recurrent = server.recurrent
         if self._recurrent:
             self._counts0 = server.counts(wait=True)
@@ -1654,7 +1656,11 @@ class ContinuousBatcher:
         preemption), ``prefill_padded_tokens`` (bucket width minus those,
         prefilled as padding) and ``decode_tokens`` (tokens the decode
         dispatches emitted; a request's first token, and a preempted
-        one's next, are admission's)."""
+        one's next, are admission's); ``skinny_launches`` and
+        ``skinny_declined`` (``ops.matmul``'s weight products of at most
+        32 rows on the weight-streaming kernel, and those it sent to
+        torch, since this batcher was built: every such product of the
+        process, a chunk graph's replays counting what they ran)."""
         out = {
             "decode_steps": self._steps,
             "dispatches": self._dispatches,
@@ -1663,6 +1669,8 @@ class ContinuousBatcher:
             "prefill_tokens": self._prefill_tokens,
             "prefill_padded_tokens": self._prefill_padded,
             "decode_tokens": self._decode_tokens,
+            "skinny_launches": matmul.skinny_launches - self._skinny0[0],
+            "skinny_declined": matmul.skinny_declined - self._skinny0[1],
         }
         if self._spec:
             out["spec_rounds"] = self._spec_rounds

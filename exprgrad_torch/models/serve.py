@@ -41,6 +41,7 @@ from ..ops import mamba as mamba_ops
 from ..ops.attention import flash_attention_forward
 from ..ops.decode import (append, append_at, decode_attention, init_cache,
                           rewind)
+from ..ops.matmul import HEADS_IN, HEADS_OUT, weight_product
 from ..ops.moe import swiglu, swiglu_dense_masked, swiglu_routed
 from ..quant import check_weight_dtype
 from ..utils.buckets import bucket_for, normalize_buckets
@@ -441,8 +442,8 @@ class FlashLMServer:
                     x = x + self._routed(rn, f, lens)
                 self._tally[2:].add_(moe_rows)
             new_caches.append(cache)
-        return self._rms(x, self.final_g) @ self.w_head + self.b_head, \
-            new_caches
+        return weight_product(self._rms(x, self.final_g), self.w_head) \
+            + self.b_head, new_caches
 
     def _routed(self, rn, f: _Experts, lens):
         """The experts on each row's tokens before its length (pad tokens
@@ -459,12 +460,12 @@ class FlashLMServer:
                    cache_io):
         """A hybrid model's attention layer (no positions, no window)
         over its cache: (output [b, t, dim], cache)."""
-        q = torch.einsum("ntc,hcd->nhtd", rn, a.wq)
-        k = torch.einsum("ntc,hcd->nhtd", rn, a.wk)
-        v = torch.einsum("ntc,hcd->nhtd", rn, a.wv)
+        q = weight_product(rn, a.wq, HEADS_IN)
+        k = weight_product(rn, a.wk, HEADS_IN)
+        v = weight_product(rn, a.wv, HEADS_IN)
         att, cache = self._attend(q, k, v, cache, None, key_pos, q_pos,
                                   row_starts, cache_io)
-        return torch.einsum("nhtd,hde->nte", att, a.wo), cache
+        return weight_product(att, a.wo, HEADS_OUT), cache
 
     def _attend(self, q, k, v, cache, window, key_pos, q_pos, row_starts,
                 cache_io, flash: bool = False):
@@ -615,9 +616,9 @@ class FlashLMServer:
         new_caches = []
         for blk, cache in zip(self.blocks, caches):
             rn = self._rms(x, blk.attn_g)
-            q = torch.einsum("ntc,hcd->nhtd", rn, dq(blk.wq))
-            k = torch.einsum("ntc,hcd->nhtd", rn, dq(blk.wk))
-            v = torch.einsum("ntc,hcd->nhtd", rn, dq(blk.wv))
+            q = weight_product(rn, dq(blk.wq), HEADS_IN)
+            k = weight_product(rn, dq(blk.wk), HEADS_IN)
+            v = weight_product(rn, dq(blk.wv), HEADS_IN)
             if self.rope_base is not None:
                 if q_pos is not None:   # true per-sequence positions
                     rot_pos = q_pos
@@ -629,19 +630,22 @@ class FlashLMServer:
             att, cache = self._attend(
                 q, k, v, cache, self.window, key_pos, q_pos, row_starts,
                 cache_io, flash=self._attn_split and pos_offset == 0)
-            x = x + self._reduce(torch.einsum("nhtd,hde->nte", att,
-                                              dq(blk.wo)), self._attn_split)
+            x = x + self._reduce(weight_product(att, dq(blk.wo), HEADS_OUT),
+                                 self._attn_split)
             rn2 = self._rms(x, blk.ffn_g)
             if blk.w3 is not None:  # swiglu: silu(gate) * up, no biases
-                g = rn2 @ dq(blk.w1)
-                h = g / (1.0 + torch.exp(-g)) * (rn2 @ dq(blk.w3))
-                x = x + self._reduce(h @ dq(blk.w2), self._ffn_split)
+                g = weight_product(rn2, dq(blk.w1))
+                h = g / (1.0 + torch.exp(-g)) * weight_product(rn2,
+                                                               dq(blk.w3))
+                x = x + self._reduce(weight_product(h, dq(blk.w2)),
+                                     self._ffn_split)
             else:
-                h = torch.relu(rn2 @ dq(blk.w1) + blk.b1)
-                x = x + self._reduce(h @ dq(blk.w2), self._ffn_split) \
-                    + blk.b2
+                h = torch.relu(weight_product(rn2, dq(blk.w1)) + blk.b1)
+                x = x + self._reduce(weight_product(h, dq(blk.w2)),
+                                     self._ffn_split) + blk.b2
             new_caches.append(cache)
-        logits = self._rms(x, self.final_g) @ dq(self.w_head) + self.b_head
+        logits = weight_product(self._rms(x, self.final_g),
+                                dq(self.w_head)) + self.b_head
         if self._head_split:
             logits = self._tp.gather_last(logits, True)
         return logits, new_caches

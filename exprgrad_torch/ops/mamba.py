@@ -32,8 +32,10 @@ The state ``s`` [d_inner, d_state] and the conv window (the last
   its kernel (``csrc/selective_scan.cu``) or raises; on a CPU tensor it
   runs its plain twin, :func:`causal_conv_plain` and
   :func:`selective_scan_plain`, which is also what the kernels are
-  checked against on the card (chip_smoke.py).  The two matrix products
-  between them (``x_proj``, ``dt_proj``) and the inner norms are torch's.
+  checked against on the card (chip_smoke.py).  The mixer's four weight
+  products (``in_proj``, ``x_proj``, ``dt_proj``, ``out_proj``) go
+  through ``ops.matmul.weight_product`` (the weight-streaming kernel at
+  a decode step's few rows); the inner norms are torch's.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 from ..errors import ModelRuntimeError
 from ..registry import register_extern
 from ..utils import kernels
+from .matmul import weight_product
 from .moe import compute_dtype
 
 # kernel launches since the last reset (a CUDA graph's replays count the
@@ -251,8 +254,8 @@ class Mixer(NamedTuple):
 def _inner(p: Mixer, xc, eps: float):
     """(dt before its bias, B, C) of the conv's outputs."""
     rank, n = p.dt_proj.shape[0], p.a_log.shape[1]
-    dbc = xc @ p.x_proj
-    dt = rms(dbc[..., :rank], p.dt_norm, eps) @ p.dt_proj
+    dbc = weight_product(xc, p.x_proj)
+    dt = weight_product(rms(dbc[..., :rank], p.dt_norm, eps), p.dt_proj)
     return (dt, rms(dbc[..., rank:rank + n], p.b_norm, eps),
             rms(dbc[..., rank + n:], p.c_norm, eps))
 
@@ -262,12 +265,12 @@ def mixer(u, p: Mixer, state: MambaState, lengths, eps: float):
     in place to each row's ``lengths``), through :func:`causal_conv` and
     :func:`selective_scan` (float32)."""
     di = p.d.shape[0]
-    xz = u @ p.in_proj
+    xz = weight_product(u, p.in_proj)
     xc = causal_conv(xz[..., :di], p.conv_w, p.conv_b, state.conv, lengths)
     dt, B, C = _inner(p, xc, eps)
     y = selective_scan(xc, dt, xz[..., di:], B, C, p.a_log, p.d, p.dt_bias,
                        state.ssm, lengths)
-    return y @ p.out_proj
+    return weight_product(y, p.out_proj)
 
 
 def mixer_plain(u, p: Mixer, eps: float):

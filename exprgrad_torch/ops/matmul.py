@@ -687,3 +687,287 @@ def contract(a: torch.Tensor, b: torch.Tensor, plan: GemmPlan, out_shape,
         raise ValueError(f"no contraction kernel for {a.device}")
     return _CONTRACT(a, b, list(plan.flat), list(out_shape), float(alpha),
                      c)
+
+
+# --- the decode step's weight products (csrc/gemm_skinny_sm90.cu) -------
+#
+# :func:`weight_product` is ``x @ w`` (or one of the attention's two
+# einsums) for activations of a few rows against a float32 weight: the
+# serving step's q/k/v/o, FFN, expert, Mamba projection and head
+# products.  Where the weight sees at most :data:`SKINNY_ROWS` rows and
+# the operands are float32 CUDA tensors it takes (:func:`skinny_decision`),
+# it launches the weight-streaming kernel; everything else goes to
+# torch.matmul / torch.einsum as the call sites ran before.
+
+# kernel launches, and products of at most SKINNY_ROWS rows sent to torch
+# (a dtype, device, layout or autograd the kernel does not take), since
+# the last reset; a CUDA graph's replays count what it captured
+# (models/_chunk.py)
+skinny_launches = 0
+skinny_declined = 0
+
+SKINNY_ROWS = 32  # rows a weight may see (csrc/gemm_skinny_sm90.cu kRows)
+_SKINNY_BN = 128  # weight columns a tile (kBN)
+_SKINNY_BK = 32   # k a stage (kBK)
+_SKINNY_PER_SM = 2  # blocks an SM holds (kBlocksPerSM)
+# the most blocks a tile's k is split over: the last of them sums every
+# piece, so more pieces stream more of a small-n product's weight at
+# once but lengthen that sum (skinny_plan)
+SKINNY_PIECES = 16
+# what a block costs besides its stages, in stages: its start (the ring
+# filling) and, for a piece of a tile, the sum of the pieces (skinny_plan)
+SKINNY_BLOCK_COST = 4
+# the per-device tile counters the kernel leaves at 0, one a column tile
+# of every group (kept for the process: a captured graph may hold them)
+_SKINNY_COUNTERS = 1 << 16
+_skinny_counters: dict = {}
+
+HEADS_IN = "ntc,hcd->nhtd"   # weights [h, c, d]: k = c, n = (h, d)
+HEADS_OUT = "nhtd,hde->nte"  # weights [h, d, e]: k = (h, d), n = e
+
+
+@dataclass(frozen=True)
+class SkinnyForm:
+    """A product as the kernel reads it: ``x`` as ``[1 or g, m, k]``
+    (one X for every group when its first dim is 1), and the weight ``w``
+    as given, whose element ``(group, k, n)`` lies at ``group * w_g + k *
+    w_k + (n // hw) * w_h + (n % hw) * w_n``; ``out`` turns ``Y [g, m,
+    n]`` into the result torch would return."""
+
+    x: torch.Tensor
+    w: torch.Tensor
+    g: int
+    m: int
+    n: int
+    k: int
+    hw: int
+    w_g: int
+    w_k: int
+    w_h: int
+    w_n: int
+    out: object
+
+
+def _rows(x, w, spec) -> int:
+    """The rows each weight matrix sees (per group for a stack of them),
+    from the shapes alone; -1 where no product has that form."""
+    if spec is None:
+        if w.dim() == 2 and x.dim() >= 1:
+            return math.prod(x.shape[:-1])
+        if w.dim() == 3 and x.dim() in (2, 3):
+            return x.shape[-2]
+        return -1
+    if spec == HEADS_OUT:
+        return x.shape[0] * x.shape[2] if x.dim() == 4 else -1
+    return x.shape[0] * x.shape[1] if x.dim() == 3 else -1
+
+
+def _skinny_form(x, w, spec):
+    """``(form, None)``, or ``(None, reason)`` where the operands' shapes
+    or the weight's strides are not a product the kernel reads."""
+    if spec is None and w.dim() == 2:
+        k, n = w.shape
+        if x.shape[-1] != k:
+            return None, "shapes do not match"
+        lead = tuple(x.shape[:-1])
+        return SkinnyForm(x.reshape(1, -1, k), w, 1, math.prod(lead), n,
+                          k, n, 0, w.stride(0), 0, w.stride(1),
+                          lambda y: y[0].view(*lead, n)), None
+    if spec is None:
+        g, k, n = w.shape
+        if x.shape[-1] != k or (x.dim() == 3 and x.shape[0] not in (1, g)):
+            return None, "shapes do not match"
+        xs = x if x.dim() == 3 else x.unsqueeze(0)
+        return SkinnyForm(xs, w, g, xs.shape[1], n, k, n, w.stride(0),
+                          w.stride(1), 0, w.stride(2), lambda y: y), None
+    if spec == HEADS_IN:
+        nb, t, c = x.shape
+        h, c_w, d = w.shape
+        if c_w != c:
+            return None, "shapes do not match"
+        return SkinnyForm(x.reshape(1, nb * t, c), w, 1, nb * t, h * d, c,
+                          d, 0, w.stride(1), w.stride(0), w.stride(2),
+                          lambda y: y[0].view(nb, t, h, d).permute(
+                              0, 2, 1, 3)), None
+    if spec == HEADS_OUT:
+        nb, h, t, d = x.shape
+        if w.dim() != 3 or tuple(w.shape[:2]) != (h, d):
+            return None, "shapes do not match"
+        e = w.shape[2]
+        if h > 1 and w.stride(0) != d * w.stride(1):
+            return None, "the weight's head and width axes do not merge"
+        xs = x.transpose(1, 2).reshape(1, nb * t, h * d)
+        return SkinnyForm(xs, w, 1, nb * t, e, h * d, e, 0, w.stride(1), 0,
+                          w.stride(2),
+                          lambda y: y[0].view(nb, t, e)), None
+    raise _unknown(spec)
+
+
+def _unknown(spec) -> ValueError:
+    return ValueError(f"weight_product takes no einsum {spec!r}; it takes "
+                      f"{HEADS_IN!r} and {HEADS_OUT!r}")
+
+
+def skinny_decision(x, w, spec=None):
+    """``(form, reason)`` for ``weight_product(x, w, spec)``: ``(None,
+    None)`` where the weight sees no rows or more than
+    :data:`SKINNY_ROWS` (torch's product, not counted); ``(form, None)``
+    where the kernel takes it; else the reason it goes to torch (counted
+    in :data:`skinny_declined`).  Decided from the operands' shapes,
+    dtypes, strides, alignment and devices (and whether autograd records
+    them), never their values."""
+    if spec not in (None, HEADS_IN, HEADS_OUT):
+        raise _unknown(spec)
+    rows = _rows(x, w, spec)
+    if rows == 0 or rows > SKINNY_ROWS or w.numel() == 0:
+        return None, None
+    if rows < 0:
+        return None, "no kernel form for these shapes"
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return None, "autograd records the product"
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        return None, f"{x.dtype} and {w.dtype}, not float32"
+    form, why = _skinny_form(x, w, spec)
+    if why is not None:
+        return None, why
+    if form.w_n != 1:
+        return None, "the weight's columns are not unit-stride"
+    if form.k % 4:
+        return None, f"k {form.k} is not a multiple of 4"
+    if form.n // form.hw > 1 and form.hw % _SKINNY_BN:
+        return None, f"head width {form.hw} is not a multiple of {_SKINNY_BN}"
+    if any(s % 4 for s in (form.w_g, form.w_k, form.w_h)) \
+            or w.data_ptr() % 16:
+        return None, "the weight's strides or address are not 16-byte"
+    if form.g > 65535 or max(form.n, form.k) > 2 ** 31 - 256 \
+            or form.g * -(-form.n // _SKINNY_BN) > _SKINNY_COUNTERS:
+        return None, "more groups or a wider weight than the kernel indexes"
+    if x.device.type != "cuda" or w.device != x.device:
+        return None, f"tensors on {x.device} and {w.device}"
+    return form, None
+
+
+def _torch_product(x, w, spec):
+    return torch.matmul(x, w) if spec is None else torch.einsum(spec, x, w)
+
+
+def weight_product(x: torch.Tensor, w: torch.Tensor,
+                   spec: Optional[str] = None) -> torch.Tensor:
+    """``torch.matmul(x, w)`` (``spec`` None: ``w`` a matrix ``[k, n]``,
+    or a stack ``[g, k, n]`` against ``x`` ``[m, k]`` or ``[g, m, k]``),
+    or ``torch.einsum(spec, x, w)`` for ``spec`` :data:`HEADS_IN` or
+    :data:`HEADS_OUT`.  Where each weight matrix sees at most
+    :data:`SKINNY_ROWS` rows, the operands are float32 CUDA tensors and
+    the weight's layout is one the kernel reads (:func:`skinny_decision`),
+    the weight-streaming kernel computes it, float32 as split TF32 (the
+    same bits every call); else torch does, exactly as the call sites did
+    before."""
+    global skinny_launches, skinny_declined
+    form, why = skinny_decision(x, w, spec)
+    if form is None:
+        if why is not None:
+            skinny_declined += 1
+        return _torch_product(x, w, spec)
+    out = form.out(_skinny_cuda(form))
+    skinny_launches += 1
+    return out
+
+
+def weight_product_plain(x: torch.Tensor, w: torch.Tensor,
+                         spec: Optional[str] = None) -> torch.Tensor:
+    """The plain version of the kernel's product: the operands read as
+    the kernel reads them (:class:`SkinnyForm`), one ``torch.bmm`` in
+    float64, the result mapped back as the kernel's is, in ``x``'s
+    dtype."""
+    form, why = _skinny_form(x, w, spec)
+    if why is not None:
+        raise ValueError(f"no kernel form for this product: {why}")
+    heads = form.n // form.hw
+    wm = w.as_strided((form.g, form.k, heads, form.hw),
+                      (form.w_g, form.w_k, form.w_h, form.w_n))
+    xs = form.x.double().expand(form.g, -1, -1)
+    y = torch.bmm(xs, wm.reshape(form.g, form.k, form.n).double())
+    return form.out(y).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=1024)
+def skinny_plan(tiles: int, k_tiles: int, slots: int) -> tuple:
+    """``(per, grid)``: the kernel's blocks each take ``per`` of the
+    ``tiles * k_tiles`` stages in order (the last block what is left),
+    ``slots`` blocks at a time on the card.  ``per`` is a whole number of
+    tiles, or a tile's k split in equal parts, at most
+    :data:`SKINNY_PIECES`, so that neighbouring blocks read the same k
+    rows of neighbouring column tiles at about the same time (the weight
+    comes a DRAM page at a time rather than in scattered 512-byte
+    pieces).  Of those, the one with the least time: rounds of ``slots``
+    blocks, each ``per`` stages and :data:`SKINNY_BLOCK_COST` more (its
+    start, its pieces' sum); the larger ``per`` on a tie."""
+    units = tiles * k_tiles
+    pers = [k_tiles * j for j in range(1, tiles + 1)] + [
+        k_tiles // d for d in range(2, min(SKINNY_PIECES, k_tiles) + 1)
+        if k_tiles % d == 0]
+    per = min(pers, key=lambda per: (
+        -(-(-(-units // per)) // slots) * (per + SKINNY_BLOCK_COST), -per))
+    return per, -(-units // per)
+
+
+@functools.lru_cache(maxsize=16)
+def _slots(index: int) -> int:
+    """Blocks of the kernel the card holds at once."""
+    props = torch.cuda.get_device_properties(index)
+    return _SKINNY_PER_SM * props.multi_processor_count
+
+
+def _counters_for(dev: torch.device) -> torch.Tensor:
+    """The device's zeroed tile counters, which the kernel leaves at 0:
+    one buffer a device for the process, made by its first call, which
+    has to come outside a CUDA graph capture (a captured graph holds the
+    buffer; ``models/_chunk.py`` runs a chunk's step eagerly first)."""
+    buf = _skinny_counters.get(dev)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "weight_product's first call on a device is inside a CUDA "
+                "graph capture; run it once outside the capture first")
+        buf = _skinny_counters[dev] = torch.zeros(
+            _SKINNY_COUNTERS, dtype=torch.int32, device=dev)
+    return buf
+
+
+class _SkinnyArgs(ctypes.Structure):
+    """``struct SkinnyArgs`` of csrc/gemm_skinny_sm90.cu."""
+
+    _fields_ = [("x", ctypes.c_void_p), ("w", ctypes.c_void_p),
+                ("y", ctypes.c_void_p), ("partial", ctypes.c_void_p),
+                ("counters", ctypes.c_void_p)] + [
+        (name, ctypes.c_int64) for name in (
+            "g", "m", "n", "k", "hw", "x_g", "x_m", "w_g", "w_k", "w_h",
+            "per", "grid")]
+
+
+def _skinny_cuda(form: SkinnyForm) -> torch.Tensor:
+    """``Y [g, m, n]`` of a product :func:`skinny_decision` took, by the
+    kernel."""
+    x, dev = form.x, form.x.device
+    g, m, n, k = form.g, form.m, form.n, form.k
+    shared = x.shape[0] == 1
+    # TMA reads X in rows of 16-byte multiples that do not overlap
+    if x.stride(2) != 1 or x.data_ptr() % 16 or (m > 1 and (
+            x.stride(1) % 4 or x.stride(1) < k)) or (
+            not shared and x.stride(0) % 4):
+        x = x.contiguous()
+    n_tiles = -(-n // _SKINNY_BN)
+    k_tiles = -(-k // _SKINNY_BK)
+    per, grid = skinny_plan(g * n_tiles, k_tiles, _slots(dev.index))
+    y = torch.empty((g, m, n), dtype=torch.float32, device=dev)
+    partial = None if per % k_tiles == 0 else torch.empty(
+        (grid, 2, SKINNY_ROWS, _SKINNY_BN), dtype=torch.float32, device=dev)
+    counters = _counters_for(dev)
+    args = _SkinnyArgs(
+        x.data_ptr(), form.w.data_ptr(), y.data_ptr(),
+        partial.data_ptr() if partial is not None else None,
+        counters.data_ptr(), g, m, n, k, form.hw,
+        0 if shared else x.stride(0), x.stride(1) if m > 1 else k,
+        form.w_g, form.w_k, form.w_h, per, grid)
+    kernels.call("egt_skinny_gemm", dev, ctypes.addressof(args))
+    return y

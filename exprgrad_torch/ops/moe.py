@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..registry import register_extern
+from .matmul import weight_product
 
 
 def _k_of(attrs: dict) -> int:
@@ -100,7 +101,9 @@ register_extern("moe_grad", 6, _moe_grad)
 # ``swiglu_dense_masked`` runs every expert on every row and weighs them
 # by the routing mask, whose shapes do not depend on the routing (the
 # server's decode step inside a CUDA graph).  Both compute in the
-# inputs' dtype.
+# inputs' dtype; their weight products go through
+# ``ops.matmul.weight_product`` (the weight-streaming kernel where an
+# expert sees at most 32 rows).
 
 
 def route_top(x, router, k: int):
@@ -113,9 +116,11 @@ def route_top(x, router, k: int):
 
 
 def swiglu(x, wg, wu, wd):
-    """One bias-free SwiGLU: ``(silu(x @ wg) * (x @ wu)) @ wd``."""
-    g = x @ wg
-    return (g / (1.0 + torch.exp(-g)) * (x @ wu)) @ wd
+    """One bias-free SwiGLU: ``(silu(x @ wg) * (x @ wu)) @ wd`` (each
+    product by ``ops.matmul.weight_product``)."""
+    g = weight_product(x, wg)
+    return weight_product(g / (1.0 + torch.exp(-g)) * weight_product(x, wu),
+                          wd)
 
 
 def swiglu_routed(x, router, wg, wu, wd, k: int):
@@ -146,9 +151,9 @@ def swiglu_dense_masked(x, router, wg, wu, wd, k: int):
     idx, weight = route_top(x, router, k)
     mask = torch.zeros((x.shape[0], wg.shape[0]), dtype=x.dtype,
                        device=x.device).scatter(1, idx, weight)
-    g = torch.matmul(x, wg)                           # [E, rows, hidden]
-    h = g / (1.0 + torch.exp(-g)) * torch.matmul(x, wu)
-    return torch.einsum("re,erd->rd", mask, torch.bmm(h, wd))
+    g = weight_product(x, wg)                         # [E, rows, hidden]
+    h = g / (1.0 + torch.exp(-g)) * weight_product(x, wu)
+    return torch.einsum("re,erd->rd", mask, weight_product(h, wd))
 
 
 def _moe_swiglu(args, attrs, ctx):

@@ -1,8 +1,9 @@
 """Split TF32 ("3xTF32") arithmetic, emulated on the CPU.
 
 The port's tensor-core kernels (``csrc/tf32x3.cuh``, used by B1
-``csrc/matmul.cuh`` and ``csrc/gemm_sm90.cu``, B2 ``csrc/flash_fwd.cu``
-and B3/B4 ``csrc/flash_bwd.cu``) compute a float32
+``csrc/matmul.cuh`` and ``csrc/gemm_sm90.cu``, B2 ``csrc/flash_fwd.cu``,
+B3/B4 ``csrc/flash_bwd.cu`` and the decode step's
+``csrc/gemm_skinny_sm90.cu``) compute a float32
 product as three TF32 products: each operand ``x`` is split into
 ``big = rna(x)`` and ``small = rna(x - big)`` (``cvt.rna.tf32.f32``,
 round to nearest, ties away from zero) and ``a * b`` becomes

@@ -92,6 +92,8 @@ _SIGNATURES = {
     "egt_tf32_split": [_P, _P],
     # &GemmArgs, stream (gemm_sm90.cu)
     "egt_gemm_tf32x3": [_P, _P],
+    # &SkinnyArgs, stream (gemm_skinny_sm90.cu)
+    "egt_skinny_gemm": [_P, _P],
     # q, k, v, k_scale, v_scale, table, key_pos, q_pos, out, part, b, h,
     # hkv, n_pages, t, d, page, n_tbl, scale, window, vec, n_split, pps,
     # q_dtype, kv_dtype, stream

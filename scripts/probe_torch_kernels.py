@@ -44,6 +44,18 @@ seed 0:
    k over 495 TFLOP/s), torch.einsum's device ms (TF32 off), and B1's
    ``mma.sync`` mainloop (``matmul_impl``, default block) at the same
    m, n, k with contiguous [m, k] and [k, n] operands.
+   ``skinny`` (not in the default): the decode step's weight products on
+   the weight-streaming kernel (csrc/gemm_skinny_sm90.cu,
+   ``ops.matmul.weight_product``) at every decode product of the two
+   chat cells (chip_smoke.py's ``DECODE_GEMMS``) at 32 rows (``--rows``
+   for others): the largest error against float64 over ``|y| + 1`` and
+   whether two calls give the same bits; the device ms a product as the
+   decode graph runs it (8 rounds of the product over enough copies of
+   the weight to pass 256 MB, so each reads its weight from HBM,
+   captured in one CUDA graph, CUDA events over three replays), the same
+   for torch.matmul / torch.einsum (cuBLAS, TF32 off); the byte bound
+   (the weight, X and Y once over 3.35 TB/s) and each one's share of
+   it; then each cell's decode step summed over its products.
 4. b7: paged decode attention (B7, csrc/paged_attention.cu) at bench.py's
    paged shape and at path (e)'s decode step, beside its library route
    (gather_view, then scaled_dot_product_attention): as b5.
@@ -69,6 +81,7 @@ nvcc; imports no jax.
 
 import argparse
 import ctypes
+import math
 import os
 import re
 import subprocess
@@ -575,6 +588,80 @@ def gemm(say, dev):
         torch.cuda.empty_cache()
 
 
+def graph_ms(calls, reps: int = 8) -> float:
+    """Device ms a call of ``calls`` (closures), ``reps`` rounds of them
+    captured in one CUDA graph, by CUDA events over three replays."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            for fn in calls:
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps * len(calls))
+
+
+def skinny(say, dev, rows):
+    from chip_smoke import DECODE_GEMMS, decode_weight, decode_x_shape
+    from exprgrad_torch.ops import matmul
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hbm = 3.35e12
+    for m in rows:
+        step = {"mistral": [0.0] * 3, "jamba": [0.0] * 3}
+        for label, xs, ws, spec, per_mistral, per_jamba in DECODE_GEMMS:
+            gen = torch.Generator(device=dev).manual_seed(len(label) + m)
+            w_bytes = 4 * math.prod(ws)
+            weights = [decode_weight(ws, dev, gen) for _ in range(
+                max(2, -(-256 * 2 ** 20 // w_bytes)))]
+            x = torch.randn(decode_x_shape(xs, m), device=dev, generator=gen)
+            w = weights[0]
+            got = matmul.weight_product(x, w, spec)
+            same = bool(torch.equal(got, matmul.weight_product(x, w, spec)))
+            want = matmul.weight_product_plain(x.double(), w, spec)
+            err = float(((got.double() - want).abs() / (want.abs() + 1))
+                        .max())
+            lib = matmul._torch_product(x, w, spec)
+            lib_err = float(((lib.double() - want).abs() / (want.abs() + 1))
+                            .max())
+            nbytes = w_bytes + 4 * (x.numel() + got.numel())
+            del got, want, lib
+            least = nbytes / hbm * 1e3
+            ms = graph_ms([lambda w=w: matmul.weight_product(x, w, spec)
+                           for w in weights])
+            lib_ms = graph_ms([lambda w=w: matmul._torch_product(x, w, spec)
+                               for w in weights])
+            del weights, w
+            torch.cuda.empty_cache()
+            for cell, count in (("mistral", per_mistral),
+                                ("jamba", per_jamba)):
+                for i, v in enumerate((ms, lib_ms, least)):
+                    step[cell][i] += count * v
+            say(f"skinny {label} m {m}: {nbytes / 1e6:.1f} MB, bound "
+                f"{least:.4f} ms; kernel {ms:.4f} ms "
+                f"({100 * least / ms:.1f}%), cuBLAS {lib_ms:.4f} ms "
+                f"({100 * least / lib_ms:.1f}%); err {err:.2e} (cuBLAS "
+                f"{lib_err:.2e}), same bits {same}")
+        for cell, (ms, lib_ms, least) in step.items():
+            say(f"skinny {cell} decode step at {m} rows: kernel {ms:.3f} "
+                f"ms, cuBLAS {lib_ms:.3f} ms, bound {least:.3f} ms")
+
+
 def b5(say, dev):
     from chip_smoke import scatter_tokens
 
@@ -935,7 +1022,9 @@ def main() -> int:
     ap.add_argument("--out", default="build/probe_torch_kernels.txt")
     ap.add_argument("--parts", default="tensor,power,b5,b7",
                     help="any of tensor, power, b5, b5map, b7, host, "
-                    "ops, gemm")
+                    "ops, gemm, skinny")
+    ap.add_argument("--rows", default="32",
+                    help="skinny's row counts, comma-separated")
     ap.add_argument("--skip-variants", action="store_true")
     ap.add_argument("--variants", default="fwd,bwd",
                     help="which kernels' variants to time: fwd, bwd, b5, b7")
@@ -966,6 +1055,8 @@ def main() -> int:
             b5map(say, dev)
         if "gemm" in parts:
             gemm(say, dev)
+        if "skinny" in parts:
+            skinny(say, dev, [int(r) for r in args.rows.split(",")])
         if "b5" in parts:
             b5(say, dev)
         elif "host" in parts:

@@ -38,7 +38,8 @@ from exprgrad_torch.models._sample import make_row_picker
 VOCAB = 32
 STEP_TOL = dict(rtol=1e-4, atol=1e-5)
 # counters of the port's batcher that the JAX package's does not keep
-PORT_ONLY = ("prefill_tokens", "prefill_padded_tokens", "decode_tokens")
+PORT_ONLY = ("prefill_tokens", "prefill_padded_tokens", "decode_tokens",
+             "skinny_launches", "skinny_declined")
 
 
 def shared(stats: dict) -> dict:

@@ -461,6 +461,6 @@ def test_dense_model_records_nothing_new():
     assert not any(n.startswith("egt.server.") for n in names)
     assert set(b.stats) == {
         "decode_steps", "dispatches", "active", "queued", "prefill_tokens",
-        "prefill_padded_tokens", "decode_tokens", "free_pages",
-        "pool_pages", "preemptions", "window_evicted", "prefixes",
-        "prefix_hits"}
+        "prefill_padded_tokens", "decode_tokens", "skinny_launches",
+        "skinny_declined", "free_pages", "pool_pages", "preemptions",
+        "window_evicted", "prefixes", "prefix_hits"}
